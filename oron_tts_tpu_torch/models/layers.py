@@ -1,0 +1,285 @@
+"""DiT building blocks in PyTorch, feature-last ``[B, T, C]`` layout.
+
+Counterparts of the JAX package's ``models/layers.py``. Submodules carry
+the flax parameter names (``to_q``, ``attn_norm.linear``, ``conv1``, …) so
+``utils.weights.from_flax_params`` loads a flax tree as a state dict.
+Modules compute in the dtype their parameters are cast to (bf16 on the
+card, f32 on the CPU); masks are boolean ``[B, T]`` prefixes.
+
+Attention runs the lanes kernel (``ops/flash_attention.py``) and the
+position-embedding convs run the grouped-conv kernel
+(``ops/grouped_conv.py``); on CPU tensors both take their plain versions.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish, mish
+
+__all__ = [
+    "mish", "sinusoidal_embedding", "rope_tables", "apply_rope_lanes",
+    "text_position_table", "TimestepEmbedding", "ConvPositionEmbedding",
+    "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
+    "AdaLayerNormFinal", "Attention", "FeedForward", "DiTBlock",
+]
+
+
+def sinusoidal_embedding(
+    t: torch.Tensor, dim: int, scale: float = 1000.0, theta: float = 10000.0
+) -> torch.Tensor:
+    """[B] → [B, dim] f32: cat(sin, cos)."""
+    half = dim // 2
+    freqs = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=t.device)
+        * (-math.log(theta) / (half - 1))
+    )
+    args = scale * t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def rope_tables(seq_len: int, dim_head: int, theta: float = 10000.0) -> tuple[np.ndarray, np.ndarray]:
+    """RoPE cos/sin [seq_len, dim_head] (rotate-half convention), float64 → f32."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, dim_head, 2, dtype=np.float64) / dim_head))
+    freqs = np.outer(np.arange(seq_len, dtype=np.float64), inv_freq)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def lanes_rope(seq_len: int, dim_head: int, heads: int, device: str, dtype: torch.dtype):
+    """cos/sin tiled over heads to [1, T, H·D] on ``device`` in ``dtype``."""
+    cos, sin = rope_tables(seq_len, dim_head)
+    return tuple(
+        torch.from_numpy(np.tile(a, (1, heads))[None]).to(device=device, dtype=dtype)
+        for a in (cos, sin)
+    )
+
+
+def apply_rope_lanes(
+    q: torch.Tensor, k: torch.Tensor, cos_l: torch.Tensor, sin_l: torch.Tensor, heads: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE on the lanes layout: q, k [B, T, H·D]; cos_l/sin_l [1, T, H·D]."""
+    B, T, HD = q.shape
+    d = HD // heads
+
+    def rot(x: torch.Tensor) -> torch.Tensor:
+        x4 = x.reshape(B, T, heads, d)
+        return torch.cat([-x4[..., d // 2:], x4[..., : d // 2]], dim=-1).reshape(B, T, HD)
+
+    return q * cos_l + rot(q) * sin_l, k * cos_l + rot(k) * sin_l
+
+
+def text_position_table(dim: int, max_pos: int = 8192, theta: float = 10000.0) -> np.ndarray:
+    """Sinusoidal text positions [max_pos, dim]: cat(cos, sin)."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
+    angles = np.outer(np.arange(max_pos, dtype=np.float64), freqs)
+    return np.concatenate([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without scale or bias (flax ``use_scale=False, use_bias=False``)."""
+    return F.layer_norm(x, x.shape[-1:], eps=eps)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, dim: int, freq_embed_dim: int = 256) -> None:
+        super().__init__()
+        self.freq_embed_dim = freq_embed_dim
+        self.mlp_in = nn.Linear(freq_embed_dim, dim)
+        self.mlp_out = nn.Linear(dim, dim)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        h = sinusoidal_embedding(t, self.freq_embed_dim).to(self.mlp_in.weight.dtype)
+        return self.mlp_out(F.silu(self.mlp_in(h)))
+
+
+class ConvWeights(nn.Module):
+    """A 1-D conv's parameters in the JAX layout: weight [K, cin/g, C], bias [C]."""
+
+    def __init__(self, kernel_size: int, cin_g: int, dim: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(kernel_size, cin_g, dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+class ConvPositionEmbedding(nn.Module):
+    """Two grouped 1-D convs (k=31, groups=16) with Mish, padding re-masked.
+
+    Each conv is one launch of the grouped-conv kernel with bias and Mish
+    fused; mish(0) = 0, so masking after the fused op is exact.
+    """
+
+    def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16) -> None:
+        super().__init__()
+        self.groups = groups
+        self.conv1 = ConvWeights(kernel_size, dim // groups, dim)
+        self.conv2 = ConvWeights(kernel_size, dim // groups, dim)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        keep = None if mask is None else mask[..., None]
+        if keep is not None:
+            x = x.masked_fill(~keep, 0.0)
+        for conv in (self.conv1, self.conv2):
+            x = grouped_conv1d_mish(x, conv.weight, conv.bias, self.groups)
+            if keep is not None:
+                x = x.masked_fill(~keep, 0.0)
+        return x
+
+
+class DepthwiseConv1d(nn.Module):
+    """Depthwise 1-D conv as K shifted multiply-adds (SAME padding)."""
+
+    def __init__(self, dim: int, kernel_size: int = 7, dilation: int = 1) -> None:
+        super().__init__()
+        self.kernel_size, self.dilation = kernel_size, dilation
+        self.weight = nn.Parameter(torch.zeros(kernel_size, 1, dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C]
+        pad = self.dilation * (self.kernel_size // 2)
+        t = x.shape[-2]
+        xp = F.pad(x, (0, 0, pad, pad))
+        out = None
+        for i in range(self.kernel_size):
+            tap = xp[..., i * self.dilation: i * self.dilation + t, :]
+            term = tap * self.weight[i, 0]
+            out = term if out is None else out + term
+        return out + self.bias
+
+
+class GRN(nn.Module):
+    """Global Response Normalization over time, with the safe sqrt."""
+
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1, 1, dim))
+        self.beta = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sumsq = torch.sum(x * x, dim=1, keepdim=True)
+        gx = torch.sqrt(torch.clamp(sumsq, min=1e-24))
+        nx = gx / (torch.mean(gx, dim=-1, keepdim=True) + 1e-6)
+        return self.gamma * (x * nx) + self.beta + x
+
+
+class ConvNeXtV2Block(nn.Module):
+    def __init__(self, dim: int, intermediate_dim: int, dilation: int = 1) -> None:
+        super().__init__()
+        self.dwconv = DepthwiseConv1d(dim, kernel_size=7, dilation=dilation)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(self.dwconv(x))
+        h = self.grn(F.gelu(self.pwconv1(h)))
+        return x + self.pwconv2(h)
+
+
+def _split_mods(mods: torch.Tensor, n: int) -> list[torch.Tensor]:
+    if mods.ndim == 1:
+        mods = mods[None, :]
+    return list(torch.chunk(mods, n, dim=-1))
+
+
+class AdaLayerNorm(nn.Module):
+    """6-way AdaLN: MSA shift/scale/gate and MLP shift/scale/gate.
+
+    ``mods`` replaces ``linear(silu(emb))`` with a precomputed row (the
+    sampler hoists these projections out of the Euler loop).
+    """
+
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 6)
+
+    def forward(self, x, emb, mods=None):
+        if mods is None:
+            mods = self.linear(F.silu(emb))
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = _split_mods(mods, 6)
+        out = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        return out, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class AdaLayerNormFinal(nn.Module):
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 2)
+
+    def forward(self, x, emb, mods=None):
+        if mods is None:
+            mods = self.linear(F.silu(emb))
+        scale, shift = _split_mods(mods, 2)
+        return layer_norm(x) * (1 + scale)[:, None] + shift[:, None]
+
+
+class Attention(nn.Module):
+    """Self-attention with RoPE and a key-padding prefix, on the lanes layout.
+
+    q/k/v stay ``[B, T, H·D]`` from the projections through the kernel.
+    """
+
+    def __init__(self, dim: int, heads: int, dim_head: int = 64) -> None:
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = nn.Linear(dim, inner)
+        self.to_k = nn.Linear(dim, inner)
+        self.to_v = nn.Linear(dim, inner)
+        self.to_out = nn.Linear(inner, dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+        kv_lens: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        B, T, _ = x.shape
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if kv_lens is None:
+            kv_lens = (
+                mask.sum(dim=-1, dtype=torch.int32) if mask is not None
+                else torch.full((B,), T, dtype=torch.int32, device=x.device)
+            )
+        if rope is not None:
+            q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
+        out = self.to_out(flash_lanes_fwd(q, k, v, kv_lens, self.heads))
+        if mask is not None:
+            out = out.masked_fill(~mask[..., None], 0.0)
+        return out
+
+
+class FeedForward(nn.Module):
+    """Linear → GELU(tanh) → Linear (inference: no dropout)."""
+
+    def __init__(self, dim: int, mult: int = 4) -> None:
+        super().__init__()
+        self.in_proj = nn.Linear(dim, dim * mult)
+        self.out_proj = nn.Linear(dim * mult, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_proj(F.gelu(self.in_proj(x), approximate="tanh"))
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, ff_mult: int = 4) -> None:
+        super().__init__()
+        self.attn_norm = AdaLayerNorm(dim)
+        self.attn = Attention(dim, heads, dim_head)
+        self.ff = FeedForward(dim, ff_mult)
+
+    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None):
+        normed, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t, mods=tmods)
+        x = x + gate_msa[:, None] * self.attn(normed, mask=mask, rope=rope, kv_lens=kv_lens)
+        ff_in = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        return x + gate_mlp[:, None] * self.ff(ff_in)

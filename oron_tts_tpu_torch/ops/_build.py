@@ -1,0 +1,125 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
+shared library, ``build/torch_kernels/lib<name>_<hash>.so`` under the
+repository root, compiled for ``sm_90a`` the first time a wrapper meets a
+CUDA tensor (or when ``build_all`` is called). The hash covers the source
+and the flags, so an edited kernel is rebuilt and a built one is reused.
+Sources are compiled in parallel, one ``nvcc`` process each.
+
+Wrappers import this module lazily: the CPU never looks for ``nvcc``.
+Every pointer and the stream go through ``ctypes.c_void_p`` (a bare int
+would be cut to 32 bits), and every C entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+KERNELS = ("flash_lanes", "grouped_conv", "fused_mel")
+
+# C signatures: argument ctypes per entry point (all return int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_lanes": {
+        # q, k, v, kv_lens, out, B, T, H, D, is_bf16, stream
+        "flash_lanes_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "grouped_conv": {
+        # x, w, bias(f32), y, B, T, C, groups, K, is_bf16, stream
+        "grouped_conv1d_mish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "fused_mel": {
+        # audio, L, window, twiddle, fb, out, n_frames, n_fft, hop,
+        # n_mels, log_clip, stream
+        "log_mel_fused": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False) -> dict[str, Path]:
+    """Compile every missing library, all ``nvcc`` processes at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in names}
+    procs = {}
+    for name, out in todo.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        if verbose and log.strip():
+            print(log.strip(), file=sys.stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

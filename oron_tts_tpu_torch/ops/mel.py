@@ -1,0 +1,95 @@
+"""Log-mel spectrogram with the Vocos feature contract (plain PyTorch).
+
+Same contract as the JAX package's ``ops/mel.py``: reflect-pad by n_fft/2,
+periodic Hann window zero-padded to n_fft, onesided DFT magnitude
+(power 1), HTK mel filterbank without norm (torchaudio's defaults), and
+``log(max(mel, 1e-5))``. The window and filterbank are built on the host
+in numpy, once per configuration.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    sample_rate: int = 24000
+    n_fft: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mels: int = 100
+    f_min: float = 0.0
+    f_max: float | None = None  # defaults to sample_rate / 2
+    log_clip: float = 1e-5
+
+    @property
+    def fmax(self) -> float:
+        return self.sample_rate / 2 if self.f_max is None else self.f_max
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+
+def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
+    """Hann window; the periodic form matches ``torch.hann_window``."""
+    n = win_length + 1 if periodic else win_length
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(n - 1, 1))
+    return w[:win_length].astype(np.float32)
+
+
+def padded_hann_window(n_fft: int, win_length: int) -> np.ndarray:
+    """Hann window zero-padded and centred to n_fft (torch.stft's convention)."""
+    w = np.zeros(n_fft, dtype=np.float32)
+    offset = (n_fft - win_length) // 2
+    w[offset: offset + win_length] = hann_window(win_length)
+    return w
+
+
+def _hz_to_mel_htk(f: np.ndarray | float) -> np.ndarray:
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m: np.ndarray) -> np.ndarray:
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
+def mel_filterbank(cfg: MelConfig) -> np.ndarray:
+    """Triangular HTK mel filterbank [n_freqs, n_mels] (torchaudio-compatible)."""
+    all_freqs = np.linspace(0, cfg.sample_rate // 2, cfg.n_freqs)
+    mel_pts = np.linspace(
+        _hz_to_mel_htk(cfg.f_min), _hz_to_mel_htk(cfg.fmax), cfg.n_mels + 2
+    )
+    f_pts = _mel_to_hz_htk(mel_pts)
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_constants(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(window [n_fft], filterbank [n_freqs, n_mels]) as host arrays."""
+    return padded_hann_window(cfg.n_fft, cfg.win_length), mel_filterbank(cfg)
+
+
+def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """[..., L] f32 waveform → [..., n_mels, 1 + L // hop] log-mel, in f32."""
+    window, fb = mel_constants(cfg)
+    x = audio.float()
+    lead = x.shape[:-1]
+    pad = cfg.n_fft // 2
+    x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)  # [N, frames, n_fft]
+    frames = frames * torch.from_numpy(window).to(x.device)
+    mag = torch.fft.rfft(frames, dim=-1).abs()  # [N, frames, n_freqs]
+    mel = torch.matmul(mag, torch.from_numpy(fb).to(x.device))  # [N, frames, n_mels]
+    out = torch.log(torch.clamp(mel, min=cfg.log_clip)).transpose(-1, -2)
+    return out.reshape(*lead, cfg.n_mels, out.shape[-1])
