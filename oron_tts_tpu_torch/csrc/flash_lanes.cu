@@ -1,7 +1,8 @@
 // Lanes-layout flash attention forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel oron_tts_tpu/ops/flash_attention.py:387
-// (_flash_lanes_kernel). q, k, v and o stay in the [B, T, H*D] layout the
+// Replaces the TPU kernels oron_tts_tpu/ops/flash_attention.py:387
+// (_flash_lanes_kernel) and :424 (_flash_lanes_fwd_stats_kernel: the same
+// output plus the row statistic the backward reads). q, k, v and o stay in the [B, T, H*D] layout the
 // projections write: a block reads its head's 64 columns with strided rows,
 // so no head transpose is ever materialised.
 //
@@ -23,6 +24,15 @@
 // the bound is the tensor cores. bf16 uses mma.sync m16n8k16 with f32
 // accumulators (not yet wgmma/TMA); f32 inputs take a plain SIMT kernel
 // in true f32, one query row per thread.
+//
+// Stats: the online softmax ends with the row's running max m and sum l in
+// registers, so flash_lanes_fwd_stats writes lse2 = m + log2(max(l, 1e-30)),
+// in base-2 units of the scaled scores s = q.k / sqrt(D) * log2(e), to a
+// [B, H, T] f32 tensor (the TPU keeps [B, H*D/128, 2, T]). Both entry points
+// launch the same kernel; a null lse pointer skips that one store, so the
+// attention output is bit-equal between them. A row with kv_len <= 0 gets
+// lse2 = log2(T) (equal weights); the TPU's -1e30 mask gives -1e30 there.
+// Training never has such a row with a non-zero gradient.
 #include "common.cuh"
 
 namespace {
@@ -38,8 +48,8 @@ flash_lanes_bf16(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ kv_lens,
-                 __nv_bfloat16* __restrict__ o, int T, int HD,
-                 float scale_log2) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
+                 int HD, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 Qs[BM * LDS];
   __shared__ __align__(16) __nv_bfloat16 Ks[BN * LDS];
   __shared__ __align__(16) __nv_bfloat16 Vt[D * LDV];  // [d][key]
@@ -174,6 +184,11 @@ flash_lanes_bf16(const __nv_bfloat16* __restrict__ q,
     l[r] = fmaxf(x, 1e-30f);
   }
   const int row = q0 + r0;
+  if (lse != nullptr && t4 == 0) {
+    float* lrow = lse + ((size_t)b * gridDim.y + h) * T;
+    if (row < T) lrow[row] = m_i[0] + log2f(l[0]);
+    if (row + 8 < T) lrow[row + 8] = m_i[1] + log2f(l[1]);
+  }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = j * 8 + t4 * 2;
@@ -192,7 +207,8 @@ constexpr int F32_KEYS = 32;  // keys per shared-memory tile
 __global__ void __launch_bounds__(F32_ROWS)
 flash_lanes_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ kv_lens,
-                float* __restrict__ o, int T, int HD, float scale_log2) {
+                float* __restrict__ o, float* __restrict__ lse, int T, int HD,
+                float scale_log2) {
   __shared__ float Ks[F32_KEYS][D];
   __shared__ float Vs[F32_KEYS][D];
   const int h = blockIdx.y, b = blockIdx.z;
@@ -242,14 +258,16 @@ flash_lanes_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < D; ++d) o[base + (size_t)row * HD + d] = acc[d] / denom;
+    if (lse != nullptr)
+      lse[((size_t)b * gridDim.y + h) * T + row] = m + log2f(denom);
   }
 }
 
 }  // namespace
 
-extern "C" int flash_lanes_fwd(const void* q, const void* k, const void* v,
-                               const void* kv_lens, void* out, int B, int T,
-                               int H, int Dh, int is_bf16, void* stream) {
+static int launch_fwd(const void* q, const void* k, const void* v,
+                      const void* kv_lens, void* out, float* lse, int B, int T,
+                      int H, int Dh, int is_bf16, void* stream) {
   if (Dh != D) return (int)cudaErrorInvalidValue;
   const int HD = H * Dh;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)Dh);
@@ -259,13 +277,29 @@ extern "C" int flash_lanes_fwd(const void* q, const void* k, const void* v,
     flash_lanes_bf16<<<grid, 128, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
-        static_cast<__nv_bfloat16*>(out), T, HD, scale_log2);
+        static_cast<__nv_bfloat16*>(out), lse, T, HD, scale_log2);
   } else {
     dim3 grid((T + F32_ROWS - 1) / F32_ROWS, H, B);
     flash_lanes_f32<<<grid, F32_ROWS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(kv_lens),
-        static_cast<float*>(out), T, HD, scale_log2);
+        static_cast<float*>(out), lse, T, HD, scale_log2);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int flash_lanes_fwd(const void* q, const void* k, const void* v,
+                               const void* kv_lens, void* out, int B, int T,
+                               int H, int Dh, int is_bf16, void* stream) {
+  return launch_fwd(q, k, v, kv_lens, out, nullptr, B, T, H, Dh, is_bf16, stream);
+}
+
+// Same output, plus lse2 [B, H, T] f32 for the backward.
+extern "C" int flash_lanes_fwd_stats(const void* q, const void* k, const void* v,
+                                     const void* kv_lens, void* out, void* lse,
+                                     int B, int T, int H, int Dh, int is_bf16,
+                                     void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_fwd(q, k, v, kv_lens, out, static_cast<float*>(lse), B, T, H, Dh,
+                    is_bf16, stream);
 }

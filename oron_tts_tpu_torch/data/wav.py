@@ -1,8 +1,9 @@
 """Self-contained WAV (RIFF) reading/writing on numpy.
 
 The subset of the JAX package's ``data/wav.py`` that ``AudioProcessor``
-needs: PCM 8/16/24/32 and IEEE float32/64 decode, PCM16/float32 encode,
-polyphase resampling and peak normalization.
+and the training dataset need: PCM 8/16/24/32 and IEEE float32/64 decode,
+PCM16/float32 encode, header-only durations, polyphase resampling and peak
+normalization.
 """
 
 from __future__ import annotations
@@ -91,6 +92,46 @@ def _read_wav_bytes(data: bytes) -> tuple[np.ndarray, int]:
 
 def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     return read_wav_bytes(Path(path).read_bytes())
+
+
+def wav_info(path: str | Path) -> tuple[float, int]:
+    """Header-only (duration_seconds, sample_rate) of a WAV file.
+
+    Reads the first 64 KiB and falls back to the whole file for exotic chunk
+    layouts. Raises ValueError for malformed data.
+    """
+    with open(path, "rb") as f:
+        head = f.read(65536)
+    try:
+        return _wav_info_bytes(head)
+    except (ValueError, struct.error):
+        try:
+            return _wav_info_bytes(Path(path).read_bytes())
+        except struct.error as exc:
+            raise ValueError(f"malformed WAVE data: {exc}") from exc
+
+
+def _wav_info_bytes(data: bytes) -> tuple[float, int]:
+    buf = io.BytesIO(data)
+    riff, _size, wave = struct.unpack("<4sI4s", buf.read(12))
+    if riff != b"RIFF" or wave != b"WAVE":
+        raise ValueError("not a RIFF/WAVE file")
+    sample_rate = channels = bits = data_size = None
+    while sample_rate is None or data_size is None:
+        header = buf.read(8)
+        if len(header) < 8:
+            break
+        chunk_id, chunk_size = struct.unpack("<4sI", header)
+        if chunk_id == b"fmt ":
+            payload = buf.read(chunk_size)
+            _, channels, sample_rate, _, _, bits = struct.unpack("<HHIIHH", payload[:16])
+        else:
+            if chunk_id == b"data":
+                data_size = chunk_size
+            buf.seek(chunk_size + chunk_size % 2, 1)
+    if sample_rate is None or data_size is None or not channels or not bits:
+        raise ValueError("missing fmt/data chunk")
+    return data_size // (channels * bits // 8) / sample_rate, sample_rate
 
 
 def wav_bytes(

@@ -5,12 +5,21 @@ Counterpart of the JAX package's ``models/dit.py`` in the unrolled
 the caller (``embed_text``) and passed in; ``forward_cfg`` runs the
 conditional and unconditional rows as one doubled batch, the input
 embedding included (one grouped-conv launch per conv for both rows).
+
+Training calls ``forward`` with ``dropout_seeds``, one ``(attention, FFN)``
+pair of ints per block; without them the pass is deterministic (the JAX
+package's ``deterministic=True``). ``gradient_checkpointing`` recomputes
+each block in the backward through ``torch.utils.checkpoint``; the seeds
+are plain arguments, so the recomputation draws the same masks. The JAX
+package's ``scan_blocks``, ``remat_policy`` and AOT layouts steer XLA and
+have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from oron_tts_tpu_torch.models.layers import (
     AdaLayerNormFinal,
@@ -50,14 +59,17 @@ class DiT(nn.Module):
         vocab_size: int = 65,
         text_dim: int = 512,
         conv_layers: int = 4,
+        dropout: float = 0.1,
+        gradient_checkpointing: bool = False,
     ) -> None:
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
+        self.dropout, self.gradient_checkpointing = dropout, gradient_checkpointing
         self.time_embed = TimestepEmbedding(dim)
         self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
         self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
         for i in range(depth):
-            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult))
+            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult, dropout))
         self.norm_out = AdaLayerNormFinal(dim)
         self.proj_out = nn.Linear(dim, mel_dim)
 
@@ -73,7 +85,7 @@ class DiT(nn.Module):
         """Hoistable timestep embedding: [S] → [S, dim]."""
         return self.time_embed(time)
 
-    def _transformer(self, h, t, mask, t_mods=None):
+    def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None):
         B, T, _ = h.shape
         rope = lanes_rope(T, self.dim_head, self.heads, str(h.device), h.dtype)
         kv_lens = (
@@ -81,8 +93,11 @@ class DiT(nn.Module):
             else torch.full((B,), T, dtype=torch.int32, device=h.device)
         )
         block_mods, final_mods = t_mods if t_mods is not None else (None, None)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            h = blk(h, t, mask, rope, None if block_mods is None else block_mods[i], kv_lens)
+            args = (h, t, mask, rope, None if block_mods is None else block_mods[i],
+                    kv_lens, None if dropout_seeds is None else dropout_seeds[i])
+            h = checkpoint(blk, *args, use_reentrant=False) if remat else blk(*args)
         return self.proj_out(self.norm_out(h, t, mods=final_mods))
 
     def forward(
@@ -96,8 +111,13 @@ class DiT(nn.Module):
         drop_text: bool = False,
         text_embed: torch.Tensor | None = None,
         t_mods: tuple[torch.Tensor, torch.Tensor] | None = None,
+        dropout_seeds: list[tuple[int, int]] | None = None,
     ) -> torch.Tensor:
-        """Velocity [B, T, mel_dim] for noised mel x and conditioning cond."""
+        """Velocity [B, T, mel_dim] for noised mel x and conditioning cond.
+
+        ``drop_audio_cond`` and ``drop_text`` are one decision for the whole
+        batch, as in the JAX package's CFG dropout.
+        """
         t = None
         if t_mods is None:
             if time.ndim == 0:
@@ -106,7 +126,7 @@ class DiT(nn.Module):
         if text_embed is None:
             text_embed = self.embed_text(text_ids, x.shape[1], drop_text=drop_text)
         h = self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
-        return self._transformer(h, t, mask, t_mods=t_mods)
+        return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds)
 
     def forward_cfg(
         self,

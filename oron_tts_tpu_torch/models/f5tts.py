@@ -10,6 +10,13 @@ other, chunk i with seed ``seed + i``.
 
 Runs on the card unless ``device="cpu"`` is given; without CUDA and
 without that request it raises.
+
+Precision. The backbone computes in ``dtype`` (bf16 on the card): its
+parameters are a working set in that type. Training (``train/trainer.py``)
+keeps f32 master weights, moments and EMA outside the module and copies the
+masters into the working set after every update, where the JAX package
+keeps f32 parameters and casts kernel and input at each ``Dense``. The
+products are the same, and inference runs exactly as before.
 """
 
 from __future__ import annotations
@@ -32,7 +39,11 @@ from oron_tts_tpu_torch.ops.audio import AudioProcessor
 from oron_tts_tpu_torch.text import TextCleaner, validate_language
 from oron_tts_tpu_torch.text.align import stretch_text_to_len
 from oron_tts_tpu_torch.utils.device import default_dtype, resolve_device
-from oron_tts_tpu_torch.utils.weights import from_flax_params, load_npz_tree
+from oron_tts_tpu_torch.utils.weights import (
+    from_flax_params,
+    init_dit_params,
+    load_npz_tree,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -121,13 +132,30 @@ class F5TTS:
         self.backbone = DiT(
             dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
             ff_mult=m.ff_mult, mel_dim=a.n_mels, vocab_size=m.vocab_size,
-            text_dim=m.text_dim, conv_layers=m.conv_layers,
+            text_dim=m.text_dim, conv_layers=m.conv_layers, dropout=m.p_dropout,
+            gradient_checkpointing=bool(config.gradient_checkpointing),
         ).to(device=self.device, dtype=self.dtype).eval()
-        self.cfm = CFM(self.backbone, n_mels=a.n_mels)
+        self.cfm = CFM(
+            self.backbone, n_mels=a.n_mels, audio_drop_prob=m.audio_drop_prob,
+            cond_drop_prob=m.cond_drop_prob, frac_lengths_mask=m.frac_lengths_mask,
+        )
         self.params_loaded = False
         self.vocoder: VocosDecoder | None = None
 
+    @classmethod
+    def from_config(cls, config: dict[str, Any] | F5Config, **kwargs: Any) -> "F5TTS":
+        if isinstance(config, dict):
+            config = F5Config.from_dict(config)
+        return cls(config, **kwargs)
+
     # ── parameters ───────────────────────────────────────────────────────
+
+    def init_params(self, seed: int = 0) -> None:
+        """Fresh parameters under the JAX package's initial scheme."""
+        self.load_params(init_dit_params(self.config.model, self.n_mels, seed))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.backbone.parameters())
 
     def load_params(self, flax_params: dict[str, Any]) -> None:
         """Load a DiT parameter tree in the JAX package's flax layout."""

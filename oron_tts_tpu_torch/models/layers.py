@@ -4,11 +4,21 @@ Counterparts of the JAX package's ``models/layers.py``. Submodules carry
 the flax parameter names (``to_q``, ``attn_norm.linear``, ``conv1``, …) so
 ``utils.weights.from_flax_params`` loads a flax tree as a state dict.
 Modules compute in the dtype their parameters are cast to (bf16 on the
-card, f32 on the CPU); masks are boolean ``[B, T]`` prefixes.
+card, f32 on the CPU); masks are boolean ``[B, T]`` prefixes. Training
+keeps f32 master weights outside these modules (``train/trainer.py``) and
+copies them into this working set each step, so inference and training run
+the same forward.
 
-Attention runs the lanes kernel (``ops/flash_attention.py``) and the
-position-embedding convs run the grouped-conv kernel
-(``ops/grouped_conv.py``); on CPU tensors both take their plain versions.
+Attention runs the lanes kernels (``ops/flash_attention.py``: forward, and
+stats forward + backward when a gradient is needed), the position-embedding
+convs run the grouped-conv kernel (``ops/grouped_conv.py``) and the
+training FFN runs the fused GELU+dropout kernels (``ops/gelu_dropout.py``);
+on CPU tensors all take their plain versions.
+
+Dropout has no module state: a block is deterministic unless it is handed
+``seeds = (attention seed, FFN seed)``, two ints drawn by the caller from
+its ``torch.Generator``. Both masks are pure functions of their seed, so a
+rematerialised block redraws the same ones.
 """
 
 from __future__ import annotations
@@ -21,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
-from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish, mish
+from oron_tts_tpu_torch.ops.flash_attention import flash_attention_lanes
+from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout, hash_dropout
+from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish_grad, mish
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope_lanes",
@@ -128,7 +139,7 @@ class ConvPositionEmbedding(nn.Module):
         if keep is not None:
             x = x.masked_fill(~keep, 0.0)
         for conv in (self.conv1, self.conv2):
-            x = grouped_conv1d_mish(x, conv.weight, conv.bias, self.groups)
+            x = grouped_conv1d_mish_grad(x, conv.weight, conv.bias, self.groups)
             if keep is not None:
                 x = x.masked_fill(~keep, 0.0)
         return x
@@ -226,11 +237,12 @@ class Attention(nn.Module):
     """Self-attention with RoPE and a key-padding prefix, on the lanes layout.
 
     q/k/v stay ``[B, T, H·D]`` from the projections through the kernel.
+    With ``seed`` the projected output is dropped out before the re-mask.
     """
 
-    def __init__(self, dim: int, heads: int, dim_head: int = 64) -> None:
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0) -> None:
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         inner = heads * dim_head
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
@@ -243,6 +255,7 @@ class Attention(nn.Module):
         mask: torch.Tensor | None = None,
         rope: tuple[torch.Tensor, torch.Tensor] | None = None,
         kv_lens: torch.Tensor | None = None,
+        seed: int | None = None,
     ) -> torch.Tensor:
         B, T, _ = x.shape
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
@@ -253,33 +266,46 @@ class Attention(nn.Module):
             )
         if rope is not None:
             q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
-        out = self.to_out(flash_lanes_fwd(q, k, v, kv_lens, self.heads))
+        out = self.to_out(flash_attention_lanes(q, k, v, kv_lens, self.heads))
+        if seed is not None:
+            out = hash_dropout(out, seed, self.dropout)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
 
 
 class FeedForward(nn.Module):
-    """Linear → GELU(tanh) → Linear (inference: no dropout)."""
+    """Linear → GELU(tanh) → Dropout → Linear.
 
-    def __init__(self, dim: int, mult: int = 4) -> None:
+    With ``seed`` and ``dropout > 0`` the middle is one fused GELU+dropout
+    pass; otherwise (inference, or no dropout) it is ``F.gelu``.
+    """
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0) -> None:
         super().__init__()
+        self.dropout = dropout
         self.in_proj = nn.Linear(dim, dim * mult)
         self.out_proj = nn.Linear(dim * mult, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_proj(F.gelu(self.in_proj(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        h = self.in_proj(x)
+        if seed is not None and self.dropout > 0:
+            return self.out_proj(gelu_dropout(h, seed, self.dropout))
+        return self.out_proj(F.gelu(h, approximate="tanh"))
 
 
 class DiTBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, dim_head: int = 64, ff_mult: int = 4) -> None:
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, ff_mult: int = 4,
+                 dropout: float = 0.0) -> None:
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads, dim_head)
-        self.ff = FeedForward(dim, ff_mult)
+        self.attn = Attention(dim, heads, dim_head, dropout)
+        self.ff = FeedForward(dim, ff_mult, dropout)
 
-    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None):
+    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None):
+        attn_seed, ff_seed = seeds if seeds is not None else (None, None)
         normed, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t, mods=tmods)
-        x = x + gate_msa[:, None] * self.attn(normed, mask=mask, rope=rope, kv_lens=kv_lens)
+        x = x + gate_msa[:, None] * self.attn(
+            normed, mask=mask, rope=rope, kv_lens=kv_lens, seed=attn_seed)
         ff_in = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        return x + gate_mlp[:, None] * self.ff(ff_in)
+        return x + gate_mlp[:, None] * self.ff(ff_in, seed=ff_seed)

@@ -29,14 +29,28 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("flash_lanes", "grouped_conv", "fused_mel")
+KERNELS = ("flash_lanes", "flash_lanes_bwd", "gelu_dropout", "grouped_conv", "fused_mel")
 
 # C signatures: argument ctypes per entry point (all return int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint32, ctypes.c_longlong
 SIGNATURES = {
     "flash_lanes": {
         # q, k, v, kv_lens, out, B, T, H, D, is_bf16, stream
         "flash_lanes_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, k, v, kv_lens, out, lse2 [B, H, T] f32, B, T, H, D, is_bf16, stream
+        "flash_lanes_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "flash_lanes_bwd": {
+        # q, k, v, out, dout, lse2, kv_lens, delta (scratch [B, H, T] f32),
+        # dq, dk, dv, B, T, H, D, is_bf16, stream
+        "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
+    },
+    "gelu_dropout": {
+        # x, out, n, seed, threshold, inv_keep, is_bf16, stream
+        "gelu_dropout_fwd": (_P, _P, _L, _U, _U, _F, _I, _P),
+        # x, dy, dx, n, seed, threshold, inv_keep, is_bf16, stream
+        "gelu_dropout_bwd": (_P, _P, _P, _L, _U, _U, _F, _I, _P),
     },
     "grouped_conv": {
         # x, w, bias(f32), y, B, T, C, groups, K, is_bf16, stream

@@ -12,6 +12,12 @@ f32, and returns ``x``'s dtype — the forward of the JAX package's
 
 The kernel replaces ``oron_tts_tpu/ops/grouped_conv.py:34``
 (``_conv_kernel``); see the source note in the ``.cu`` file.
+
+:func:`grouped_conv1d_mish_grad` is the differentiable form for training.
+Its forward is the same launch; its backward differentiates the library
+reference (``F.conv1d`` with groups + bias + Mish, recomputed from the
+saved inputs), as the JAX package takes this gradient from XLA's
+convolution and not from a Pallas kernel (``grouped_conv.py:113-119``).
 """
 
 from __future__ import annotations
@@ -77,3 +83,35 @@ def grouped_conv1d_mish(
 
 
 grouped_conv1d_mish.launches = 0
+
+
+def _conv_mish_reference(x, w, bias, groups):
+    """``F.conv1d`` with groups + bias + Mish on the JAX weight layout."""
+    K = w.shape[0]
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), bias.to(x.dtype),
+                 padding=K // 2, groups=groups)
+    return mish(y.float()).to(x.dtype).transpose(1, 2)
+
+
+class _GroupedConvMish(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, groups):
+        ctx.save_for_backward(x, w, bias)
+        ctx.groups = groups
+        return grouped_conv1d_mish(x, w, bias, groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xs, ws, bs = (t.detach().requires_grad_(True) for t in (x, w, bias))
+            y = _conv_mish_reference(xs, ws.to(xs.dtype), bs, ctx.groups)
+            dx, dw, db = torch.autograd.grad(y, (xs, ws, bs), dy.to(y.dtype))
+        return dx, dw, db, None
+
+
+def grouped_conv1d_mish_grad(x, w, bias, groups):
+    """Differentiable :func:`grouped_conv1d_mish` (kernel forward, reference backward)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or bias.requires_grad):
+        return _GroupedConvMish.apply(x, w, bias, groups)
+    return grouped_conv1d_mish(x, w, bias, groups)

@@ -69,6 +69,72 @@ def from_flax_params(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
+def to_flax_params(state: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`from_flax_params`: state dict → flax tree (numpy f32).
+
+    ``weight`` becomes ``kernel`` (2-D transposed back, 3-D conv weights as
+    they are), ``embedding`` under a module named ``embed``, or ``scale``
+    (1-D, a LayerNorm's).
+    """
+    tree: dict[str, Any] = {}
+    for key, value in state.items():
+        *parents, leaf = key.split(".")
+        arr = value.detach().to(device="cpu", dtype=torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim == 2 and parents and parents[-1] == "embed":
+                leaf = "embedding"
+            elif arr.ndim >= 2:
+                leaf = "kernel"
+                if arr.ndim == 2:
+                    arr = arr.T
+            else:
+                leaf = "scale"
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def init_dit_params(config: ModelConfig, n_mels: int = 100, seed: int = 0) -> dict[str, Any]:
+    """A fresh DiT tree under the JAX package's initial scheme.
+
+    Dense and conv kernels LeCun-normal (truncated at ±2σ, variance
+    1/fan_in), embeddings N(0, 1/dim), biases and GRN 0, LayerNorm scales 1,
+    and the AdaLN projections and ``proj_out`` all zero, so the model starts
+    as the identity-gated stack the JAX package starts from. The scheme is
+    the same; the random stream is numpy's, not ``jax.random``'s.
+    """
+    rng = np.random.default_rng(seed)
+    zeroed = ("attn_norm", "norm_out", "proj_out")
+
+    def trunc_normal(shape: tuple[int, ...], std: float) -> np.ndarray:
+        out = rng.standard_normal(shape, dtype=np.float32)
+        bad = np.abs(out) > 2.0
+        while bad.any():
+            out[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+            bad = np.abs(out) > 2.0
+        return out * np.float32(std / 0.87962566103423978)
+
+    def redraw(node: dict[str, Any], path: tuple[str, ...]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for name, value in node.items():
+            if isinstance(value, dict):
+                out[name] = redraw(value, path + (name,))
+            elif any(z in path for z in zeroed) or name in ("bias", "gamma", "beta"):
+                out[name] = np.zeros(value.shape, np.float32)
+            elif name == "scale":
+                out[name] = np.ones(value.shape, np.float32)
+            elif name == "embedding":
+                out[name] = rng.standard_normal(value.shape, dtype=np.float32) / np.float32(
+                    math.sqrt(value.shape[-1]))
+            else:  # kernel: fan_in is every axis but the last
+                out[name] = trunc_normal(value.shape, 1.0 / math.sqrt(math.prod(value.shape[:-1])))
+        return out
+
+    return redraw(seeded_dit_params(config, n_mels, seed), ())
+
+
 def seeded_dit_params(
     config: ModelConfig, n_mels: int = 100, seed: int = 0
 ) -> dict[str, Any]:

@@ -191,7 +191,10 @@ print("N", sum(n.startswith("oron_tts_tpu_torch.") for n in sys.modules))
                          timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
-    assert int(res.stdout.split("N ")[1]) >= 20
+    assert int(res.stdout.split("N ")[1]) >= 28
+    for module in ("ops.gelu_dropout", "train.trainer", "train.checkpoint", "data.dataset",
+                   "data.loader", "cli.train"):
+        assert (REPO / "oron_tts_tpu_torch" / (module.replace(".", "/") + ".py")).exists()
 
 
 def test_entry_points_refuse_silent_cpu(monkeypatch):
@@ -203,3 +206,11 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         AudioProcessor()
+    # training: the trainer runs where its model lives, and the model refuses;
+    # the CLI refuses before it reads its config or its data
+    with pytest.raises(RuntimeError, match="CUDA"):
+        F5TTS.from_config({"model": {"dim": DIM, "depth": 1, "heads": HEADS}})
+    from oron_tts_tpu_torch.cli import train as cli_train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train.main(["--config", "no-such-file.yaml", "--from-local"])
