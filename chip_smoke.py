@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis and training slices on one NVIDIA GPU.
+"""Drive the PyTorch port's synthesis, training and serving slices on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -28,6 +28,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    clips in batches of ``[12, 2048]`` frames: a warm-up epoch through
    ``train_epoch``, then timed steps with per-step launch counts, one more
    step under ``torch.profiler``, and a checkpoint written and read back.
+8. reference_serve: the small f32 model with int8 weights (``int8`` through
+   the w8a16 kernel, ``int8_dynamic``) on the card against the CPU.
+9. batch_knee: the per-row time of one ``synthesize_batch`` solve at 1 to 16
+   rows of 832 frames and 1 to 8 rows of 1,600 frames (Base, bf16, 8 steps):
+   the sweep ``F5TTS.GROUP_FRAME_BUDGET`` is set from.
+10. serve: the HTTP server (``cli/serve.py``) in this process on 127.0.0.1 at
+    the Base width, from a seeded checkpoint written to a temporary
+    directory, three times: bf16, ``--quantize int8`` and ``--profile fast``.
+    Each answers /healthz, a ref-free /synthesize, eight concurrent
+    /synthesize that merge into one solve (each held against its solo
+    audio), a voice-cloned request, a /synthesize_batch of four, a
+    /synthesize_stream of three chunks (held against /synthesize; time to
+    first audio), a 429 from a full queue and a drain. The int8 server's
+    launch counts are zeroed before its requests and read after them, and
+    one merged solve of each server is traced by ``torch.profiler``.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -46,6 +61,7 @@ from pathlib import Path
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
 H100_F32_FLOPS = 67e12    # CUDA-core f32 peak
 H100_BYTES = 3.35e12      # HBM3 bytes/s
+SERVE_STEPS = 32
 MN_TEXT = "Монгол хэл бол Төв Азийн өргөн уудам нутагт олон сая хүний ярьдаг хэл юм."
 REF_TEXT = "Өнөөдөр цаг агаар сайхан байна"
 
@@ -436,7 +452,7 @@ def check_kernels(torch, F) -> list[dict]:
             "tol": 1e-3})
     del audio, out, ref, q, k, v, x
     torch.cuda.empty_cache()
-    return rows + check_train_kernels(torch, F, report)
+    return rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
 
 
 def check_reference(torch) -> None:
@@ -532,6 +548,7 @@ PROFILE_KINDS = (
     ("flash_lanes", ("flash_lanes",)),
     ("grouped_conv", ("gconv_",)),
     ("fused_mel", ("log_mel_kernel",)),
+    ("quantized_matmul", ("qmm_",)),
     ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "xmma", "cublas", "matmul")),
 )
 
@@ -765,6 +782,598 @@ def run_train(torch, smi: str) -> dict[str, int]:
     return totals
 
 
+QMM_SRC = "oron_tts_tpu_torch/csrc/qmm.cu"
+BASE_PROJECTIONS = ((1024, 1024, 4), (1024, 4096, 1), (4096, 1024, 1))  # (K, N, per block)
+
+
+def check_qmm(torch, F, report) -> list[dict]:
+    """Kernel 9 (w8a16) against its plain version, and w8a8 against the CPU.
+
+    Tolerances. The plain version runs in f32 on the same values and is not
+    rounded. f32: 1e-5 of the largest output (sums of up to 4,096 products in
+    another order). bf16: the kernel also sums in f32 and rounds once, at its
+    output, so it may be off by that rounding, half a bf16 step (2^-8 of
+    the value), beyond the f32 bound.
+    """
+    from oron_tts_tpu_torch.ops.quantized_matmul import (
+        dequantize_weight,
+        int8_product,
+        quantize_activations,
+        quantize_weight,
+        quantized_matmul,
+        quantized_matmul_plain,
+        w8a8_matmul,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def case(m, k, n, dtype, timed=False, zero_col=False):
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+        if zero_col:
+            w[n // 2] = 0.0  # an all-zero output channel: its scale is 1
+        w_q, scale = quantize_weight(w)
+        out = quantized_matmul(x, w_q, scale)
+        ref = quantized_matmul_plain(x.float(), w_q, scale)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        top = ref.abs().max().item()
+        if dtype == torch.bfloat16:
+            excess = (diff - (2.0 ** -8) * ref.abs()).max().item()
+        else:
+            excess = diff.max().item()
+        row = {"name": "quantized_matmul", "dtype": str(dtype), "shape": [m, k, n],
+               "max_abs_err": diff.max().item(), "max_excess": excess, "tol": 1e-5 * top,
+               "tol_on": "max_excess", "ref_max": top}
+        if zero_col and not (scale[n // 2].item() == 1.0
+                             and out[:, n // 2].abs().max().item() == 0.0):
+            raise AssertionError("quantized_matmul: a zero channel must stay exactly zero")
+        if timed:
+            w_bf = w.to(dtype)
+            deq = dequantize_weight(w_q, scale, dtype)
+            b_ms, b_by = bound_ms(2.0 * m * k * n, H100_BF16_FLOPS,
+                                  m * k * 2 + n * k + n * 4 + m * n * 2)
+            row.update(
+                ms=cuda_ms(lambda: quantized_matmul(x, w_q, scale)),
+                plain_ms=cuda_ms(lambda: quantized_matmul_plain(x, w_q, scale), iters=5),
+                library_ms=cuda_ms(lambda: torch.matmul(
+                    x, dequantize_weight(w_q, scale, dtype).t())),
+                library="dequantize to bf16 + torch.matmul",
+                library_matmul_only_ms=cuda_ms(lambda: torch.matmul(x, deq.t())),
+                linear_bf16_ms=cuda_ms(lambda: F.linear(x, w_bf)),
+                bound_ms=b_ms, bound_by=b_by)
+            row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
+        emit({"phase": "kernel", **row})
+        if not excess <= row["tol"]:
+            raise AssertionError(f"quantized_matmul {dtype} [{m},{k},{n}] off by {excess} "
+                                 f"beyond its tolerance {row['tol']}")
+        return row
+
+    # ragged edges: M = 1 and 13, N = 40, K = 96, a zero channel
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in ((1, 96, 40), (13, 96, 40), (13, 1024, 1024), (200, 4096, 136)):
+            case(m, k, n, dtype, zero_col=True)
+    timed = {}
+    for k, n, _ in BASE_PROJECTIONS:
+        for m in (1664, 6144):
+            case(m, k, n, torch.float32)
+            timed[m, k, n] = case(m, k, n, torch.bfloat16, timed=True)
+
+    # the row of the kernel table: the six projections of one block at
+    # M = 1,664 (2 CFG rows x bucket 832), times and bounds summed
+    block = [(timed[1664, k, n], count) for k, n, count in BASE_PROJECTIONS]
+    row = {"name": "quantized_matmul", "dtype": "torch.bfloat16",
+           "shape": "one block's six projections, M=1664",
+           "max_abs_err": max(r["max_abs_err"] for r, _ in block),
+           "bound_by": "operations", "route": "cuda", "source": QMM_SRC,
+           "replaces": "oron_tts_tpu/ops/quantized_matmul.py:55",
+           "library": "dequantize to bf16 + torch.matmul"}
+    for key in ("ms", "plain_ms", "library_ms", "library_matmul_only_ms", "linear_bf16_ms",
+                "bound_ms"):
+        row[key] = sum(r[key] * count for r, count in block)
+    if any(r["bound_by"] != "operations" for r, _ in block):
+        raise AssertionError("a Base projection at M=1664 is not bound by operations")
+    emit({"phase": "kernel_block", **row})
+
+    # what torch._int_mm takes on this card (reported, not relied on: the port
+    # asks int8_product, which falls back to an exact float64 product)
+    probes = {}
+    for m, k, n in ((17, 64, 64), (16, 64, 64), (32, 100, 64), (32, 64, 40), (32, 64, 44)):
+        a = torch.ones(m, k, dtype=torch.int8, device=dev)
+        b = torch.ones(n, k, dtype=torch.int8, device=dev)
+        try:
+            probes[f"{m}x{k}x{n}"] = bool((torch._int_mm(a, b.t()) == k).all().item())
+        except RuntimeError as exc:  # a probe of the library's limits, printed
+            probes[f"{m}x{k}x{n}"] = "refused: " + str(exc).splitlines()[0][:90]
+    emit({"phase": "int_mm_probe", "accepted": probes})
+
+    # w8a8 on the card against the CPU's result on the same values: the
+    # int8 activations and the s32 product are exact on both, the f32 rescale
+    # multiplies in the same order
+    for m, k, n in ((1664, 1024, 4096), (13, 96, 40), (40, 100, 44)):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w_q, scale = quantize_weight(torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k))
+        x_q = quantize_activations(x)[0]
+        exact = (torch.equal(x_q.cpu(), quantize_activations(x.cpu())[0])
+                 and torch.equal(int8_product(x_q, w_q).cpu(), int8_product(x_q.cpu(), w_q.cpu())))
+        got = w8a8_matmul(x, w_q, scale)
+        want = w8a8_matmul(x.cpu(), w_q.cpu(), scale.cpu())
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        emit({"phase": "w8a8", "shape": [m, k, n], "max_rel_err": err, "tol": 1e-6,
+              "integers_equal_to_cpu": exact})
+        if not (err <= 1e-6 and exact):
+            raise AssertionError(f"w8a8_matmul on the card differs from the CPU: {err}")
+    times = {}
+    for k, n, _ in BASE_PROJECTIONS:
+        x = torch.randn(1664, k, generator=gen, device=dev).to(torch.bfloat16)
+        w_q, scale = quantize_weight(torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k))
+        x_q = quantize_activations(x)[0]
+        times[f"{k}x{n}"] = {
+            "w8a8_matmul_ms": cuda_ms(lambda: w8a8_matmul(x, w_q, scale)),
+            "int8_product_only_ms": cuda_ms(lambda: int8_product(x_q, w_q)),
+            "linear_bf16_ms": timed[1664, k, n]["linear_bf16_ms"]}
+    emit({"phase": "w8a8_time", "m": 1664, "dtype": "torch.bfloat16", "by_shape": times})
+    return [row]
+
+
+def check_reference_serve(torch) -> None:
+    """Small f32 model with int8 weights: card (kernel) against CPU (plain).
+
+    Same weights, same injected noise. ``int8`` repeats the unquantized
+    reference's arithmetic with exact integers: mel within 1e-3 of its largest
+    value. Under
+    ``int8_dynamic`` an activation next to a rounding boundary may land on
+    the neighbouring integer on the two devices (1/127 of its token's
+    largest value), so the mel is held to 2e-2 of its largest value.
+    """
+    from oron_tts_tpu_torch.config import F5Config, ModelConfig
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.quantized_matmul import quantized_matmul
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    mcfg = ModelConfig(dim=256, depth=2, heads=4, text_dim=64, conv_layers=1)
+    params = seeded_dit_params(mcfg, seed=1)
+    rng = torch.Generator().manual_seed(2)
+    B, T = 2, 192
+    durs, refs = [170, 121], [40, 0]
+    cond = torch.zeros(B, T, 100)
+    cond[0, :40] = torch.randn(40, 100, generator=rng)
+    ids = torch.randint(1, 64, (B, T), generator=rng)
+    for b, d in enumerate(durs):
+        ids[b, d:] = -1
+    noise = torch.randn(B, T, 100, generator=rng)
+    for mode, tol in (("int8", 1e-3), ("int8_dynamic", 2e-2)):
+        mels = []
+        for device in ("cuda", "cpu"):
+            model = F5TTS(F5Config(model=mcfg), device=device, dtype=torch.float32)
+            model.load_params(params)
+            model.quantize_for_serving(mode)
+            quantized_matmul.launches = 0
+            mels.append(model.cfm.sample(
+                cond.to(device), ids.to(device), torch.tensor(durs), torch.tensor(refs),
+                steps=4, cfg_strength=2.0, sway_sampling_coef=-1.0, noise=noise,
+                cfg_interval=(0.1, 0.7), method="midpoint").cpu())
+            if device == "cuda":
+                launches = quantized_matmul.launches
+        err = (mels[0] - mels[1]).abs().max().item()
+        top = mels[1].abs().max().item()
+        emit({"phase": "reference_serve", "mode": mode, "mel_max_abs_err": err,
+              "mel_tol": tol * top, "mel_max": top, "kernel_launches_on_card": launches})
+        # 4 midpoint steps = 8 forwards of 2 blocks x 6 projections
+        if not (err <= tol * top and launches == (96 if mode == "int8" else 0)):
+            raise AssertionError(f"card and CPU disagree on the small {mode} model")
+
+
+def serve_params(cfg) -> dict:
+    """Seeded Base weights with the text blocks' GRN ``gamma`` at zero, as at initialisation.
+
+    That GRN normalises by a sum over the whole padded sequence (in the JAX
+    package and upstream alike), so with a non-zero ``gamma`` a row feels
+    how much padding its bucket adds and "merged equals solo" cannot hold
+    across buckets for any implementation. ``run_batch_knee`` reports how
+    large that effect is on the unmodified seeded weights.
+    """
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    params = seeded_dit_params(cfg.model, seed=0)
+    for name, block in params["text_embed"].items():
+        if name.startswith("block"):
+            block["grn"]["gamma"][...] = 0.0
+    return params
+
+
+def letters(n: int, salt: int = 0) -> str:
+    """A text of exactly ``n`` Mongolian letters in short words (``13 n`` target frames)."""
+    alphabet = "абвгдеёжзийклмноөпрстуүфхцчшыэюя"
+    out, i = [], salt
+    while sum(len(w) for w in out) < n:
+        size = min(3 + (i * 7 + salt) % 5, n - sum(len(w) for w in out))
+        out.append("".join(alphabet[(i * 11 + j * 5 + salt) % len(alphabet)] for j in range(size)))
+        i += 1
+    return " ".join(out)
+
+
+def run_batch_knee(torch, smi: str) -> None:
+    """Per-row solve time of ``synthesize_batch`` against rows x bucket (Base, bf16)."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    cfg = F5Config()
+    model = F5TTS(cfg)
+    model.load_params(seeded_dit_params(cfg.model, seed=0))
+    model.load_vocoder()
+    budget = F5TTS.GROUP_FRAME_BUDGET
+    F5TTS.GROUP_FRAME_BUDGET = 1 << 30  # the sweep looks past the constant it informs
+    points = []
+    try:
+        model.synthesize_batch([letters(64)], n_steps=2, seed=0, max_chars_per_chunk=0)
+        for n_letters, bucket, row_counts in ((64, 832, (1, 2, 4, 8, 16)),
+                                              (123, 1600, (1, 2, 4, 8))):
+            for rows in row_counts:
+                texts = [letters(n_letters, salt=r) for r in range(rows)]
+                best = None
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    wavs = model.synthesize_batch(texts, n_steps=8, seed=0, max_batch=rows,
+                                                  max_chars_per_chunk=0)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    best = dt if best is None else min(best, dt)
+                if any(len(w) != n_letters * 13 * cfg.audio.hop_length for w in wavs):
+                    raise AssertionError("batch_knee: a row has the wrong length")
+                points.append({"rows": rows, "bucket": bucket, "frames": rows * bucket,
+                               "solve_s": best, "per_row_s": best / rows,
+                               "per_row_frame_us": best / rows / bucket * 1e6})
+        # how much a row feels its bucket on the unmodified seeded weights
+        # (the text blocks' GRN sums over the padding too): one text at its
+        # own bucket and padded to 1,600 frames
+        text = letters(64)
+        own = model.synthesize_mel(text, n_steps=8, seed=0)
+        model.pad_to_multiple = 1600
+        wide = model.synthesize_mel(text, n_steps=8, seed=0)
+        model.pad_to_multiple = 64
+        leak = float(np.linalg.norm(own - wide) / np.linalg.norm(own))
+    finally:
+        F5TTS.GROUP_FRAME_BUDGET = budget
+    emit({"phase": "batch_knee", "steps": 8, "points": points, "group_frame_budget": budget,
+          "bucket_leak_rel_l2_seeded_weights": leak, "card": smi})
+    del model
+    torch.cuda.empty_cache()
+
+
+def http_post(port: int, path: str, payload: dict, timeout: float = 600.0):
+    """(status, headers, body) of one POST to the server in this process."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers, exc.read()
+
+
+def http_health(port: int) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+# Waveforms of two runs that should be "the same" are compared by the relative
+# L2 distance. In f32 that is rounding (2e-5 on the CPU). In bf16 a merged
+# solve runs its matmuls at another M than the solo solve, the library picks
+# other tilings, sums round elsewhere in bf16, 32 steps x 22 blocks carry that
+# along and the vocoder's phase head amplifies it: this script read 0.009 to
+# 0.046 over 24 requests on an H100 (PERF.md); the bound leaves 3x room.
+MERGED_REL_L2_TOL = 0.15
+# chunks solved at the same shapes on both routes: equal up to PCM16 rounding
+STREAM_ABS_TOL = 1e-4
+# mel of a quantized model against the bf16 model's, same seed, relative L2:
+# the JAX package's own bounds for its small f32 model
+# (tests/test_quantized.py: 0.01 for int8, 0.03 for int8_dynamic), which the
+# Base model in bf16 over 32 steps also keeps (0.0017 and 0.0018 measured)
+QUANT_MEL_REL_L2_TOL = {"int8": 0.01, "fast": 0.03}
+
+
+def rel_l2(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def run_serve(torch, smi: str) -> dict[str, int]:
+    """The HTTP server at the Base width: bf16, ``--quantize int8``, ``--profile fast``."""
+    import base64
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli import serve
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.data.wav import read_wav_bytes, wav_bytes
+    from oron_tts_tpu_torch.models.f5tts import F5TTS, split_text_for_synthesis
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+    from oron_tts_tpu_torch.ops.fused_mel import log_mel_fused
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+    from oron_tts_tpu_torch.ops.quantized_matmul import quantized_matmul
+    from oron_tts_tpu_torch.train.checkpoint import flatten_tree, write_npz
+
+    kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused, quantized_matmul)
+    cfg = F5Config()
+    depth, hop, rate = cfg.model.depth, cfg.audio.hop_length, cfg.audio.sample_rate
+    eight = [letters(60 + i % 5, salt=i) for i in range(8)]  # 780-832 frames: bucket 832
+    seeds = [11 + 3 * i for i in range(8)]
+    # three chunks (1,274, 871 and 455 frames) whose lengths lie too far apart
+    # to share a group, so that the stream and /synthesize solve each chunk at
+    # the same shape and can be held to each other sample by sample
+    paragraph = f"{letters(97, 1)}. {letters(66, 2)}. {letters(34, 3)}."
+    chunk_frames = [13 * len(c.replace(" ", "")) for c in split_text_for_synthesis(paragraph, 120)]
+    if len(chunk_frames) != 3 or any(len(g) != 1 for g in F5TTS._length_groups(
+            chunk_frames, 64, 16)):
+        raise AssertionError(f"the stream's paragraph no longer gives three lone chunks: "
+                             f"{chunk_frames}")
+    wav_ref = 0.3 * np.random.default_rng(0).standard_normal(5 * rate).astype(np.float32)
+    ref_b64 = base64.b64encode(wav_bytes(wav_ref, rate, subtype="float32")).decode()
+    totals = {k.__name__: 0 for k in kernels}
+    bf16_mels: dict[str, np.ndarray] = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_npz(Path(tmp) / "f5tts_step_00000001.npz",
+                  flatten_tree({"params": serve_params(cfg)}))
+        (Path(tmp) / "config.json").write_text("{}")  # every default: the Base model
+        emit({"phase": "serve_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": (Path(tmp) / "f5tts_step_00000001.npz").stat().st_size})
+
+        for mode, flags in (("bf16", []), ("int8", ["--quantize", "int8"]),
+                            ("fast", ["--profile", "fast"])):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            server = serve.create_server(["--checkpoint", tmp, "--port", "0", "--warmup",
+                                          "--max-queue", "8", *flags])
+            service, port = server.service, server.server_address[1]
+            model = service.model
+            loop = threading.Thread(target=server.serve_forever, name="serve-forever")
+            loop.start()
+            if not (model.device.type == "cuda" and model.dtype == torch.bfloat16
+                    and model.config.model.dim == 1024 and model.config.model.depth == 22):
+                raise AssertionError("the server did not load the Base model in bf16 on the card")
+            for k in kernels:
+                k.launches = 0
+            code, health = http_health(port)
+            if code != 200 or health["status"] != "ok" or health["device"] != "cuda":
+                raise AssertionError(f"{mode}: /healthz said {code} {health}")
+            report = {"phase": "serve", "mode": mode, "card": smi,
+                      "start_s": time.perf_counter() - t0,
+                      "weight_bytes": model.weight_bytes(), "params": health["params"]}
+
+            def post_wav(payload: dict) -> tuple[np.ndarray, float]:
+                t = time.perf_counter()
+                status, headers, body = http_post(port, "/synthesize", payload)
+                dt = time.perf_counter() - t
+                if status != 200 or headers.get("Content-Type") != "audio/wav":
+                    raise AssertionError(f"{mode}: /synthesize said {status} {body[:200]!r}")
+                wav, sr = read_wav_bytes(body)
+                if sr != rate or not (np.isfinite(wav).all() and float(np.abs(wav).max()) > 0):
+                    raise AssertionError(f"{mode}: /synthesize returned no sound")
+                return wav, dt
+
+            # one ref-free request, alone
+            before = quantized_matmul.launches
+            wav, dt = post_wav({"text": MN_TEXT, "seed": 0, "steps": SERVE_STEPS})
+            qmm_solo = quantized_matmul.launches - before
+            if len(wav) != len(MN_TEXT.replace(" ", "")) * 13 * hop:
+                raise AssertionError(f"{mode}: {len(wav)} samples, not 13 frames a letter")
+            report["solo"] = {"latency_s": dt, "audio_s": len(wav) / rate,
+                              "rtf": dt / (len(wav) / rate), "qmm_launches": qmm_solo}
+
+            # eight solo answers, then the same eight at once: one merged solve
+            solo = [post_wav({"text": t, "seed": s, "steps": SERVE_STEPS})
+                    for t, s in zip(eight, seeds)]
+            merged_before = http_health(port)[1]["merged_batches"]
+            before = quantized_matmul.launches
+            with service.model_lock:  # a busy device: the requests queue behind it
+                first = threading.Thread(target=http_post, args=(
+                    port, "/synthesize", {"text": "за", "seed": 1, "steps": 2}))
+                first.start()
+                time.sleep(0.3)  # the dispatcher has taken it and waits for the lock
+                results: list = [None] * 8
+
+                def one(i: int) -> None:
+                    results[i] = post_wav({"text": eight[i], "seed": seeds[i],
+                                           "steps": SERVE_STEPS})
+
+                pending = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+                for th in pending:
+                    th.start()
+                deadline = time.monotonic() + 60
+                while service.batcher._queued < 8 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                queued = service.batcher._queued
+                torch.cuda.synchronize()
+                t_release = time.perf_counter()
+            first.join(timeout=600)
+            for th in pending:
+                th.join(timeout=600)
+            merged_s = time.perf_counter() - t_release
+            if queued != 8 or any(r is None for r in results) or first.is_alive():
+                raise AssertionError(f"{mode}: the eight requests did not all queue and return")
+            merged_batches = http_health(port)[1]["merged_batches"] - merged_before
+            devs = [rel_l2(got[0], want[0]) for got, want in zip(results, solo)]
+            report["merged"] = {
+                "requests": 8, "bucket": 832, "merged_batches": merged_batches,
+                "wall_s_after_release": merged_s, "per_row_s": merged_s / 8,
+                "solo_latency_s_mean": sum(d for _, d in solo) / 8,
+                "rel_l2_vs_solo_max": max(devs), "rel_l2_vs_solo": devs,
+                "tol": MERGED_REL_L2_TOL,
+                "qmm_launches": quantized_matmul.launches - before,
+            }
+            if merged_batches < 1:
+                raise AssertionError(f"{mode}: no merged batch")
+            if any(g[0].shape != w[0].shape for g, w in zip(results, solo)) or not (
+                    max(devs) <= MERGED_REL_L2_TOL):
+                raise AssertionError(f"{mode}: a merged request differs from its solo audio: "
+                                     f"{devs}")
+
+            # the solve itself, without HTTP and queueing: eight rows against one
+            with service.model_lock:
+                timing = {}
+                for name, texts_, seeds_ in (("rows8", eight, seeds), ("rows1", eight[:1], seeds[:1])):
+                    best = None
+                    for _ in range(2):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        model.synthesize_batch(texts_, seeds=seeds_, n_steps=SERVE_STEPS,
+                                               **service.profile_defaults)
+                        torch.cuda.synchronize()
+                        dt = time.perf_counter() - t
+                        best = dt if best is None else min(best, dt)
+                    timing[name + "_solve_s"] = best
+            timing["per_row_s"] = timing["rows8_solve_s"] / 8
+            report["merged_solve"] = timing
+
+            # a voice-cloned request (base64 reference)
+            wav, dt = post_wav({"text": MN_TEXT, "seed": 0, "steps": SERVE_STEPS,
+                                "ref_audio_b64": ref_b64, "ref_text": REF_TEXT})
+            report["cloned"] = {"latency_s": dt, "audio_s": len(wav) / rate,
+                                "rtf": dt / (len(wav) / rate)}
+
+            # /synthesize_batch of four texts
+            t = time.perf_counter()
+            status, _, body = http_post(port, "/synthesize_batch", {
+                "texts": eight[:4], "seed": 5, "steps": SERVE_STEPS})
+            dt = time.perf_counter() - t
+            wavs = [read_wav_bytes(base64.b64decode(b))[0]
+                    for b in json.loads(body)["wavs_base64"]] if status == 200 else []
+            if status != 200 or [len(w) for w in wavs] != [
+                    len(t_.replace(" ", "")) * 13 * hop for t_ in eight[:4]]:
+                raise AssertionError(f"{mode}: /synthesize_batch said {status}")
+            audio = sum(len(w) for w in wavs) / rate
+            report["batch4"] = {"latency_s": dt, "audio_s": audio, "rtf": dt / audio}
+
+            # /synthesize_stream: time to the first audio bytes, total, and the
+            # joined pieces against /synthesize
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            payload = json.dumps({"text": paragraph, "seed": 7, "steps": SERVE_STEPS})
+            t = time.perf_counter()
+            conn.request("POST", "/synthesize_stream", body=payload)
+            resp = conn.getresponse()
+            head = resp.read(44 + 2)  # the WAV header and the first sample
+            ttfa = time.perf_counter() - t
+            streamed = head + resp.read()
+            total = time.perf_counter() - t
+            conn.close()
+            whole, whole_s = post_wav({"text": paragraph, "seed": 7, "steps": SERVE_STEPS})
+            got = read_wav_bytes(streamed)[0]
+            dev = float(np.abs(got - whole).max()) if got.shape == whole.shape else float("inf")
+            report["stream"] = {"chunk_frames": chunk_frames, "ttfa_s": ttfa, "total_s": total,
+                                "synthesize_s": whole_s, "audio_s": len(whole) / rate,
+                                "max_abs_dev_vs_synthesize": dev, "tol": STREAM_ABS_TOL}
+            if resp.status != 200 or not dev <= STREAM_ABS_TOL:
+                raise AssertionError(f"{mode}: the stream differs from /synthesize by {dev}")
+
+            # the mel of this model against the bf16 model's, same seed
+            kw = {"cfg_interval": serve.FAST_PROFILE_CFG_INTERVAL} if mode == "fast" else {}
+            with service.model_lock:
+                mel = model.synthesize_mel(MN_TEXT, n_steps=SERVE_STEPS, seed=0, **kw)
+                if mode == "bf16":
+                    bf16_mels["int8"] = mel
+                    bf16_mels["fast"] = model.synthesize_mel(
+                        MN_TEXT, n_steps=SERVE_STEPS, seed=0,
+                        cfg_interval=serve.FAST_PROFILE_CFG_INTERVAL)
+            if mode != "bf16":
+                dev = rel_l2(mel, bf16_mels[mode])
+                report["mel_rel_l2_vs_bf16"] = dev
+                report["mel_tol"] = QUANT_MEL_REL_L2_TOL[mode]
+                if not dev <= QUANT_MEL_REL_L2_TOL[mode]:
+                    raise AssertionError(f"{mode}: mel deviates from bf16 by {dev}")
+
+            # a full queue sheds with 429 + Retry-After; the queued ones are served
+            with service.model_lock:
+                first = threading.Thread(target=http_post, args=(
+                    port, "/synthesize", {"text": "за", "seed": 1, "steps": 2}))
+                first.start()
+                time.sleep(0.3)
+                fill = [threading.Thread(target=http_post, args=(
+                    port, "/synthesize", {"text": "за", "seed": i, "steps": 2}))
+                    for i in range(8)]
+                for th in fill:
+                    th.start()
+                deadline = time.monotonic() + 60
+                while service.batcher._queued < 8 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                status, headers, body = http_post(port, "/synthesize",
+                                                  {"text": "за", "steps": 2})
+            for th in [first, *fill]:
+                th.join(timeout=600)
+            report["shed"] = {"status": status, "retry_after": headers.get("Retry-After"),
+                              "shed_requests": http_health(port)[1]["shed_requests"]}
+            if status != 429 or not headers.get("Retry-After") or b"overloaded" not in body:
+                raise AssertionError(f"{mode}: a full queue answered {status}")
+
+            # the counters of the main path, read before anything else runs
+            counts = {k.__name__: k.launches for k in kernels}
+            report["launches"] = counts
+            if mode == "int8":
+                # 6 projections x 22 blocks x 32 steps, for one row or eight
+                want = 6 * depth * SERVE_STEPS
+                if qmm_solo != want or report["merged"]["qmm_launches"] != want + 6 * depth * 2:
+                    raise AssertionError(
+                        f"int8: quantized_matmul launched {qmm_solo} times for the solo "
+                        f"request and {report['merged']['qmm_launches']} for the merged "
+                        f"solve plus its 2-step blocker, expected {want} and "
+                        f"{want + 6 * depth * 2}")
+                for name, n in counts.items():
+                    totals[name] += n
+            elif counts["quantized_matmul"] != 0:
+                raise AssertionError(f"{mode}: the w8a16 kernel ran without --quantize int8")
+            # after the counts were read: one traced merged solve
+            emit({"phase": "profile", "mode": f"serve_{mode}_merged_8x832", "card": smi,
+                  **profile_once(torch, lambda: model.synthesize_batch(
+                      eight, seeds=seeds, n_steps=SERVE_STEPS, **service.profile_defaults))})
+
+            # drain: a request in flight is answered, then the server is gone
+            inflight: dict = {}
+            client = threading.Thread(target=lambda: inflight.update(
+                resp=post_wav({"text": eight[0], "seed": 2, "steps": SERVE_STEPS})))
+            client.start()
+            time.sleep(0.2)
+            serve.begin_drain(server)
+            draining = service.draining
+            server.server_close()  # joins the handler in flight
+            client.join(timeout=600)
+            loop.join(timeout=60)
+            service.close()
+            report["drain"] = {"answered_in_flight": "resp" in inflight,
+                               "threads_left": [t.name for t in threading.enumerate()
+                                                if t is not threading.main_thread()
+                                                and not t.daemon]}
+            if not (draining and "resp" in inflight and not loop.is_alive()
+                    and not client.is_alive()):
+                raise AssertionError(f"{mode}: the drain dropped the request in flight")
+            report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            report["requests"] = service.health()["requests"]
+            emit(report)
+            del server, service, model
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -794,16 +1403,20 @@ def main() -> int:
     rows = check_kernels(torch, F)
     check_reference(torch)
     check_train_reference(torch)
+    check_reference_serve(torch)
     launches = run_slice(torch, smi)
     torch.cuda.empty_cache()
-    for name, n in run_train(torch, smi).items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in (run_train, run_serve):
+        for name, n in phase(torch, smi).items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+    run_batch_knee(torch, smi)
     emit({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[row["name"]]}
         | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}
-        | {"library": row.get("library")}
+        | {"library": row.get("library"), "shape": row.get("shape")}
         for row in rows
     ], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,9 @@ import argparse
 import json
 from pathlib import Path
 
-NOT_PORTED = (
-    "{flag} is not ported to the PyTorch package yet (see ROADMAP.md, "
-    "'Still to port'); use --from-local --data-dir"
-)
+from oron_tts_tpu_torch.cli import NOT_PORTED as _NOT_PORTED
+
+NOT_PORTED = _NOT_PORTED + "; use --from-local --data-dir"
 
 
 def _metadata_attr_tokens(value: object) -> list[str]:

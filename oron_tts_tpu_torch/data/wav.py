@@ -2,8 +2,9 @@
 
 The subset of the JAX package's ``data/wav.py`` that ``AudioProcessor``
 and the training dataset need: PCM 8/16/24/32 and IEEE float32/64 decode,
-PCM16/float32 encode, header-only durations, polyphase resampling and peak
-normalization.
+PCM16/float32 encode (whole files, and a header plus PCM16 pieces for a
+stream of unknown length), header-only durations, polyphase resampling and
+peak normalization.
 """
 
 from __future__ import annotations
@@ -142,9 +143,7 @@ def wav_bytes(
     channels = 1 if samples.ndim == 1 else samples.shape[1]
 
     if subtype == "pcm16":
-        payload = np.round(
-            np.clip(samples, -1.0, 1.0) * 32767.0
-        ).astype("<i2").tobytes()
+        payload = pcm16_bytes(samples)
         audio_format, bits = _WAVE_FORMAT_PCM, 16
     elif subtype == "float32":
         payload = samples.astype("<f4").tobytes()
@@ -174,6 +173,27 @@ def write_wav(
 ) -> None:
     """Write float samples ([n] or [n, ch]) as PCM16 or FLOAT32 WAV."""
     Path(path).write_bytes(wav_bytes(samples, sample_rate, subtype))
+
+
+def wav_stream_header(sample_rate: int, channels: int = 1) -> bytes:
+    """RIFF/WAVE PCM16 header for a stream of unknown length.
+
+    The RIFF and data sizes are 0xFFFFFFFF (the usual streaming convention:
+    players read until the end). ``pcm16_bytes`` payloads follow it.
+    """
+    bits = 16
+    fmt = struct.pack(
+        "<HHIIHH", _WAVE_FORMAT_PCM, channels, sample_rate,
+        sample_rate * channels * bits // 8, channels * bits // 8, bits,
+    )
+    return (struct.pack("<4sI4s", b"RIFF", 0xFFFFFFFF, b"WAVE")
+            + struct.pack("<4sI", b"fmt ", len(fmt)) + fmt
+            + struct.pack("<4sI", b"data", 0xFFFFFFFF))
+
+
+def pcm16_bytes(samples: np.ndarray) -> bytes:
+    """Float samples in [-1, 1] → little-endian PCM16 payload bytes."""
+    return np.round(np.clip(np.asarray(samples), -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
 
 
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

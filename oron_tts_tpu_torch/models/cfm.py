@@ -15,13 +15,21 @@ parity tests pass ``x0`` in.
 ``CFM.sample``: sway-warped time grid, classifier-free guidance as one doubled-batch
 forward per step (``pred + (pred − null)·cfg``), AdaLN projections hoisted
 over the whole schedule before the loop, and the conditioning region
-re-substituted at the end. The Euler state stays f32 whatever the model's
-compute dtype, as in the JAX sampler.
+re-substituted at the end. The ODE state stays f32 whatever the model's
+compute dtype, as in the JAX sampler. ``cfg_interval=(lo, hi)`` applies guidance only at
+the steps whose time lies in the interval (the others run one cond-only
+forward); ``method="midpoint"`` takes two velocity evaluations per step.
 
-``cfg_interval`` and the midpoint solver are not ported yet.
+Initial noise is a pure function of (row seed, frame, mel bin)
+(:func:`per_row_noise`): a row of any batch, in any bucket, on the CPU or
+the card, draws what its seed draws alone. That is what lets a server merge
+requests without changing their audio. The stream is the port's own, not
+``jax.random``'s; parity tests pass ``noise`` in.
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -53,13 +61,66 @@ def sway_timesteps_host(steps: int, coef: float | None) -> np.ndarray:
     return t
 
 
-def draw_noise(
-    batch: int, length: int, n_mels: int, generator: torch.Generator, device: torch.device
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(z: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser on int64 tensors holding uint32 values."""
+    z = ((z ^ (z >> 16)) * 0x85EBCA6B) & _M32
+    z = ((z ^ (z >> 13)) * 0xC2B2AE35) & _M32
+    return z ^ (z >> 16)
+
+
+def per_row_noise(
+    seeds: Sequence[int], length: int, n_mels: int, device: torch.device | str,
+    rows: Sequence[int] | None = None,
 ) -> torch.Tensor:
-    """Initial ODE noise [batch, length, n_mels] f32 from ``generator``."""
-    return torch.randn(
-        (batch, length, n_mels), generator=generator, device=device, dtype=torch.float32
-    )
+    """Initial ODE noise ``[len(seeds), length, n_mels]`` f32, one seed per row.
+
+    ``noise[i, t, m]`` is a counter hash of ``(seeds[i], rows[i], t, m)`` turned
+    into a standard normal by Box-Muller, so it depends on nothing else: not on
+    the batch, the row's position, or the padded length. The hash runs in
+    uint32 wrap-around (int64 tensors masked to 32 bits) and the transform in
+    float64 rounded once to f32, the same on the CPU and on the card up to
+    the last bit of ``log`` and ``cos``. ``rows`` defaults to zeros; a single
+    seed shared by a whole batch passes the row indices instead.
+    """
+    n = len(seeds)
+    folded = [((int(s) & 0xFFFFFFFFFFFFFFFF) ^ ((int(s) & 0xFFFFFFFFFFFFFFFF) >> 32)) & _M32
+              for s in seeds]
+    seed_t = torch.tensor(folded, dtype=torch.int64, device=device)
+    row_t = torch.tensor(list(rows) if rows is not None else [0] * n,
+                         dtype=torch.int64, device=device)
+    row_key = _fmix32((seed_t * 0x9E3779B1 + row_t * 0x7FEB352D + 0x165667B1) & _M32)
+    frames = torch.arange(length, dtype=torch.int64, device=device)
+    frame_key = _fmix32((row_key[:, None] ^ ((frames * 0x85EBCA77) & _M32)[None, :]))
+    bins = torch.arange(n_mels, dtype=torch.int64, device=device)
+    counter = frame_key[:, :, None] + ((bins * 0xC2B2AE3D) & _M32)[None, None, :]
+    z1 = _fmix32(counter & _M32)
+    z2 = _fmix32((counter + 0x27D4EB2F) & _M32)
+    u1 = (z1.to(torch.float64) + 1.0) / 4294967296.0  # (0, 1]
+    u2 = z2.to(torch.float64) / 4294967296.0           # [0, 1)
+    normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * np.pi * u2)
+    return normal.to(torch.float32)
+
+
+def cfg_segments(
+    steps: int, sway_sampling_coef: float | None, cfg_interval: tuple[float, float] | None,
+    use_cfg: bool,
+) -> list[tuple[int, int, bool]]:
+    """Contiguous step ranges ``(start, stop, guided)`` of one solve.
+
+    Without an interval (or without guidance) it is one range. With one, a
+    step is guided when its time on the float64 sway-warped grid lies in
+    ``[lo, hi]``; the grid is monotonic, so at most three ranges come out.
+    """
+    if not (use_cfg and cfg_interval is not None):
+        return [(0, steps, use_cfg)]
+    lo, hi = float(cfg_interval[0]), float(cfg_interval[1])
+    t = sway_timesteps_host(steps, sway_sampling_coef)[:-1]
+    inside = (t >= lo) & (t <= hi)
+    bounds = [0] + [i for i in range(1, steps) if inside[i] != inside[i - 1]] + [steps]
+    return [(a, b, bool(inside[a])) for a, b in zip(bounds, bounds[1:])]
 
 
 class CFM:
@@ -156,25 +217,40 @@ class CFM:
         steps: int = 32,
         cfg_strength: float = 1.0,
         sway_sampling_coef: float | None = None,
-        seed: int | None = None,
+        seed: int | Sequence[int] | None = None,
         noise: torch.Tensor | None = None,
+        cfg_interval: tuple[float, float] | None = None,
+        method: str = "euler",
     ) -> torch.Tensor:
-        """Euler-ODE generation.
+        """ODE generation (Euler or explicit midpoint).
 
         Args:
             cond: conditioning mel, zero-padded to the full length [B, T, M].
             text_ids: [B, T] stretched token ids (−1 = padding).
             duration: [B] total lengths; lens: [B] conditioning lengths.
-            noise: optional [B, T, M] initial noise; otherwise drawn from a
-                ``torch.Generator`` on cond's device seeded with ``seed``.
+            seed: one int for the batch (row i then draws from ``(seed, i)``),
+                or one int per row (row i draws what ``seed[i]`` draws alone,
+                whatever the batch: :func:`per_row_noise`).
+            noise: optional [B, T, M] initial noise, instead of ``seed``.
+            cfg_interval: optional ``(lo, hi)``: guidance (the doubled forward
+                and the guided combine) applies only at steps whose time lies
+                in ``[lo, hi]``; the others run one cond-only forward. ``None``
+                applies it at every step; ``(0, 1)`` is identical to ``None``.
+            method: ``"euler"`` or ``"midpoint"`` (two velocity evaluations per
+                step, second order).
 
         Returns:
             mel [B, T, M] f32.
         """
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
+        if method not in ("euler", "midpoint"):
+            raise ValueError(f"method must be 'euler' or 'midpoint', got {method!r}")
         if cfg_strength < 0:
             raise ValueError(f"cfg_strength must be >= 0, got {cfg_strength}")
+        if cfg_interval is not None and not (
+                0.0 <= float(cfg_interval[0]) <= float(cfg_interval[1])):
+            raise ValueError(f"cfg_interval must satisfy 0 <= lo <= hi, got {cfg_interval}")
         batch, max_dur, n_mels = cond.shape
         d = np.asarray(torch.as_tensor(duration).cpu())
         ln = np.asarray(torch.as_tensor(lens).cpu())
@@ -198,31 +274,45 @@ class CFM:
         attn_mask = lens_to_mask(duration, max_dur)
 
         if noise is None:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(0 if seed is None else int(seed))
-            noise = draw_noise(batch, max_dur, n_mels, gen, device)
+            if seed is None or isinstance(seed, int):
+                noise = per_row_noise([0 if seed is None else seed] * batch, max_dur, n_mels,
+                                      device, rows=range(batch))
+            else:
+                if len(seed) != batch:
+                    raise ValueError("a list of seeds must have one entry per row")
+                noise = per_row_noise(seed, max_dur, n_mels, device)
         x = torch.where(attn_mask[..., None], noise.to(device).float(), 0.0)
 
         dit = self.backbone
+        use_cfg = cfg_strength >= 1e-5
+        segments = cfg_segments(steps, sway_sampling_coef, cfg_interval, use_cfg)
         te_cond = dit.embed_text(text_ids, max_dur, drop_text=False)
-        te_uncond = dit.embed_text(text_ids, max_dur, drop_text=True)
+        te_uncond = None
+        if any(guided for _, _, guided in segments):
+            te_uncond = dit.embed_text(text_ids, max_dur, drop_text=True)
 
         grid = sway_timesteps_host(steps, sway_sampling_coef).astype(np.float32)
         t_dev = torch.from_numpy(grid).to(device)
-        use_cfg = cfg_strength >= 1e-5
-        block_mods, final_mods = precompute_t_mods(dit, dit.embed_time(t_dev[:-1]))
+        hoist = t_dev[:-1]
+        if method == "midpoint":  # rows [steps, 2·steps) of the tables: the half steps
+            hoist = torch.cat([hoist, (t_dev[:-1] + t_dev[1:]) / 2])
+        block_mods, final_mods = precompute_t_mods(dit, dit.embed_time(hoist))
 
-        for i in range(steps):
-            dt = float(grid[i + 1] - grid[i])
-            tm = (block_mods[:, i], final_mods[i])
-            t_b = t_dev[i].expand(batch)
-            if use_cfg:
-                pred, null = dit.forward_cfg(
-                    x, step_cond, te_cond, te_uncond, t_b, attn_mask, t_mods=tm
-                )
-                v = pred + (pred - null) * cfg_strength
-            else:
-                v = dit(x, step_cond, text_ids, t_b, mask=attn_mask,
-                        text_embed=te_cond, t_mods=tm)
-            x = x + v.float() * dt  # dt is an f32 grid difference
+        def velocity(x: torch.Tensor, row: int, guided: bool) -> torch.Tensor:
+            tm = (block_mods[:, row], final_mods[row])
+            t_b = hoist[row].expand(batch)
+            if not guided:
+                return dit(x, step_cond, text_ids, t_b, mask=attn_mask,
+                           text_embed=te_cond, t_mods=tm).float()
+            pred, null = dit.forward_cfg(
+                x, step_cond, te_cond, te_uncond, t_b, attn_mask, t_mods=tm)
+            return (pred + (pred - null) * cfg_strength).float()
+
+        for start, stop, guided in segments:
+            for i in range(start, stop):
+                dt = float(grid[i + 1] - grid[i])  # an f32 grid difference
+                v = velocity(x, i, guided)
+                if method == "midpoint":
+                    v = velocity(x + v * (dt / 2), steps + i, guided)
+                x = x + v * dt
         return torch.where(cond_mask, cond, x)

@@ -13,6 +13,10 @@ each block in the backward through ``torch.utils.checkpoint``; the seeds
 are plain arguments, so the recomputation draws the same masks. The JAX
 package's ``scan_blocks``, ``remat_policy`` and AOT layouts steer XLA and
 have no counterpart here.
+
+For int8 serving, ``quantize_dit_params`` swaps the six attention and FFN
+projections of every block for ``QDense`` after load; ``DiT(quant=mode)``
+builds them so from the start, to load a tree that is already quantized.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from oron_tts_tpu_torch.models.layers import (
+    QUANT_MODES,
     AdaLayerNormFinal,
     ConvPositionEmbedding,
     DiTBlock,
+    QDense,
     TimestepEmbedding,
     lanes_rope,
 )
@@ -61,15 +67,17 @@ class DiT(nn.Module):
         conv_layers: int = 4,
         dropout: float = 0.1,
         gradient_checkpointing: bool = False,
+        quant: str | None = None,
     ) -> None:
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
         self.dropout, self.gradient_checkpointing = dropout, gradient_checkpointing
+        self.quant = quant
         self.time_embed = TimestepEmbedding(dim)
         self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
         self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
         for i in range(depth):
-            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult, dropout))
+            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult, dropout, quant))
         self.norm_out = AdaLayerNormFinal(dim)
         self.proj_out = nn.Linear(dim, mel_dim)
 
@@ -159,6 +167,33 @@ class DiT(nn.Module):
         )
         out = self._transformer(h, t2, mask2, t_mods=t_mods)
         return out[:b], out[b:]
+
+
+QUANT_TARGETS = frozenset({"to_q", "to_k", "to_v", "to_out", "in_proj", "out_proj"})
+
+
+def quantize_dit_params(dit: DiT, mode: str = "int8") -> DiT:
+    """Swap the hot projections of every block for :class:`QDense`, in memory.
+
+    The attention and FFN projections (``QUANT_TARGETS``; the AdaLN projections
+    are hoisted out of the sampling loop instead, ``precompute_t_mods``) become
+    int8 weights with one f32 scale per output channel; biases and everything
+    else stay as they are. Checkpoints on disk are never quantized: this runs
+    after load. A model that is already quantized only switches its mode (both
+    modes read the same integers).
+    """
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode: {mode!r}")
+    for parent in list(dit.modules()):
+        for name, child in list(parent.named_children()):
+            if name not in QUANT_TARGETS:
+                continue
+            if isinstance(child, QDense):
+                child.mode = mode
+            elif isinstance(child, nn.Linear):
+                setattr(parent, name, QDense.from_linear(child, mode))
+    dit.quant = mode
+    return dit
 
 
 def precompute_t_mods(dit: DiT, t_emb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

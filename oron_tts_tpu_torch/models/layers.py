@@ -13,7 +13,9 @@ Attention runs the lanes kernels (``ops/flash_attention.py``: forward, and
 stats forward + backward when a gradient is needed), the position-embedding
 convs run the grouped-conv kernel (``ops/grouped_conv.py``) and the
 training FFN runs the fused GELU+dropout kernels (``ops/gelu_dropout.py``);
-on CPU tensors all take their plain versions.
+under int8 serving the six projections of a block are :class:`QDense` and run
+the w8a16 kernel (``ops/quantized_matmul.py``). On CPU tensors all take their
+plain versions.
 
 Dropout has no module state: a block is deterministic unless it is handed
 ``seeds = (attention seed, FFN seed)``, two ints drawn by the caller from
@@ -34,12 +36,17 @@ from torch import nn
 from oron_tts_tpu_torch.ops.flash_attention import flash_attention_lanes
 from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout, hash_dropout
 from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish_grad, mish
+from oron_tts_tpu_torch.ops.quantized_matmul import (
+    quantize_weight,
+    quantized_matmul,
+    w8a8_matmul,
+)
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope_lanes",
     "text_position_table", "TimestepEmbedding", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
-    "AdaLayerNormFinal", "Attention", "FeedForward", "DiTBlock",
+    "AdaLayerNormFinal", "QDense", "make_dense", "Attention", "FeedForward", "DiTBlock",
 ]
 
 
@@ -233,6 +240,55 @@ class AdaLayerNormFinal(nn.Module):
         return layer_norm(x) * (1 + scale)[:, None] + shift[:, None]
 
 
+QUANT_MODES = ("int8", "int8_dynamic")
+
+
+class QDense(nn.Module):
+    """Linear layer with int8 weights for serving (``ops/quantized_matmul.py``).
+
+    Stands in for ``nn.Linear`` once ``dit.quantize_dit_params`` has converted
+    it: ``weight`` becomes ``weight_q`` int8 ``[out, in]`` and ``scale`` f32
+    ``[out]`` (per output channel, symmetric); ``bias`` is unchanged and is
+    added after the product in the output's type. ``mode="int8"`` is w8a16
+    through the kernel, ``mode="int8_dynamic"`` is w8a8 with dynamic per-token
+    activation scales. Inference only: the integer weights carry no gradient.
+    ``scale`` must stay f32, so move a quantized model with ``.to(device)``
+    and never with ``.to(dtype)``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, mode: str = "int8") -> None:
+        super().__init__()
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode: {mode!r}")
+        self.in_features, self.out_features, self.mode = in_features, out_features, mode
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear, mode: str) -> "QDense":
+        """Quantize a loaded ``nn.Linear`` on its own device; the bias keeps its type."""
+        out = cls(linear.in_features, linear.out_features, mode).to(linear.weight.device)
+        out.weight_q, out.scale = quantize_weight(linear.weight)
+        out.bias = nn.Parameter(linear.bias.detach().clone(), requires_grad=False)
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.bias.dtype)
+        if self.mode == "int8_dynamic":
+            y = w8a8_matmul(x, self.weight_q, self.scale)
+        else:
+            y = quantized_matmul(x, self.weight_q, self.scale)
+        return y + self.bias.to(y.dtype)
+
+
+def make_dense(in_features: int, out_features: int, quant: str | None = None) -> nn.Module:
+    """``nn.Linear``, or :class:`QDense` when a quant mode is set (serving only)."""
+    if quant:
+        return QDense(in_features, out_features, quant)
+    return nn.Linear(in_features, out_features)
+
+
 class Attention(nn.Module):
     """Self-attention with RoPE and a key-padding prefix, on the lanes layout.
 
@@ -240,14 +296,15 @@ class Attention(nn.Module):
     With ``seed`` the projected output is dropped out before the re-mask.
     """
 
-    def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0) -> None:
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0,
+                 quant: str | None = None) -> None:
         super().__init__()
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = make_dense(dim, inner, quant)
+        self.to_k = make_dense(dim, inner, quant)
+        self.to_v = make_dense(dim, inner, quant)
+        self.to_out = make_dense(inner, dim, quant)
 
     def forward(
         self,
@@ -281,11 +338,12 @@ class FeedForward(nn.Module):
     pass; otherwise (inference, or no dropout) it is ``F.gelu``.
     """
 
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0) -> None:
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 quant: str | None = None) -> None:
         super().__init__()
         self.dropout = dropout
-        self.in_proj = nn.Linear(dim, dim * mult)
-        self.out_proj = nn.Linear(dim * mult, dim)
+        self.in_proj = make_dense(dim, dim * mult, quant)
+        self.out_proj = make_dense(dim * mult, dim, quant)
 
     def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
         h = self.in_proj(x)
@@ -296,11 +354,11 @@ class FeedForward(nn.Module):
 
 class DiTBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64, ff_mult: int = 4,
-                 dropout: float = 0.0) -> None:
+                 dropout: float = 0.0, quant: str | None = None) -> None:
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads, dim_head, dropout)
-        self.ff = FeedForward(dim, ff_mult, dropout)
+        self.attn = Attention(dim, heads, dim_head, dropout, quant)
+        self.ff = FeedForward(dim, ff_mult, dropout, quant)
 
     def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None):
         attn_seed, ff_seed = seeds if seeds is not None else (None, None)

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
-shared library, ``build/torch_kernels/lib<name>_<hash>.so`` under the
+Each ``csrc/<name>.cu`` (six of them: ``flash_lanes``, ``flash_lanes_bwd``,
+``gelu_dropout``, ``grouped_conv``, ``fused_mel``, ``qmm``) exposes a plain C
+interface and becomes its own shared library, ``build/torch_kernels/lib<name>_<hash>.so`` under the
 repository root, compiled for ``sm_90a`` the first time a wrapper meets a
 CUDA tensor (or when ``build_all`` is called). The hash covers the source
 and the flags, so an edited kernel is rebuilt and a built one is reused.
@@ -29,7 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("flash_lanes", "flash_lanes_bwd", "gelu_dropout", "grouped_conv", "fused_mel")
+KERNELS = ("flash_lanes", "flash_lanes_bwd", "gelu_dropout", "grouped_conv", "fused_mel",
+           "qmm")
 
 # C signatures: argument ctypes per entry point (all return int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,6 +62,10 @@ SIGNATURES = {
         # audio, L, window, twiddle, fb, out, n_frames, n_fft, hop,
         # n_mels, log_clip, stream
         "log_mel_fused": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "qmm": {
+        # x [M, K], w_q int8 [N, K], scale f32 [N], out [M, N], M, K, N, is_bf16, stream
+        "qmm_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -9,6 +9,9 @@ rename carries both the DiT and the vocoder across:
   convs, the grouped-conv kernel included, read it as the JAX package does)
 - ``embedding`` and LayerNorm ``scale`` → ``weight``; everything else keeps
   its name and shape.
+- a quantized dense (``kernel_q`` int8 [in, out], ``scale`` f32 [out], ``bias``)
+  → ``weight_q`` int8 [out, in], ``scale`` and ``bias`` as they are: the same
+  integers on both sides, transposed once here.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def load_npz_tree(path: str | Path) -> dict[str, Any]:
 
 
 def from_flax_params(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax parameter tree (numpy leaves) → float32 state dict for the port."""
+    """Flax parameter tree (numpy leaves) → state dict for the port (f32; ``weight_q`` int8)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: dict[str, Any], prefix: str) -> None:
@@ -56,8 +59,14 @@ def from_flax_params(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
             if isinstance(value, dict):
                 walk(value, f"{prefix}{name}.")
                 continue
+            if name == "kernel_q":
+                q = np.ascontiguousarray(np.asarray(value, dtype=np.int8).T)
+                out[prefix + "weight_q"] = torch.from_numpy(q)
+                continue
             arr = np.asarray(value, dtype=np.float32)
-            if name == "kernel":
+            if name == "scale" and "kernel_q" in node:
+                pass  # a quantized dense's channel scales keep their name
+            elif name == "kernel":
                 name = "weight"
                 if arr.ndim == 2:
                     arr = arr.T
@@ -74,12 +83,15 @@ def to_flax_params(state: dict[str, torch.Tensor]) -> dict[str, Any]:
 
     ``weight`` becomes ``kernel`` (2-D transposed back, 3-D conv weights as
     they are), ``embedding`` under a module named ``embed``, or ``scale``
-    (1-D, a LayerNorm's).
+    (1-D, a LayerNorm's); ``weight_q`` becomes ``kernel_q`` (int8, transposed back).
     """
     tree: dict[str, Any] = {}
     for key, value in state.items():
         *parents, leaf = key.split(".")
-        arr = value.detach().to(device="cpu", dtype=torch.float32).numpy()
+        if leaf == "weight_q":
+            arr, leaf = value.detach().cpu().numpy().T, "kernel_q"
+        else:
+            arr = value.detach().to(device="cpu", dtype=torch.float32).numpy()
         if leaf == "weight":
             if arr.ndim == 2 and parents and parents[-1] == "embed":
                 leaf = "embedding"
