@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis, training and serving slices on one NVIDIA GPU.
+"""Drive the PyTorch port's synthesis, training, serving and attention slices on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -12,7 +12,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``build/torch_kernels/`` (one process per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
-   library call's where one computes the same function, and its bound.
+   library call's where one computes the same function, and its bound;
+   the classic-layout kernels also at small shapes (f32 and bf16, head
+   widths 32, 48 and 64, a ``kv_len = 0`` row, odd H), the lanes kernels at
+   head width 32 and the grouped conv at group widths 16, 32 and 128.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -30,9 +33,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    step under ``torch.profiler``, and a checkpoint written and read back.
 8. reference_serve: the small f32 model with int8 weights (``int8`` through
    the w8a16 kernel, ``int8_dynamic``) on the card against the CPU.
-9. batch_knee: the per-row time of one ``synthesize_batch`` solve at 1 to 16
-   rows of 832 frames and 1 to 8 rows of 1,600 frames (Base, bf16, 8 steps):
-   the sweep ``F5TTS.GROUP_FRAME_BUDGET`` is set from.
+9. batch_knee: the per-row time of one ``synthesize_batch`` solve at 1 to 8
+   rows of 832 frames (Base, bf16, 8 steps), the sweep
+   ``F5TTS.GROUP_FRAME_BUDGET`` was set from (an earlier sweep also ran 16
+   rows and rows of 1,600 frames; PERF.md keeps its readings).
 10. serve: the HTTP server (``cli/serve.py``) in this process on 127.0.0.1 at
     the Base width, from a seeded checkpoint written to a temporary
     directory, three times: bf16, ``--quantize int8`` and ``--profile fast``.
@@ -43,6 +47,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
     first audio), a 429 from a full queue and a drain. The int8 server's
     launch counts are zeroed before its requests and read after them, and
     one merged solve of each server is traced by ``torch.profiler``.
+11. classic: the Base DiT rebuilt with ``attn_impl`` "flash" and "packed"
+    from the seeded tree: ``CFM.sample`` + the vocoder under ``bench.py``'s
+    protocol (120 letters, 1,560 frames, bucket 1,600, 32 steps, CFG 2) with
+    the noise of a lanes solve, held against it; five ``F5Trainer`` steps on
+    "flash" at ``[12, 2048]`` (two warm-up, three timed), the first step's
+    loss held against the lanes model's on the same batch and generator
+    seed; then ``cli.bench_attention --t 1664 --backward`` and
+    ``cli.bench_model_ablation`` as a user runs them. Launch counts are
+    zeroed before each piece and read after it.
+12. widths: ``F5TTS.synthesize`` at ``configs/local.yaml``'s width (the
+    Small config: dim 512, the conv kernel at group width 32) and two
+    ``cli.train`` epochs on ``configs/test.yaml`` (head width 32 through the
+    lanes kernels, the conv through ``F.conv1d``), both on the card.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -335,8 +352,9 @@ def check_kernels(torch, F) -> list[dict]:
 
     def report(row: dict) -> None:
         emit({"phase": "kernel", **row})
-        if not row["max_abs_err"] <= row["tol"]:
-            raise AssertionError(f"{row['name']} ({row['dtype']}) off by {row['max_abs_err']}")
+        key = row.get("tol_on", "max_abs_err")
+        if not row[key] <= row["tol"]:
+            raise AssertionError(f"{row['name']} ({row['dtype']}) off by {row[key]} ({key})")
 
     # 1. lanes attention: q/k/v [2, 832, 1024], kv_lens [832, 755]
     B, T, H, D = 2, 832, 16, 64
@@ -452,7 +470,243 @@ def check_kernels(torch, F) -> list[dict]:
             "tol": 1e-3})
     del audio, out, ref, q, k, v, x
     torch.cuda.empty_cache()
-    return rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
+    return (rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
+            + check_classic_kernels(torch, F, report))
+
+
+CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
+# bench.py's synthesis protocol: 120 letters, 1,560 frames; its comment says
+# "bucketed to 1664", its arithmetic (and the facade's multiple of 64) 1,600
+SYNTH_LETTERS, SYNTH_STEPS = 120, 32
+
+
+def grad_errors(got, refs, rel_tol) -> dict:
+    """Each gradient's max |error| and its tolerance, rel_tol of its reference's max.
+
+    ``max_rel_err`` is the largest error over its reference's max, held to
+    ``rel_tol``; ``max_abs_err`` is the largest error.
+    """
+    names = ("dq", "dk", "dv")
+    errs = {n: (a.float() - r.float()).abs().max().item() for n, a, r in zip(names, got, refs)}
+    tops = {n: r.float().abs().max().item() for n, r in zip(names, refs)}
+    return {**errs, **{n + "_tol": rel_tol * tops[n] for n in names},
+            "max_abs_err": max(errs.values()),
+            "max_rel_err": max(errs[n] / tops[n] for n in names),
+            "tol": rel_tol, "tol_on": "max_rel_err"}
+
+
+def check_classic_kernels(torch, F, report) -> list[dict]:
+    """Kernels 6, 7, 8 and 12 against their plain versions, and the two repairs.
+
+    Tolerances as for the lanes kernels: forwards 5e-3 absolute in bf16 (the
+    plain version in f32 on the same rounded inputs: the error is P rounded
+    to bf16 and one output rounding), gradients 1e-2 of each reference's
+    largest value in bf16; f32 forwards 1e-5 absolute and f32 gradients 1e-5
+    of the largest value (sums in another order).
+    """
+    from oron_tts_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_packed,
+        flash_attention_plain,
+        flash_lanes_bwd,
+        flash_lanes_bwd_plain,
+        flash_lanes_fwd,
+        flash_lanes_fwd_stats,
+        flash_lanes_fwd_stats_plain,
+        flash_nosm,
+        flash_nosm_plain,
+    )
+    from oron_tts_tpu_torch.ops.grouped_conv import (
+        grouped_conv1d_mish,
+        grouped_conv1d_mish_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = []
+    bf16, f32 = torch.bfloat16, torch.float32
+    fwd_tol = {bf16: 5e-3, f32: 1e-5}
+    grad_tol = {bf16: 1e-2, f32: 1e-5}
+
+    def qkv(shape, dtype, n=3):
+        return [torch.randn(*shape, generator=gen, device=dev).to(dtype) for _ in range(n)]
+
+    def lens_of(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def kept_keys(lens, T):
+        return float(lens.clamp(min=0, max=T).sum())
+
+    def sdpa_mask(lens, T):
+        return (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    # kernel 6 (and 8) at small shapes: f32 and bf16, D 32/48/64, exp and
+    # exp2, a kv_len = 0 row (every key weighs 1/T), odd H for the packed one
+    for dtype in (f32, bf16):
+        for D in (32, 48, 64):
+            for H in (3, 4):
+                q, k, v = qkv((2, H, 200, D), dtype)
+                lens = lens_of([137, 0])
+                for name, got, ref in (
+                    ("flash_attention", flash_attention(q, k, v, kv_lens=lens),
+                     flash_attention_plain(q.float(), k.float(), v.float(), kv_lens=lens)),
+                    ("flash_attention", flash_attention(q, k, v, kv_lens=lens, use_exp2=False),
+                     flash_attention_plain(q.float(), k.float(), v.float(), kv_lens=lens,
+                                           use_exp2=False)),
+                    ("flash_attention", flash_attention(q, k, v),
+                     flash_attention_plain(q.float(), k.float(), v.float())),
+                    ("flash_attention_packed", flash_attention_packed(q, k, v, kv_lens=lens),
+                     flash_attention_plain(q.float(), k.float(), v.float(), kv_lens=lens)),
+                ):
+                    report({"name": name, "dtype": str(dtype), "shape": [2, H, 200, D],
+                            "kv_lens": [137, 0],
+                            "max_abs_err": (got.float() - ref).abs().max().item(),
+                            "tol": fwd_tol[dtype]})
+
+    # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero
+    for dtype in (f32, bf16):
+        for D in (32, 48, 64):
+            q, k, v, do = qkv((2, 4, 200, D), dtype, 4)
+            lens = lens_of([137, 0])
+            out = flash_attention(q, k, v, kv_lens=lens)
+            got = flash_attention_bwd(q, k, v, lens, out, do)
+            refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), lens,
+                                             out.float(), do.float())
+            empty_row = min(g[1].float().abs().max().item() for g in got)
+            report({"name": "flash_attention_bwd", "dtype": str(dtype),
+                    "shape": [2, 4, 200, D], "kv_lens": [137, 0],
+                    **grad_errors(got, refs, grad_tol[dtype]),
+                    "kv_len_0_row_min_grad_max": empty_row})
+            if not empty_row > 0:
+                raise AssertionError("flash_attention_bwd: the kv_len = 0 row has a zero gradient")
+
+    def nosm_row(q, k, v) -> dict:
+        """Kernel 12's error. Its output is not an average (no softmax): in
+        bf16 it reaches ~3, where one output rounding is 2^-8 of the value,
+        so the error beyond that rounding is what is held to 5e-3."""
+        ref = flash_nosm_plain(q.float(), k.float(), v.float())
+        diff = (flash_nosm(q, k, v).float() - ref).abs()
+        half_step = 2.0 ** -8 if q.dtype == bf16 else 0.0
+        return {"name": "flash_nosm", "dtype": str(q.dtype), "shape": list(q.shape),
+                "max_abs_err": diff.max().item(), "ref_max": ref.abs().max().item(),
+                "max_excess": (diff - half_step * ref.abs()).max().item(),
+                "tol": fwd_tol[q.dtype], "tol_on": "max_excess"}
+
+    # kernel 12 small, f32 and bf16
+    for dtype in (f32, bf16):
+        report(nosm_row(*qkv((2, 4, 200, 64), dtype)))
+
+    # the synthesis shape: kernels 6, 8 and 12, timed, bf16
+    B, H, T, D = 2, 16, 1664, 64
+    q, k, v = qkv((B, H, T, D), bf16)
+    lens = lens_of([SYNTH_LETTERS * 13] * B)
+    kept = kept_keys(lens, T)
+    nb = q.numel() * 2
+    mask = sdpa_mask(lens, T)
+    sdpa = sdpa_by_backend(torch, F, q, k, v, mask)
+    best, best_ms = fastest(sdpa)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), kv_lens=lens)
+    for name, fn, line in (
+        ("flash_attention", lambda: flash_attention(q, k, v, kv_lens=lens), 32),
+        ("flash_attention_packed", lambda: flash_attention_packed(q, k, v, kv_lens=lens), 246),
+    ):
+        b_ms, b_by = bound_ms(4.0 * T * D * H * kept, H100_BF16_FLOPS, 4 * nb + lens.numel() * 4)
+        row = {"name": name, "dtype": str(bf16), "shape": [B, H, T, D], "kv_lens": lens.tolist(),
+               "max_abs_err": (fn().float() - ref).abs().max().item(), "tol": 5e-3,
+               "ms": cuda_ms(fn),
+               "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens=lens), iters=5),
+               "library_ms": best_ms, "library": "SDPA " + best, "sdpa_ms_by_backend": sdpa,
+               "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": CLASSIC_SRC,
+               "replaces": f"oron_tts_tpu/ops/flash_attention.py:{line}"}
+        rows.append(row)
+        report(row)
+    flash_exp_ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=lens, use_exp2=False))
+    emit({"phase": "kernel_variant", "name": "flash_attention", "use_exp2": False,
+          "ms": flash_exp_ms, "shape": [B, H, T, D]})
+    b_ms, b_by = bound_ms(4.0 * T * D * H * B * T, H100_BF16_FLOPS, 4 * nb)
+    row = {**nosm_row(q, k, v),
+           "ms": cuda_ms(lambda: flash_nosm(q, k, v)),
+           "plain_ms": cuda_ms(lambda: flash_nosm_plain(q, k, v), iters=5),
+           "library_ms": cuda_ms(lambda: torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)),
+           "library": "torch.matmul(torch.matmul(q, k^T), v), two calls, 1/T left out",
+           "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": CLASSIC_SRC,
+           "replaces": "scripts/bench_attention.py:128"}
+    rows.append(row)
+    report(row)
+    del q, k, v, ref
+
+    # the training shape: kernel 7, timed, bf16, against SDPA's backward
+    B, T = TRAIN_B, TRAIN_T
+    q, k, v, do = qkv((B, H, T, D), bf16, 4)
+    lens = lens_of(train_clip_frames()[:B])
+    kept = kept_keys(lens, T)
+    out = flash_attention(q, k, v, kv_lens=lens)
+    got = flash_attention_bwd(q, k, v, lens, out, do)
+    refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), lens, out.float(),
+                                     do.float())
+    errs = grad_errors(got, refs, 1e-2)
+    del got, refs
+    mask = sdpa_mask(lens, T)
+    fwd_times = sdpa_by_backend(torch, F, q, k, v, mask)
+    best, _ = fastest(fwd_times)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with sdpa_kernel([getattr(SDPBackend, best)]):
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                      retain_graph=True), iters=5)
+    del lib_out, qs, ks, vs
+    b_ms, b_by = bound_ms(10.0 * T * D * H * kept, H100_BF16_FLOPS,
+                          8 * q.numel() * 2 + lens.numel() * 4)
+    row = {"name": "flash_attention_bwd", "dtype": str(bf16), "shape": [B, H, T, D],
+           "kept_keys": kept, **errs,
+           "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, lens, out, do), iters=5),
+           "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, lens, out, do), iters=3),
+           "library_ms": lib_bwd, "library": "autograd backward of SDPA " + best,
+           "bound_ms": b_ms, "bound_by": b_by, "route": "cuda",
+           "source": "oron_tts_tpu_torch/csrc/flash_classic_bwd.cu",
+           "replaces": "oron_tts_tpu/ops/flash_attention.py:749"}
+    rows.append(row)
+    report(row)
+    del q, k, v, do, out
+    torch.cuda.empty_cache()
+
+    # repair: lanes forward, stats and backward at D = 32
+    for dtype, (Bl, Tl, Hl) in ((f32, (2, 200, 2)), (bf16, (2, 200, 2)), (bf16, (2, 832, 16))):
+        q, k, v, do = qkv((Bl, Tl, Hl * 32), dtype, 4)
+        lens = lens_of([Tl, Tl - 63])
+        out, lse = flash_lanes_fwd_stats(q, k, v, lens, Hl)
+        ref_out, ref_lse = flash_lanes_fwd_stats_plain(q.float(), k.float(), v.float(), lens, Hl)
+        same = torch.equal(out, flash_lanes_fwd(q, k, v, lens, Hl))
+        got = flash_lanes_bwd(q, k, v, lens, out, do, lse, Hl)
+        refs = flash_lanes_bwd_plain(q.float(), k.float(), v.float(), lens, out.float(),
+                                     do.float(), lse, Hl)
+        report({"name": "flash_lanes_fwd_stats", "dtype": str(dtype), "shape": [Bl, Tl, Hl * 32],
+                "head_dim": 32, "out_bit_equal_to_fwd": same,
+                "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                "max_abs_err": (out.float() - ref_out).abs().max().item(), "tol": fwd_tol[dtype]})
+        report({"name": "flash_lanes_bwd", "dtype": str(dtype), "shape": [Bl, Tl, Hl * 32],
+                "head_dim": 32, **grad_errors(got, refs, grad_tol[dtype])})
+        if not same:
+            raise AssertionError("flash_lanes_fwd_stats and flash_lanes_fwd differ at D = 32")
+
+    # repair: the grouped conv at group widths 16, 32 (the Small config) and 128
+    for C, T in ((512, 832), (256, 200), (2048, 200)):
+        for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
+            x = torch.randn(2, T, C, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(31, C // 16, C, generator=gen, device=dev)
+                 / math.sqrt(31 * C // 16)).to(dtype)
+            bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            report({"name": "grouped_conv1d_mish", "dtype": str(dtype), "shape": [2, T, C],
+                    "group_width": C // 16,
+                    "max_abs_err": (grouped_conv1d_mish(x, w, bias, 16).float()
+                                    - grouped_conv1d_mish_plain(x.float(), w.float(), bias, 16)
+                                    ).abs().max().item(), "tol": tol})
+    return rows
 
 
 def check_reference(torch) -> None:
@@ -542,10 +796,12 @@ def check_train_reference(torch) -> None:
         raise AssertionError("card and CPU disagree on one training step of the small model")
 
 
+# the lanes and classic attention kernels share their device bodies
+# (csrc/flash_fwd.cuh, flash_bwd.cuh) and so their names
 PROFILE_KINDS = (
-    ("flash_lanes_bwd", ("lanes_bwd", "attn_delta")),
+    ("attention_bwd", ("bwd_dkdv", "bwd_dq", "attn_delta")),
     ("gelu_dropout", ("gelu_dropout_kernel",)),
-    ("flash_lanes", ("flash_lanes",)),
+    ("attention_fwd", ("attn_fwd_",)),
     ("grouped_conv", ("gconv_",)),
     ("fused_mel", ("log_mel_kernel",)),
     ("quantized_matmul", ("qmm_",)),
@@ -1012,8 +1268,9 @@ def run_batch_knee(torch, smi: str) -> None:
     points = []
     try:
         model.synthesize_batch([letters(64)], n_steps=2, seed=0, max_chars_per_chunk=0)
-        for n_letters, bucket, row_counts in ((64, 832, (1, 2, 4, 8, 16)),
-                                              (123, 1600, (1, 2, 4, 8))):
+        # the 16-row point and the 1,600-frame rows are left out to keep the
+        # script under ten minutes (PERF.md keeps their earlier readings)
+        for n_letters, bucket, row_counts in ((64, 832, (1, 2, 4, 8)),):
             for rows in row_counts:
                 texts = [letters(n_letters, salt=r) for r in range(rows)]
                 best = None
@@ -1374,6 +1631,298 @@ def run_serve(torch, smi: str) -> dict[str, int]:
     return totals
 
 
+CLASSIC_MEL_REL_L2_TOL = 0.1  # bf16, 32 steps x 22 blocks, other roundings of the same math
+CLASSIC_LOSS_REL_TOL = 1e-2   # one bf16 forward of the same weights, batch and noise
+
+
+def kernel_wrappers() -> dict:
+    """The attention and GELU+dropout wrappers whose launches the classic phase counts."""
+    from oron_tts_tpu_torch.ops import flash_attention as fa
+    from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
+
+    return {f.__name__: f for f in (
+        fa.flash_attention, fa.flash_attention_packed, fa.flash_attention_bwd, fa.flash_nosm,
+        fa.flash_lanes_fwd, fa.flash_lanes_fwd_stats, fa.flash_lanes_bwd, gelu_dropout_fwd,
+        gelu_dropout_bwd)}
+
+
+def zero_counts(wrappers: dict) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(wrappers: dict) -> dict[str, int]:
+    import torch
+
+    torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in wrappers.items()}
+
+
+def with_attn_impl(torch, model, impl: str, state: dict):
+    """Rebuild ``model``'s backbone (an F5TTS) under ``attn_impl=impl`` from ``state``.
+
+    ``F5TTS`` has no ``attn_impl`` (neither has the JAX facade); the switch
+    lives on ``DiT``, as in the JAX package's ``bench.py``.
+    """
+    from oron_tts_tpu_torch.models.cfm import CFM
+    from oron_tts_tpu_torch.models.dit import DiT
+
+    m, a = model.config.model, model.config.audio
+    model.backbone = model.cfm = None
+    with torch.device(model.device):
+        dit = DiT(dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
+                  ff_mult=m.ff_mult, mel_dim=a.n_mels, vocab_size=m.vocab_size,
+                  text_dim=m.text_dim, conv_layers=m.conv_layers, dropout=m.p_dropout,
+                  attn_impl=impl)
+    dit = dit.to(model.dtype).eval()
+    dit.load_state_dict(state, strict=True)
+    if dit.attn_impl != impl:
+        raise AssertionError(f"asked for {impl}, the blocks run {dit.attn_impl}")
+    model.backbone = dit
+    model.cfm = CFM(dit, n_mels=a.n_mels, audio_drop_prob=m.audio_drop_prob,
+                    cond_drop_prob=m.cond_drop_prob, frac_lengths_mask=m.frac_lengths_mask)
+    return model
+
+
+def run_classic(torch, smi: str) -> dict[str, int]:
+    """Synthesis and training on the classic-layout attention, and the two benches."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli import bench_attention, bench_model_ablation
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
+    from oron_tts_tpu_torch.utils.weights import from_flax_params, seeded_dit_params
+
+    wrappers = kernel_wrappers()
+    totals = {n: 0 for n in wrappers}
+
+    def add(counts: dict) -> None:
+        for n, c in counts.items():
+            totals[n] += c
+
+    cfg = F5Config()
+    depth, hop, rate = cfg.model.depth, cfg.audio.hop_length, cfg.audio.sample_rate
+    params = seeded_dit_params(cfg.model, seed=0)
+    state = from_flax_params(params)
+    model = F5TTS(cfg)
+    model.load_params(params)
+    model.load_vocoder()
+
+    # synthesis: bench.py's protocol, the same text ids and noise for every impl
+    frames = SYNTH_LETTERS * 13
+    T = -(-frames // 64) * 64
+    gen = torch.Generator().manual_seed(0)
+    text = torch.randint(0, 65, (1, T), generator=gen).to(model.device)
+    noise = torch.randn(1, T, cfg.audio.n_mels, generator=gen)
+    cond = torch.zeros(1, T, cfg.audio.n_mels, device=model.device)
+    duration, lens = torch.tensor([frames]), torch.tensor([0])
+    audio_s = frames * hop / rate
+    mels = {}
+    for impl in ("lanes", "flash", "packed"):
+        with_attn_impl(torch, model, impl, state)
+
+        def solve(steps: int):
+            mel = model.cfm.sample(cond, text, duration, lens, steps=steps, cfg_strength=2.0,
+                                   sway_sampling_coef=-1.0, noise=noise)
+            return mel, model._decode_mel(mel[:, :frames].transpose(1, 2))
+
+        solve(2)  # warm-up
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        mel, wav = solve(SYNTH_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        mels[impl] = mel[0, :frames].float().cpu().numpy()
+        row = {"phase": "classic_synthesis", "impl": impl, "frames": frames, "bucket": T,
+               "steps": SYNTH_STEPS, "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
+               "samples": len(wav), "launches": {n: c for n, c in counts.items() if c},
+               "card": smi}
+        if impl != "lanes":
+            row["mel_rel_l2_vs_lanes"] = rel_l2(mels[impl], mels["lanes"])
+            row["tol"] = CLASSIC_MEL_REL_L2_TOL
+        emit(row)
+        want = {"lanes": "flash_lanes_fwd", "flash": "flash_attention",
+                "packed": "flash_attention_packed"}[impl]
+        attn = {n: c for n, c in counts.items() if n.startswith("flash_")}
+        if attn != {n: (SYNTH_STEPS * depth if n == want else 0) for n in attn}:
+            raise AssertionError(f"{impl} synthesis launched {attn}, expected "
+                                 f"{SYNTH_STEPS * depth} of {want} and nothing else")
+        if not (np.isfinite(wav).all() and len(wav) == frames * hop and np.abs(wav).max() > 0):
+            raise AssertionError(f"{impl} synthesis: no finite sound of {frames} frames")
+        if impl != "lanes" and not row["mel_rel_l2_vs_lanes"] <= CLASSIC_MEL_REL_L2_TOL:
+            raise AssertionError(f"{impl} synthesis: mel {row['mel_rel_l2_vs_lanes']} from lanes")
+        if impl != "lanes":
+            add(counts)
+    del mels
+
+    # training: CFM.loss -> backward -> guarded_update on attn_impl="flash", as
+    # bench.py does with ORON_TRAIN_IMPL=flash; the lanes loss on the same
+    # batch and generator seed first
+    rng = np.random.default_rng(7)
+    batch = {"mel": (0.5 * rng.standard_normal((TRAIN_B, cfg.audio.n_mels, TRAIN_T))
+                     ).astype(np.float32),
+             "text_ids": rng.integers(0, 65, (TRAIN_B, TRAIN_T)).astype(np.int32),
+             "mel_lengths": np.asarray(train_clip_frames()[:TRAIN_B], np.int32)}
+    kept = int(batch["mel_lengths"].sum())
+    with_attn_impl(torch, model, "lanes", state)
+    dev_batch = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+    with torch.no_grad():
+        lanes_loss = model.cfm.loss(dev_batch["mel"], dev_batch["text_ids"],
+                                    dev_batch["mel_lengths"], torch.Generator().manual_seed(0),
+                                    train=True).item()
+    del dev_batch
+    with_attn_impl(torch, model, "flash", state)
+    config = {"learning_rate": 1e-4, "warmup_steps": 2, "num_epochs": 1, "use_tqdm": False}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = F5Trainer(config, model, [batch], log_dir=f"{tmp}/logs",
+                            checkpoint_dir=f"{tmp}/ckpt")
+        step_ms, want = [], {"flash_attention": depth, "flash_attention_bwd": depth,
+                             "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth}
+        for step in range(5):
+            zero_counts(wrappers)
+            t0 = time.perf_counter()
+            m = trainer.train_step(batch, torch.Generator().manual_seed(step))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts(wrappers)
+            add(counts)
+            if step >= 2:
+                step_ms.append(ms)
+            if step == 0:
+                loss_rel = abs(m["loss"] - lanes_loss) / abs(lanes_loss)
+            emit({"phase": "classic_train", "step": step, "timed": step >= 2,
+                  "batch": [TRAIN_B, TRAIN_T], "kept_frames": kept, "loss": m["loss"],
+                  "grad_norm": m["grad_norm"], "ok": m["ok"], "step_ms": ms,
+                  "frames_per_s": kept / ms * 1e3, "launches": {n: c for n, c in counts.items() if c},
+                  "card": smi})
+            if not (m["ok"] and math.isfinite(m["loss"])):
+                raise AssertionError(f"classic training step {step} not finite: {m}")
+            if {n: c for n, c in counts.items() if c} != want:
+                raise AssertionError(f"classic training step {step}: launches {counts}, "
+                                     f"expected {want}")
+        del trainer
+    mean = sum(step_ms) / len(step_ms)
+    emit({"phase": "classic_train_summary", "impl": "flash", "step_ms_mean": mean,
+          "step_ms_min": min(step_ms), "frames_per_s": kept / mean * 1e3,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_step_loss_vs_lanes_rel": loss_rel, "lanes_loss": lanes_loss,
+          "tol": CLASSIC_LOSS_REL_TOL, "card": smi})
+    if not loss_rel <= CLASSIC_LOSS_REL_TOL:
+        raise AssertionError(f"the flash step's loss is {loss_rel} from the lanes loss")
+    del model
+    torch.cuda.empty_cache()
+
+    # the two bench entry points, as a user runs them
+    zero_counts(wrappers)
+    res = bench_attention.main(["--t", "1664", "--backward"])
+    counts = read_counts(wrappers)
+    add(counts)
+    emit({"phase": "bench_attention", "ms": {k: v * 1e3 for k, v in res.items()},
+          "launches": {n: c for n, c in counts.items() if c}, "card": smi})
+    if counts["flash_nosm"] == 0 or counts["flash_attention_bwd"] == 0:
+        raise AssertionError(f"bench_attention did not run kernels 12 and 7: {counts}")
+    torch.cuda.empty_cache()
+    zero_counts(wrappers)
+    res = bench_model_ablation.main([])
+    counts = read_counts(wrappers)
+    add(counts)
+    deep = {impl: res["device"][(22, impl)] for impl in ("flash", "einsum", "packed", "skip")}
+    emit({"phase": "bench_model_ablation",
+          **{f"{kind}_ms_per_forward": {f"depth{d}_{impl}": v * 1e3 for (d, impl), v in r.items()}
+             for kind, r in res.items()},
+          "attention_device_share_flash": (deep["flash"] - deep["skip"]) / deep["flash"],
+          "launches": {n: c for n, c in counts.items() if c}, "card": smi})
+    torch.cuda.empty_cache()
+    return totals
+
+
+def run_widths(torch, smi: str) -> dict[str, int]:
+    """The Small config's synthesis and configs/test.yaml's training on the card."""
+    import json
+    import signal
+
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli import train as cli_train
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.data.wav import write_wav
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.flash_attention import (
+        flash_lanes_bwd,
+        flash_lanes_fwd,
+        flash_lanes_fwd_stats,
+    )
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    repo = Path(__file__).resolve().parent
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd,
+                                        grouped_conv1d_mish)}
+    cfg = F5Config.from_file(repo / "configs" / "local.yaml")
+    model = F5TTS(cfg)  # the card, bf16
+    model.load_params(seeded_dit_params(cfg.model, seed=0))
+    model.load_vocoder()
+    conv = model.backbone.input_embed.conv_pos_embed
+    model.synthesize(MN_TEXT, n_steps=2, seed=0)
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    wav = model.synthesize(MN_TEXT, lang="mn", n_steps=8, cfg_strength=2.0,
+                           sway_sampling_coef=-1.0, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    synth_counts = read_counts(wrappers)
+    m = cfg.model
+    emit({"phase": "widths_synthesis", "config": "configs/local.yaml", "dim": m.dim,
+          "heads": m.heads, "depth": m.depth, "conv_route": conv.route,
+          "conv_group_width": m.dim // conv.groups, "attn_impl": model.backbone.attn_impl,
+          "steps": 8, "wall_s": wall, "samples": len(wav), "launches": synth_counts, "card": smi})
+    want = {"flash_lanes_fwd": 8 * m.depth, "flash_lanes_fwd_stats": 0, "flash_lanes_bwd": 0,
+            "grouped_conv1d_mish": 8 * 2}
+    if synth_counts != want or conv.route != "kernel" or m.dim // conv.groups != 32:
+        raise AssertionError(f"Small synthesis: launches {synth_counts}, expected {want}, "
+                             f"conv route {conv.route}")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() > 0):
+        raise AssertionError("Small synthesis: no finite sound")
+    del model
+    torch.cuda.empty_cache()
+
+    # two epochs of the train CLI on configs/test.yaml (dim 64, heads 2: D = 32, f32)
+    with tempfile.TemporaryDirectory() as tmp:
+        records = []
+        for i in range(5):
+            t = np.arange(int(24000 * (1.0 + 0.3 * i))) / 24000
+            path = Path(tmp) / f"clip{i}.wav"
+            write_wav(path, (0.4 * np.sin(2 * np.pi * (200 + 20 * i) * t)).astype(np.float32),
+                      24000)
+            records.append({"audio_path": str(path), "text": "сайн байна уу", "lang": "mn"})
+        (Path(tmp) / "metadata.json").write_text(json.dumps(records))
+        zero_counts(wrappers)
+        prev = signal.getsignal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            cli_train.main(["--config", str(repo / "configs" / "test.yaml"), "--from-local",
+                            "--data-dir", tmp, "--log-dir", f"{tmp}/logs",
+                            "--checkpoint-dir", f"{tmp}/ckpt", "--num-epochs", "2"])
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+        wall = time.perf_counter() - t0
+        train_counts = read_counts(wrappers)
+        ckpts = sorted(p.name for p in Path(f"{tmp}/ckpt").glob("f5tts_step_*.npz"))
+    emit({"phase": "widths_train", "config": "configs/test.yaml", "epochs": 2, "wall_s": wall,
+          "checkpoints": ckpts, "launches": train_counts, "card": smi})
+    if not (train_counts["flash_lanes_fwd_stats"] > 0 and train_counts["flash_lanes_bwd"] > 0
+            and train_counts["grouped_conv1d_mish"] == 0 and ckpts):
+        raise AssertionError(f"test.yaml training: launches {train_counts}, checkpoints {ckpts}")
+    return {n: synth_counts[n] + train_counts[n] for n in wrappers}
+
+
 def main() -> int:
     import torch
 
@@ -1400,17 +1949,26 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(_build.BUILD_DIR.parents[1])) for p in libs.values()]})
 
-    rows = check_kernels(torch, F)
-    check_reference(torch)
-    check_train_reference(torch)
-    check_reference_serve(torch)
-    launches = run_slice(torch, smi)
-    torch.cuda.empty_cache()
-    for phase in (run_train, run_serve):
-        for name, n in phase(torch, smi).items():
-            launches[name] = launches.get(name, 0) + n
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
         torch.cuda.empty_cache()
-    run_batch_knee(torch, smi)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    rows = timed("kernels", check_kernels, torch, F)
+    timed("reference", check_reference, torch)
+    timed("reference_train", check_train_reference, torch)
+    timed("reference_serve", check_reference_serve, torch)
+    launches: dict[str, int] = {}
+    for name, phase in (("slice", run_slice), ("train", run_train), ("serve", run_serve),
+                        ("batch_knee", run_batch_knee), ("classic", run_classic),
+                        ("widths", run_widths)):
+        for kernel, n in (timed(name, phase, torch, smi) or {}).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})
     emit({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[row["name"]]}

@@ -6,6 +6,11 @@ the caller (``embed_text``) and passed in; ``forward_cfg`` runs the
 conditional and unconditional rows as one doubled batch, the input
 embedding included (one grouped-conv launch per conv for both rows).
 
+``use_flash`` and ``attn_impl`` are the JAX package's attention switch
+(``layers.resolve_attn_impl``); the default is the lanes kernels. The RoPE
+tables follow the blocks' choice: lanes-tiled for "lanes", heads-first
+``[T, D]`` for the rest.
+
 Training calls ``forward`` with ``dropout_seeds``, one ``(attention, FFN)``
 pair of ints per block; without them the pass is deterministic (the JAX
 package's ``deterministic=True``). ``gradient_checkpointing`` recomputes
@@ -32,6 +37,7 @@ from oron_tts_tpu_torch.models.layers import (
     DiTBlock,
     QDense,
     TimestepEmbedding,
+    heads_rope,
     lanes_rope,
 )
 from oron_tts_tpu_torch.models.text_embed import TextEmbedding
@@ -68,6 +74,8 @@ class DiT(nn.Module):
         dropout: float = 0.1,
         gradient_checkpointing: bool = False,
         quant: str | None = None,
+        use_flash: bool = True,
+        attn_impl: str | None = None,
     ) -> None:
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
@@ -77,7 +85,10 @@ class DiT(nn.Module):
         self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
         self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
         for i in range(depth):
-            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult, dropout, quant))
+            self.add_module(f"block{i}", DiTBlock(dim, heads, dim_head, ff_mult, dropout, quant,
+                                                  use_flash, attn_impl))
+        # every block resolves the same (heads, dim_head), so one choice
+        self.attn_impl = self.block0.attn.impl if depth else None
         self.norm_out = AdaLayerNormFinal(dim)
         self.proj_out = nn.Linear(dim, mel_dim)
 
@@ -95,7 +106,10 @@ class DiT(nn.Module):
 
     def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None):
         B, T, _ = h.shape
-        rope = lanes_rope(T, self.dim_head, self.heads, str(h.device), h.dtype)
+        if self.attn_impl == "lanes":
+            rope = lanes_rope(T, self.dim_head, self.heads, str(h.device), h.dtype)
+        else:
+            rope = heads_rope(T, self.dim_head, str(h.device), h.dtype)
         kv_lens = (
             mask.sum(dim=-1, dtype=torch.int32) if mask is not None
             else torch.full((B,), T, dtype=torch.int32, device=h.device)

@@ -129,7 +129,11 @@ class F5TTS:
         device: str | torch.device | None = None,
         dtype: torch.dtype | None = None,
         pad_to_multiple: int = 64,
+        use_flash: bool | None = None,
     ) -> None:
+        """``use_flash`` as in the JAX facade: None or True runs the flash
+        kernels (lanes, or the classic layout where the heads do not fit
+        lanes), False the einsum attention."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
@@ -146,6 +150,7 @@ class F5TTS:
             ff_mult=m.ff_mult, mel_dim=a.n_mels, vocab_size=m.vocab_size,
             text_dim=m.text_dim, conv_layers=m.conv_layers, dropout=m.p_dropout,
             gradient_checkpointing=bool(config.gradient_checkpointing),
+            use_flash=True if use_flash is None else use_flash,
         ).to(device=self.device, dtype=self.dtype).eval()
         self.cfm = CFM(
             self.backbone, n_mels=a.n_mels, audio_drop_prob=m.audio_drop_prob,

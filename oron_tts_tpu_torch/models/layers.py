@@ -9,10 +9,15 @@ keeps f32 master weights outside these modules (``train/trainer.py``) and
 copies them into this working set each step, so inference and training run
 the same forward.
 
-Attention runs the lanes kernels (``ops/flash_attention.py``: forward, and
-stats forward + backward when a gradient is needed), the position-embedding
-convs run the grouped-conv kernel (``ops/grouped_conv.py``) and the
-training FFN runs the fused GELU+dropout kernels (``ops/gelu_dropout.py``);
+Attention takes the JAX package's ``attn_impl`` switch: "lanes" (the
+default) runs the lanes kernels (``ops/flash_attention.py``: forward, and
+stats forward + backward when a gradient is needed), "flash" the classic
+``[B, H, T, D]`` kernels (forward, and the recomputing backward), "packed"
+the head-pair forward, "einsum" and "skip" plain tensor ops. The
+position-embedding convs run the grouped-conv kernel
+(``ops/grouped_conv.py``) where the JAX package runs its Pallas conv and
+``F.conv1d`` where it hands the shape to XLA, and the training FFN runs the
+fused GELU+dropout kernels (``ops/gelu_dropout.py``);
 under int8 serving the six projections of a block are :class:`QDense` and run
 the w8a16 kernel (``ops/quantized_matmul.py``). On CPU tensors all take their
 plain versions.
@@ -33,9 +38,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from oron_tts_tpu_torch.ops.flash_attention import flash_attention_lanes
+from oron_tts_tpu_torch.ops.flash_attention import (
+    flash_attention_lanes,
+    flash_attention_packed,
+    flash_attention_trainable,
+)
 from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout, hash_dropout
-from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish_grad, mish
+from oron_tts_tpu_torch.ops.grouped_conv import (
+    conv_mish_reference,
+    grouped_conv1d_mish_grad,
+    mish,
+)
 from oron_tts_tpu_torch.ops.quantized_matmul import (
     quantize_weight,
     quantized_matmul,
@@ -43,10 +56,11 @@ from oron_tts_tpu_torch.ops.quantized_matmul import (
 )
 
 __all__ = [
-    "mish", "sinusoidal_embedding", "rope_tables", "apply_rope_lanes",
-    "text_position_table", "TimestepEmbedding", "ConvPositionEmbedding",
+    "mish", "sinusoidal_embedding", "rope_tables", "apply_rope", "apply_rope_lanes",
+    "text_position_table", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
-    "AdaLayerNormFinal", "QDense", "make_dense", "Attention", "FeedForward", "DiTBlock",
+    "AdaLayerNormFinal", "QDense", "make_dense", "ATTN_IMPLS", "resolve_attn_impl",
+    "Attention", "FeedForward", "DiTBlock",
 ]
 
 
@@ -79,6 +93,26 @@ def lanes_rope(seq_len: int, dim_head: int, heads: int, device: str, dtype: torc
         torch.from_numpy(np.tile(a, (1, heads))[None]).to(device=device, dtype=dtype)
         for a in (cos, sin)
     )
+
+
+@functools.lru_cache(maxsize=16)
+def heads_rope(seq_len: int, dim_head: int, device: str, dtype: torch.dtype):
+    """cos/sin [T, D] on ``device`` in ``dtype``, for :func:`apply_rope`."""
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                 for a in rope_tables(seq_len, dim_head))
+
+
+def apply_rope(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE heads-first: q, k [B, H, T, D]; cos/sin [T, D], cast to q's dtype."""
+    half = q.shape[-1] // 2
+
+    def rot_half(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+    cos, sin = cos.to(q.dtype)[None, None], sin.to(q.dtype)[None, None]
+    return q * cos + rot_half(q) * sin, k * cos + rot_half(k) * sin
 
 
 def apply_rope_lanes(
@@ -128,16 +162,31 @@ class ConvWeights(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
 
+def conv_route(dim: int, groups: int) -> str:
+    """"kernel" where the JAX package runs its Pallas conv, else "library".
+
+    The rule of the JAX ``ConvPositionEmbedding`` (``layers.py:220-225``):
+    dim a multiple of 128 and a group width dividing 128. Decided from the
+    shapes alone, before anything is launched.
+    """
+    return "kernel" if dim % 128 == 0 and 128 % (dim // groups) == 0 else "library"
+
+
 class ConvPositionEmbedding(nn.Module):
     """Two grouped 1-D convs (k=31, groups=16) with Mish, padding re-masked.
 
-    Each conv is one launch of the grouped-conv kernel with bias and Mish
-    fused; mish(0) = 0, so masking after the fused op is exact.
+    On the "kernel" route (:func:`conv_route`) each conv is one launch of the
+    grouped-conv kernel with bias and Mish fused; the kernel takes group
+    widths 16 to 128 in bf16, so a width of 1 to 8 (dim 128 or less) raises
+    there and names the width. On the "library" route each is ``F.conv1d``
+    with groups, then Mish, as the JAX package hands such shapes to XLA.
+    mish(0) = 0, so masking after the conv is exact.
     """
 
     def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16) -> None:
         super().__init__()
         self.groups = groups
+        self.route = conv_route(dim, groups)
         self.conv1 = ConvWeights(kernel_size, dim // groups, dim)
         self.conv2 = ConvWeights(kernel_size, dim // groups, dim)
 
@@ -145,8 +194,9 @@ class ConvPositionEmbedding(nn.Module):
         keep = None if mask is None else mask[..., None]
         if keep is not None:
             x = x.masked_fill(~keep, 0.0)
+        conv_fn = grouped_conv1d_mish_grad if self.route == "kernel" else conv_mish_reference
         for conv in (self.conv1, self.conv2):
-            x = grouped_conv1d_mish_grad(x, conv.weight, conv.bias, self.groups)
+            x = conv_fn(x, conv.weight, conv.bias, self.groups)
             if keep is not None:
                 x = x.masked_fill(~keep, 0.0)
         return x
@@ -289,17 +339,50 @@ def make_dense(in_features: int, out_features: int, quant: str | None = None) ->
     return nn.Linear(in_features, out_features)
 
 
-class Attention(nn.Module):
-    """Self-attention with RoPE and a key-padding prefix, on the lanes layout.
+ATTN_IMPLS = ("einsum", "lanes", "flash", "packed", "skip")
 
-    q/k/v stay ``[B, T, H·D]`` from the projections through the kernel.
-    With ``seed`` the projected output is dropped out before the re-mask.
+
+def resolve_attn_impl(heads: int, dim_head: int, use_flash: bool = True,
+                      attn_impl: str | None = None) -> str:
+    """The JAX ``Attention``'s choice (``layers.py:484-500``).
+
+    An explicit ``attn_impl`` wins; otherwise ``use_flash`` means "lanes",
+    else "einsum". The lanes layout needs H·D ≤ 128, or a multiple of 128
+    with D dividing 128: a lanes choice that does not fit falls back to the
+    classic "flash", and an explicit "lanes" that does not fit raises.
+    """
+    impl = attn_impl or ("lanes" if use_flash else "einsum")
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    if impl == "lanes":
+        inner = heads * dim_head
+        if not (inner <= 128 or (inner % 128 == 0 and 128 % dim_head == 0)):
+            if attn_impl == "lanes":
+                raise ValueError(
+                    f"attn_impl='lanes' needs heads*dim_head <= 128 or a "
+                    f"multiple of 128 with dim_head dividing 128; got "
+                    f"heads={heads}, dim_head={dim_head}")
+            impl = "flash"
+    return impl
+
+
+class Attention(nn.Module):
+    """Self-attention with RoPE and a key-padding prefix.
+
+    ``impl`` is :func:`resolve_attn_impl`'s choice. "lanes" keeps q/k/v
+    ``[B, T, H·D]`` from the projections through the kernel; the others
+    reshape to heads-first ``[B, H, T, D]`` and take RoPE there. With
+    ``seed`` the projected output is dropped out before the re-mask. The
+    parameter names do not depend on ``impl``, so one weight tree loads into
+    any of them.
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0,
-                 quant: str | None = None) -> None:
+                 quant: str | None = None, use_flash: bool = True,
+                 attn_impl: str | None = None) -> None:
         super().__init__()
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.impl = resolve_attn_impl(heads, dim_head, use_flash, attn_impl)
         inner = heads * dim_head
         self.to_q = make_dense(dim, inner, quant)
         self.to_k = make_dense(dim, inner, quant)
@@ -314,6 +397,7 @@ class Attention(nn.Module):
         kv_lens: torch.Tensor | None = None,
         seed: int | None = None,
     ) -> torch.Tensor:
+        """``rope`` is ``lanes_rope``'s tables for "lanes", ``heads_rope``'s otherwise."""
         B, T, _ = x.shape
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if kv_lens is None:
@@ -321,9 +405,29 @@ class Attention(nn.Module):
                 mask.sum(dim=-1, dtype=torch.int32) if mask is not None
                 else torch.full((B,), T, dtype=torch.int32, device=x.device)
             )
-        if rope is not None:
-            q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
-        out = self.to_out(flash_attention_lanes(q, k, v, kv_lens, self.heads))
+        if self.impl == "lanes":
+            if rope is not None:
+                q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
+            out = flash_attention_lanes(q, k, v, kv_lens, self.heads)
+        else:
+            q, k, v = (y.view(B, T, self.heads, self.dim_head).transpose(1, 2) for y in (q, k, v))
+            if rope is not None:
+                q, k = apply_rope(q, k, rope[0], rope[1])
+            if self.impl == "skip":
+                out = v + 0.0 * q
+            elif self.impl == "flash":
+                out = flash_attention_trainable(q, k, v, kv_lens)
+            elif self.impl == "packed":
+                out = flash_attention_packed(q, k, v, kv_lens)
+            else:
+                logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+                logits = logits * (1.0 / math.sqrt(self.dim_head))
+                if mask is not None:
+                    logits = logits.masked_fill(~mask[:, None, None, :], -1e9)
+                probs = torch.softmax(logits, dim=-1).to(q.dtype)
+                out = torch.matmul(probs, v)
+            out = out.transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
+        out = self.to_out(out)
         if seed is not None:
             out = hash_dropout(out, seed, self.dropout)
         if mask is not None:
@@ -354,10 +458,11 @@ class FeedForward(nn.Module):
 
 class DiTBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64, ff_mult: int = 4,
-                 dropout: float = 0.0, quant: str | None = None) -> None:
+                 dropout: float = 0.0, quant: str | None = None, use_flash: bool = True,
+                 attn_impl: str | None = None) -> None:
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads, dim_head, dropout, quant)
+        self.attn = Attention(dim, heads, dim_head, dropout, quant, use_flash, attn_impl)
         self.ff = FeedForward(dim, ff_mult, dropout, quant)
 
     def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None):

@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (six of them: ``flash_lanes``, ``flash_lanes_bwd``,
-``gelu_dropout``, ``grouped_conv``, ``fused_mel``, ``qmm``) exposes a plain C
-interface and becomes its own shared library, ``build/torch_kernels/lib<name>_<hash>.so`` under the
-repository root, compiled for ``sm_90a`` the first time a wrapper meets a
-CUDA tensor (or when ``build_all`` is called). The hash covers the source
-and the flags, so an edited kernel is rebuilt and a built one is reused.
+Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
+``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
+``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
+``flash_bwd.cuh``) exposes a plain C interface and becomes its own shared
+library, ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
+root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
+(or when ``build_all`` is called). The hash covers the source, every
+header and the flags, so an edited kernel is rebuilt and a built one is
+reused.
 Sources are compiled in parallel, one ``nvcc`` process each.
 
 Wrappers import this module lazily: the CPU never looks for ``nvcc``.
@@ -30,8 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("flash_lanes", "flash_lanes_bwd", "gelu_dropout", "grouped_conv", "fused_mel",
-           "qmm")
+KERNELS = ("flash_lanes", "flash_lanes_bwd", "flash_classic", "flash_classic_bwd",
+           "gelu_dropout", "grouped_conv", "fused_mel", "qmm")
 
 # C signatures: argument ctypes per entry point (all return int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +50,19 @@ SIGNATURES = {
         # q, k, v, out, dout, lse2, kv_lens, delta (scratch [B, H, T] f32),
         # dq, dk, dv, B, T, H, D, is_bf16, stream
         "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
+    },
+    "flash_classic": {
+        # q, k, v, kv_lens, out, B, H, T, D, use_exp2, is_bf16, stream
+        "flash_classic_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, k, v, kv_lens, out, B, H, T, D, is_bf16, stream
+        "flash_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, k, v, out, B, H, T, D, is_bf16, stream
+        "flash_nosm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "flash_classic_bwd": {
+        # q, k, v, out, dout, kv_lens, lse2 and delta (scratch [B, H, T] f32),
+        # dq, dk, dv, B, H, T, D, is_bf16, stream
+        "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
     },
     "gelu_dropout": {
         # x, out, n, seed, threshold, inv_keep, is_bf16, stream

@@ -6,8 +6,9 @@ JAX package's ``nn.Conv`` layout), adds ``bias`` and applies Mish, all in
 f32, and returns ``x``'s dtype — the forward of the JAX package's
 ``grouped_conv1d_pallas(..., fuse_mish=True)``.
 
-- CUDA tensors launch ``csrc/grouped_conv.cu`` (bf16: ``mma.sync``; f32:
-  true-f32 SIMT), or raise.
+- CUDA tensors launch ``csrc/grouped_conv.cu`` (bf16: ``mma.sync``, group
+  widths 16, 32, 64 and 128; f32: true-f32 SIMT, widths that are multiples
+  of 8), or raise.
 - CPU tensors take :func:`grouped_conv1d_mish_plain`.
 
 The kernel replaces ``oron_tts_tpu/ops/grouped_conv.py:34``
@@ -24,6 +25,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+BF16_GROUP_WIDTHS = (16, 32, 64, 128)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +68,9 @@ def grouped_conv1d_mish(
         raise ValueError(f"weight {tuple(w.shape)} does not fit C={C}, groups={groups}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"grouped_conv1d_mish takes bf16 or f32, got {x.dtype}")
-    if x.dtype == torch.bfloat16 and (cin_g != 64 or (C // groups) % 32):
-        raise ValueError("the bf16 kernel needs 64 channels per group")
+    if x.dtype == torch.bfloat16 and (cin_g not in BF16_GROUP_WIDTHS or C % 32):
+        raise ValueError(f"the bf16 grouped-conv kernel takes group widths {BF16_GROUP_WIDTHS} "
+                         f"and C a multiple of 32, got width {cin_g} (C={C}, groups={groups})")
     if x.dtype == torch.float32 and (C // groups) % 8:
         raise ValueError("the f32 kernel needs a multiple of 8 channels per group")
     x = x.contiguous()
@@ -85,8 +90,12 @@ def grouped_conv1d_mish(
 grouped_conv1d_mish.launches = 0
 
 
-def _conv_mish_reference(x, w, bias, groups):
-    """``F.conv1d`` with groups + bias + Mish on the JAX weight layout."""
+def conv_mish_reference(x, w, bias, groups):
+    """``F.conv1d`` with groups + bias + Mish on the JAX weight layout.
+
+    The route of shapes the JAX package hands to XLA's convolution, and the
+    backward of :func:`grouped_conv1d_mish_grad`.
+    """
     K = w.shape[0]
     y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), bias.to(x.dtype),
                  padding=K // 2, groups=groups)
@@ -105,7 +114,7 @@ class _GroupedConvMish(torch.autograd.Function):
         x, w, bias = ctx.saved_tensors
         with torch.enable_grad():
             xs, ws, bs = (t.detach().requires_grad_(True) for t in (x, w, bias))
-            y = _conv_mish_reference(xs, ws.to(xs.dtype), bs, ctx.groups)
+            y = conv_mish_reference(xs, ws.to(xs.dtype), bs, ctx.groups)
             dx, dw, db = torch.autograd.grad(y, (xs, ws, bs), dy.to(y.dtype))
         return dx, dw, db, None
 
