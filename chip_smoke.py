@@ -9,13 +9,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: ``nvcc`` builds every kernel of ``oron_tts_tpu_torch/csrc`` into
-   ``build/torch_kernels/`` (one process per source, in parallel).
+   ``build/torch_kernels/`` (one process per source, in parallel); where
+   ``cuobjdump`` is found, the count of HGMMA (wgmma) instructions in each
+   backward library's SASS.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
    library call's where one computes the same function, and its bound;
-   the classic-layout kernels also at small shapes (f32 and bf16, head
-   widths 32, 48 and 64, a ``kv_len = 0`` row, odd H), the lanes kernels at
-   head width 32 and the grouped conv at group widths 16, 32 and 128.
+   the two attention backwards also with their two launches (pass A: dQ,
+   pass B: dK and dV) timed apart, and called twice on the same inputs,
+   which must give the same bits. The classic-layout kernels also at small
+   shapes (f32 and bf16, head widths 32 to 128 and 40, a ``kv_len = 0``
+   row, odd H), the lanes kernels at head widths 32, 16, 128 and 3 heads of
+   40 (a ``kv_len = 0`` row's gradients exactly zero), the grouped conv at
+   group widths 4, 8, 16, 32 and 128, and a bf16 head width of 20 refused
+   before any launch.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -53,13 +60,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
     the noise of a lanes solve, held against it; five ``F5Trainer`` steps on
     "flash" at ``[12, 2048]`` (two warm-up, three timed), the first step's
     loss held against the lanes model's on the same batch and generator
-    seed; then ``cli.bench_attention --t 1664 --backward`` and
+    seed, and one more step under ``torch.profiler``; then
+    ``cli.bench_attention --t 1664 --backward`` and
     ``cli.bench_model_ablation`` as a user runs them. Launch counts are
     zeroed before each piece and read after it.
 12. widths: ``F5TTS.synthesize`` at ``configs/local.yaml``'s width (the
-    Small config: dim 512, the conv kernel at group width 32) and two
+    Small config: dim 512, the conv kernel at group width 32), two
     ``cli.train`` epochs on ``configs/test.yaml`` (head width 32 through the
-    lanes kernels, the conv through ``F.conv1d``), both on the card.
+    lanes kernels, the conv through ``F.conv1d``), and two ``F5Trainer``
+    steps in bf16 on that config with dim 128 and one head (head width 128
+    through the lanes kernels, the conv kernel at group width 8), all on
+    the card.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -132,6 +143,75 @@ def fastest(times: dict[str, float | str]) -> tuple[str, float]:
     return name, times[name]
 
 
+def backward_passes(torch, kind, q, k, v, lens, out, do, lse=None, heads=None) -> dict:
+    """The bf16 backward's two launches timed apart (CUDA events).
+
+    Pass A (dQ, with delta and, for the classic kernel, the recomputed lse2)
+    and pass B (dK, dV) are launched through the library directly, so the
+    wrappers' launch counts do not move; pass B reads the scratch a full call
+    left first. ``kind`` is "lanes" or "classic".
+    """
+    from oron_tts_tpu_torch.ops import _build
+
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = _build.stream_ptr(q.device)
+    if kind == "lanes":
+        B, T, HD = q.shape
+        delta = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
+        lib = _build.load("flash_lanes_bwd")
+
+        def call(passes):
+            _build.check(lib.flash_lanes_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), lens.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, T, heads, HD // heads, 1, passes, stream), "flash_lanes_bwd")
+    else:
+        B, H, T, D = q.shape
+        lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse2)
+        lib = _build.load("flash_classic_bwd")
+
+        def call(passes):
+            _build.check(lib.flash_classic_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                lens.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, T, D, 1, passes, stream), "flash_classic_bwd")
+    call(3)
+    return {"pass_a_ms": cuda_ms(lambda: call(1), iters=5),
+            "pass_b_ms": cuda_ms(lambda: call(2), iters=5)}
+
+
+def bit_identical(first, second) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def hgmma_counts(libs: dict) -> dict:
+    """HGMMA (wgmma) instructions in each backward library's SASS, by kernel."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    counts = {}
+    for name in ("flash_lanes_bwd", "flash_classic_bwd"):
+        run = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True)
+        if run.returncode != 0:
+            counts[name] = "cuobjdump failed: " + run.stderr.strip()[:200]
+            continue
+        sass, per_fn = run.stdout, {}
+        for chunk in sass.split("Function : ")[1:]:
+            n = chunk.count("HGMMA")
+            if n:
+                per_fn[chunk.split("\n", 1)[0].strip()[:70]] = n
+        counts[name] = {"total": sum(per_fn.values()), "by_kernel": per_fn}
+        if not per_fn:
+            raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
+    return counts
+
+
 TRAIN_B, TRAIN_T = 12, 2048  # the single-chip training shape (Base, bf16)
 
 
@@ -178,9 +258,12 @@ def check_train_kernels(torch, F, report) -> list[dict]:
         same = torch.equal(out, flash_lanes_fwd(q, k, v, lens_t, H))
         ref_out, ref_lse = flash_lanes_fwd_stats_plain(q.float(), k.float(), v.float(), lens_t, H)
         dq, dk, dv = flash_lanes_bwd(q, k, v, lens_t, out, do, lse, H)
+        same_bits = bit_identical((dq, dk, dv), flash_lanes_bwd(q, k, v, lens_t, out, do, lse, H))
         refs = flash_lanes_bwd_plain(q.float(), k.float(), v.float(), lens_t, out.float(),
                                      do.float(), lse, H)
         torch.cuda.synchronize()
+        if not same_bits:
+            raise AssertionError(f"flash_lanes_bwd ({dtype}): two calls differ")
         if not same:
             raise AssertionError("flash_lanes_fwd_stats and flash_lanes_fwd outputs differ")
         tag = {} if shape_tag is None else {"shape": shape_tag}
@@ -194,7 +277,8 @@ def check_train_kernels(torch, F, report) -> list[dict]:
         errs = {n: (a.float() - r).abs().max().item() for n, a, r in zip(names, (dq, dk, dv), refs)}
         tols = {n + "_tol": rel_tol * r.abs().max().item() for n, r in zip(names, refs)}
         bwd_row = {"name": "flash_lanes_bwd", "dtype": str(dtype), **tag, **errs, **tols,
-                   "max_abs_err": max(errs.values()), "tol": max(tols.values())}
+                   "max_abs_err": max(errs.values()), "tol": max(tols.values()),
+                   "bit_identical_twice": same_bits}
         if timed:
             kept = float(lens_t.clamp(max=T).sum())
             qh, kh, vh, doh = (x.view(B, T, H, D).transpose(1, 2).contiguous().requires_grad_(
@@ -225,8 +309,9 @@ def check_train_kernels(torch, F, report) -> list[dict]:
                 plain_ms=cuda_ms(lambda: flash_lanes_bwd_plain(
                     q, k, v, lens_t, out, do, lse, H), iters=3),
                 library_ms=lib_bwd, library="autograd backward of SDPA " + best,
-                bound_ms=b_ms, bound_by=b_by, route="cuda", source=src_bwd,
-                replaces="oron_tts_tpu/ops/flash_attention.py:528")
+                bound_ms=b_ms, bound_by=b_by, route="cuda", source=BWD_SRC, entry=src_bwd,
+                replaces="oron_tts_tpu/ops/flash_attention.py:528",
+                **backward_passes(torch, "lanes", q, k, v, lens_t, out, do, lse, H))
             rows.extend([fwd_row, bwd_row])
         report(fwd_row)
         report(bwd_row)
@@ -475,6 +560,7 @@ def check_kernels(torch, F) -> list[dict]:
 
 
 CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
+BWD_SRC = "oron_tts_tpu_torch/csrc/flash_bwd.cuh"  # rows 5 and 7: one wgmma body
 # bench.py's synthesis protocol: 120 letters, 1,560 frames; its comment says
 # "bucketed to 1664", its arithmetic (and the facade's multiple of 64) 1,600
 SYNTH_LETTERS, SYNTH_STEPS = 120, 32
@@ -546,7 +632,7 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     # kernel 6 (and 8) at small shapes: f32 and bf16, D 32/48/64, exp and
     # exp2, a kv_len = 0 row (every key weighs 1/T), odd H for the packed one
     for dtype in (f32, bf16):
-        for D in (32, 48, 64):
+        for D in (32, 40, 48, 64, 128):
             for H in (3, 4):
                 q, k, v = qkv((2, H, 200, D), dtype)
                 lens = lens_of([137, 0])
@@ -566,20 +652,24 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
                             "max_abs_err": (got.float() - ref).abs().max().item(),
                             "tol": fwd_tol[dtype]})
 
-    # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero
+    # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero; D =
+    # 80 and 128 repaired (R1), 40 padded to 48 (R4)
     for dtype in (f32, bf16):
-        for D in (32, 48, 64):
+        for D in (32, 40, 48, 64, 80, 128):
             q, k, v, do = qkv((2, 4, 200, D), dtype, 4)
             lens = lens_of([137, 0])
             out = flash_attention(q, k, v, kv_lens=lens)
             got = flash_attention_bwd(q, k, v, lens, out, do)
+            same_bits = bit_identical(got, flash_attention_bwd(q, k, v, lens, out, do))
             refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), lens,
                                              out.float(), do.float())
             empty_row = min(g[1].float().abs().max().item() for g in got)
             report({"name": "flash_attention_bwd", "dtype": str(dtype),
                     "shape": [2, 4, 200, D], "kv_lens": [137, 0],
                     **grad_errors(got, refs, grad_tol[dtype]),
-                    "kv_len_0_row_min_grad_max": empty_row})
+                    "kv_len_0_row_min_grad_max": empty_row, "bit_identical_twice": same_bits})
+            if not same_bits:
+                raise AssertionError(f"flash_attention_bwd at D = {D}: two calls differ")
             if not empty_row > 0:
                 raise AssertionError("flash_attention_bwd: the kv_len = 0 row has a zero gradient")
 
@@ -645,10 +735,13 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     kept = kept_keys(lens, T)
     out = flash_attention(q, k, v, kv_lens=lens)
     got = flash_attention_bwd(q, k, v, lens, out, do)
+    same_bits = bit_identical(got, flash_attention_bwd(q, k, v, lens, out, do))
     refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), lens, out.float(),
                                      do.float())
     errs = grad_errors(got, refs, 1e-2)
     del got, refs
+    if not same_bits:
+        raise AssertionError("flash_attention_bwd: two calls differ")
     mask = sdpa_mask(lens, T)
     fwd_times = sdpa_by_backend(torch, F, q, k, v, mask)
     best, _ = fastest(fwd_times)
@@ -667,35 +760,64 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
            "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, lens, out, do), iters=5),
            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, lens, out, do), iters=3),
            "library_ms": lib_bwd, "library": "autograd backward of SDPA " + best,
-           "bound_ms": b_ms, "bound_by": b_by, "route": "cuda",
-           "source": "oron_tts_tpu_torch/csrc/flash_classic_bwd.cu",
-           "replaces": "oron_tts_tpu/ops/flash_attention.py:749"}
+           "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": BWD_SRC,
+           "entry": "oron_tts_tpu_torch/csrc/flash_classic_bwd.cu",
+           "replaces": "oron_tts_tpu/ops/flash_attention.py:749", "bit_identical_twice": same_bits,
+           **backward_passes(torch, "classic", q, k, v, lens, out, do)}
     rows.append(row)
     report(row)
     del q, k, v, do, out
     torch.cuda.empty_cache()
 
-    # repair: lanes forward, stats and backward at D = 32
-    for dtype, (Bl, Tl, Hl) in ((f32, (2, 200, 2)), (bf16, (2, 200, 2)), (bf16, (2, 832, 16))):
-        q, k, v, do = qkv((Bl, Tl, Hl * 32), dtype, 4)
-        lens = lens_of([Tl, Tl - 63])
+    # repairs: lanes forward, stats and backward at D = 32 (PR 4), 16 and 128
+    # (R2), 3 heads of 40 (R4, padded to 48); a kv_len = 0 row gets zeros
+    for dtype, (Bl, Tl, Hl, D) in ((f32, (2, 200, 2, 32)), (bf16, (2, 200, 2, 32)),
+                                   (bf16, (2, 832, 16, 32)), (f32, (2, 200, 8, 16)),
+                                   (bf16, (2, 200, 8, 16)), (f32, (2, 200, 2, 128)),
+                                   (bf16, (2, 200, 2, 128)), (f32, (2, 200, 3, 40)),
+                                   (bf16, (2, 200, 3, 40))):
+        q, k, v, do = qkv((Bl, Tl, Hl * D), dtype, 4)
+        lens = lens_of([Tl - 63, 0] if Tl == 200 else [Tl, Tl - 63])
         out, lse = flash_lanes_fwd_stats(q, k, v, lens, Hl)
         ref_out, ref_lse = flash_lanes_fwd_stats_plain(q.float(), k.float(), v.float(), lens, Hl)
         same = torch.equal(out, flash_lanes_fwd(q, k, v, lens, Hl))
         got = flash_lanes_bwd(q, k, v, lens, out, do, lse, Hl)
+        same_bits = bit_identical(got, flash_lanes_bwd(q, k, v, lens, out, do, lse, Hl))
         refs = flash_lanes_bwd_plain(q.float(), k.float(), v.float(), lens, out.float(),
                                      do.float(), lse, Hl)
-        report({"name": "flash_lanes_fwd_stats", "dtype": str(dtype), "shape": [Bl, Tl, Hl * 32],
-                "head_dim": 32, "out_bit_equal_to_fwd": same,
+        empty_zero = all(not g[1].any() for g in got) if lens[1] == 0 else None
+        report({"name": "flash_lanes_fwd_stats", "dtype": str(dtype), "shape": [Bl, Tl, Hl * D],
+                "head_dim": D, "out_bit_equal_to_fwd": same,
                 "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
                 "max_abs_err": (out.float() - ref_out).abs().max().item(), "tol": fwd_tol[dtype]})
-        report({"name": "flash_lanes_bwd", "dtype": str(dtype), "shape": [Bl, Tl, Hl * 32],
-                "head_dim": 32, **grad_errors(got, refs, grad_tol[dtype])})
-        if not same:
-            raise AssertionError("flash_lanes_fwd_stats and flash_lanes_fwd differ at D = 32")
+        report({"name": "flash_lanes_bwd", "dtype": str(dtype), "shape": [Bl, Tl, Hl * D],
+                "head_dim": D, "kv_lens": lens.tolist(), **grad_errors(got, refs, grad_tol[dtype]),
+                "kv_len_0_row_zero": empty_zero, "bit_identical_twice": same_bits})
+        if not (same and same_bits and empty_zero is not False):
+            raise AssertionError(f"lanes kernels at D = {D}: stats output {same}, two backward "
+                                 f"calls equal {same_bits}, kv_len = 0 row zero {empty_zero}")
 
-    # repair: the grouped conv at group widths 16, 32 (the Small config) and 128
-    for C, T in ((512, 832), (256, 200), (2048, 200)):
+    # a bf16 head width that is not a multiple of 8 raises before any launch
+    counts = (flash_lanes_fwd.launches, flash_lanes_bwd.launches, flash_attention.launches)
+    refused = []
+    for name, call in (
+        ("flash_lanes_fwd", lambda: flash_lanes_fwd(*qkv((1, 64, 100), bf16), lens_of([64]), 5)),
+        ("flash_attention", lambda: flash_attention(*qkv((1, 5, 64, 20), bf16))),
+        ("flash_attention_bwd", lambda: flash_attention_bwd(
+            *qkv((1, 5, 64, 20), bf16), lens_of([64]), *qkv((1, 5, 64, 20), bf16, 2))),
+    ):
+        try:
+            call()
+        except ValueError as exc:
+            refused.append(f"{name}: {exc}"[:120])
+    emit({"phase": "kernel_refusals", "head_dim": 20, "refused": refused})
+    if len(refused) != 3 or counts != (flash_lanes_fwd.launches, flash_lanes_bwd.launches,
+                                       flash_attention.launches):
+        raise AssertionError(f"head width 20 in bf16 was not refused before launch: {refused}")
+
+    # repairs: the grouped conv at group widths 16, 32 (the Small config) and
+    # 128 (PR 4), 8 and 4 (R3, the SIMT kernel in bf16)
+    for C, T in ((512, 832), (256, 200), (2048, 200), (128, 200), (64, 200)):
         for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
             x = torch.randn(2, T, C, generator=gen, device=dev).to(dtype)
             w = (torch.randn(31, C // 16, C, generator=gen, device=dev)
@@ -1807,6 +1929,11 @@ def run_classic(torch, smi: str) -> dict[str, int]:
             if {n: c for n, c in counts.items() if c} != want:
                 raise AssertionError(f"classic training step {step}: launches {counts}, "
                                      f"expected {want}")
+        # after the counts were read: one traced step on "flash", beside the
+        # train phase's traced step on "lanes"
+        emit({"phase": "profile", "mode": "train_step_flash", "card": smi,
+              **profile_once(torch, lambda: trainer.train_step(
+                  batch, torch.Generator().manual_seed(5)))})
         del trainer
     mean = sum(step_ms) / len(step_ms)
     emit({"phase": "classic_train_summary", "impl": "flash", "step_ms_mean": mean,
@@ -1851,7 +1978,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
     import numpy as np
 
     from oron_tts_tpu_torch.cli import train as cli_train
-    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.config import F5Config, load_config
     from oron_tts_tpu_torch.data.wav import write_wav
     from oron_tts_tpu_torch.models.f5tts import F5TTS
     from oron_tts_tpu_torch.ops.flash_attention import (
@@ -1860,6 +1987,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         flash_lanes_fwd_stats,
     )
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
     repo = Path(__file__).resolve().parent
@@ -1915,12 +2043,43 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         wall = time.perf_counter() - t0
         train_counts = read_counts(wrappers)
         ckpts = sorted(p.name for p in Path(f"{tmp}/ckpt").glob("f5tts_step_*.npz"))
-    emit({"phase": "widths_train", "config": "configs/test.yaml", "epochs": 2, "wall_s": wall,
-          "checkpoints": ckpts, "launches": train_counts, "card": smi})
-    if not (train_counts["flash_lanes_fwd_stats"] > 0 and train_counts["flash_lanes_bwd"] > 0
-            and train_counts["grouped_conv1d_mish"] == 0 and ckpts):
-        raise AssertionError(f"test.yaml training: launches {train_counts}, checkpoints {ckpts}")
-    return {n: synth_counts[n] + train_counts[n] for n in wrappers}
+        emit({"phase": "widths_train", "config": "configs/test.yaml", "epochs": 2,
+              "wall_s": wall, "checkpoints": ckpts, "launches": train_counts, "card": smi})
+        if not (train_counts["flash_lanes_fwd_stats"] > 0 and train_counts["flash_lanes_bwd"] > 0
+                and train_counts["grouped_conv1d_mish"] == 0 and ckpts):
+            raise AssertionError(f"test.yaml training: launches {train_counts}, "
+                                 f"checkpoints {ckpts}")
+
+        # two F5Trainer steps in bf16 at dim 128, heads 1, depth 2: configs/test.yaml
+        # with those fields overridden here, so D = 128 lanes (R2) and the
+        # group-width-8 conv kernel (R3) train through the CLI's data path
+        config = load_config(repo / "configs" / "test.yaml")
+        config["model"] = {**config["model"], "dim": 128, "heads": 1, "depth": 2}
+        config["mixed_precision"] = "bfloat16"
+        loader, _ = cli_train.build_loaders(cli_train.build_dataset(tmp, config), config)
+        model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+        model.init_params(0)
+        conv = model.backbone.input_embed.conv_pos_embed
+        trainer = F5Trainer(config, model, loader, log_dir=f"{tmp}/logs128",
+                            checkpoint_dir=f"{tmp}/ckpt128")
+        batch = next(iter(loader))
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch, torch.Generator().manual_seed(step))
+                  for step in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d128_counts = read_counts(wrappers)
+        del trainer, model
+    emit({"phase": "widths_train_d128", "config": "configs/test.yaml + dim 128, heads 1, bf16",
+          "head_dim": 128, "conv_route": conv.route, "conv_group_width": 128 // conv.groups,
+          "steps": 2, "loss": [m["loss"] for m in losses], "ok": [m["ok"] for m in losses],
+          "wall_s": wall, "launches": d128_counts, "card": smi})
+    if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses)
+            and d128_counts["flash_lanes_fwd_stats"] == 4 and d128_counts["flash_lanes_bwd"] == 4
+            and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"):
+        raise AssertionError(f"dim-128 bf16 training: launches {d128_counts}, steps {losses}")
+    return {n: synth_counts[n] + train_counts[n] + d128_counts[n] for n in wrappers}
 
 
 def main() -> int:
@@ -1948,6 +2107,7 @@ def main() -> int:
     libs = _build.build_all(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(_build.BUILD_DIR.parents[1])) for p in libs.values()]})
+    emit({"phase": "sass", "hgmma": hgmma_counts(libs)})
 
     seconds = {}
 
@@ -1975,6 +2135,7 @@ def main() -> int:
         | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}
         | {"library": row.get("library"), "shape": row.get("shape")}
+        | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms") if k in row}
         for row in rows
     ], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

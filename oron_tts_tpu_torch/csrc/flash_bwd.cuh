@@ -12,68 +12,56 @@
 //
 // A row with kv_len <= 0: the lanes backward gives it zero gradients (exact
 // when its dO is 0, as for the batch-padding rows of training); the classic
-// backward (uniform_empty) gives it what the TPU's -1e30 mask gives, equal
-// weights over all T keys (p = 1/T, with lse2 = log2 T from the stats pass)
-// and the gradients that follow from them.
+// backward (CLASSIC) gives it what the TPU's -1e30 mask gives, equal weights
+// over all T keys (p = 1/T, lse2 = log2 T) and the gradients that follow.
 //
-// Design. The TPU kernels run one program per (batch row, head or lane tile)
-// that walks the query blocks in order and carries dK/dV for the whole
+// Design (bf16). The TPU kernels run one program per (batch row, head or lane
+// tile) that walks the query blocks in order and carries dK/dV for the whole
 // sequence in VMEM. Thread blocks run in no order and hold far less, so the
-// work is cut twice and S is recomputed in both cuts:
-//   1. attn_delta: one warp per (row, head) writes delta [B, H, T].
-//   2. bwd_dkdv: one block per (64-key tile, head, batch row) loops over the
-//      query tiles and keeps its dK/dV tile in registers; each warp owns 16
-//      keys and computes S^T = K Q^T so that P^T and dS^T come out of the
-//      accumulators already in the A-fragment layout of the next product.
-//   3. bwd_dq: one block per (64-query tile, head, batch row) loops over the
-//      key tiles below kv_len, as the forward does.
-// No atomics, so the result is the same from run to run. Key tiles past
-// kv_len are skipped and their dK/dV rows are written as exact zeros. Query
-// rows past kv_len are computed like any other, as in the forward.
+// work is cut twice, S and dP recomputed in each cut, and nothing is summed
+// across blocks: no atomics, and two calls give the same bits. Two launches:
+//   A. bwd_dq_wgmma, one block per (128 queries, head, batch row): delta for
+//      its rows (written to [B, H, T] for pass B); for the classic kernel a
+//      sweep of S alone over the keys below kv_len that writes lse2 (the
+//      forward's statistics, which the TPU kernel recomputes too); then S, dP,
+//      dS and dQ += dS K over the key tiles below kv_len.
+//   B. bwd_dkdv_wgmma, one block per (128 keys, head, batch row), after A on
+//      the same stream: over all query tiles, S^T, dP^T, P^T, dS^T, then
+//      dV += P^T dO and dK += dS^T Q. Key tiles at or past kv_len write zeros.
+// Tensor work: the five products the math needs plus S and dP again, and the
+// classic sweep's S: 7 and 8 products' worth for the lanes and classic kernels.
 //
-// bf16 uses mma.sync m16n8k16 with f32 accumulators (seven products with the
-// recompute, no wgmma/TMA yet); f32 inputs take SIMT kernels in true f32, one
-// query row (dq) or key row (dkdv) per thread.
+// A block is two warpgroups, each owning 64 of the block's 128 rows. Every
+// product is wgmma m64nNk16 (wgmma.cuh). Its B operand, and the A operand of
+// the first two products, come from shared memory in the canonical layout
+// without swizzle; the tiles that are read the other way round (K in dQ += dS
+// K, Q and dO in pass B's updates) are the same bytes read MN-major through
+// the transpose bit, so no transposed copy exists. P^T and dS (dS^T) are the
+// A operand of the next product straight from the S and dP accumulators,
+// rounded to bf16 in registers (as FlashAttention-3 does). The resident rows
+// (Q and dO in A, K and V in B) are copied once; the streamed tiles (K and V
+// in A; Q, dO, lse2 and delta in B) arrive through a two-stage ring of
+// cp.async copies, so the next tile's copy overlaps this tile's products.
+// cp.async and not TMA: it needs no tensor maps (built per call on the host
+// through the driver API) and no mbarriers, and a copy that lands zeros past
+// T or past D (src-size 0) is one instruction; a producer warp with TMA is
+// what a later PR would add. The swizzle-free layout takes every head width
+// that is a multiple of 8 with one code path: columns from D up to the next
+// multiple of 16 (the wgmma depth) are copied as zeros and never stored.
+//
+// Bound: 10*T*kv*D flops per head (five products) over ~16*T*D bytes, far
+// above 295 flops per byte on the H100, so the tensor cores.
+//
+// f32 inputs take SIMT kernels in true f32 (the reference path of the
+// checks): a delta launch, for the classic kernel the forward in STATS mode,
+// one query row (dq) or key row (dkdv) per thread.
 #pragma once
 
 #include "flash_fwd.cuh"
+#include "wgmma.cuh"
 
 namespace oron {
 namespace attn {
-
-// ---------------------------------------------------------------- delta
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-
-// delta[(b*H + h)*T + t] = sum_d dO[row] * O[row]; one warp each
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-attn_delta(const T* __restrict__ o, const T* __restrict__ dout,
-           float* __restrict__ delta, int B, int Tn, int H, Layout lay) {
-  const int lane = threadIdx.x & 31;
-  const size_t idx = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (idx >= (size_t)B * H * Tn) return;
-  const int t = (int)(idx % Tn);
-  const size_t bh = idx / Tn;
-  const int h = (int)(bh % H), b = (int)(bh / H);
-  const size_t off = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride +
-                     (size_t)t * lay.row_stride;
-  float x = 0.f;
-#pragma unroll
-  for (int d = lane; d < D; d += 32) x += to_f32<T>(dout[off + d]) * to_f32<T>(o[off + d]);
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  if (lane == 0) delta[idx] = x;
-}
 
 // Keys that count in the backward, and the score scale (see the header).
 __device__ __forceinline__ void bwd_limit(int kv, int T, float scale_log2,
@@ -86,273 +74,496 @@ __device__ __forceinline__ void bwd_limit(int kv, int T, float scale_log2,
   }
 }
 
-// ----------------------------------------------------------- bf16 helpers
+// ------------------------------------------------------- bf16 (wgmma)
 
-template <int D>
-struct BwdSmem {
-  static constexpr int LDS = D + 8;   // row-major [row][d]
-  static constexpr int LDT = BN + 8;  // transposed [d][row]
+// exp2 on the special-function unit (ex2.approx, relative error ~2^-22, far
+// below the bf16 rounding of p); exp2f's range handling costs ~9% here
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int BWD_ROWS = 128;     // rows a block owns: two warpgroups x 64
+constexpr int BWD_THREADS = 256;
+constexpr int KV_TILE = 64;       // keys of one pass-A stage
+
+// Pass B's queries a stage, and the blocks an SM holds. Up to DP = 64 two
+// blocks share an SM (128 registers a thread), which hides one block's
+// softmax behind the other's products: pass B then takes 32 queries a stage
+// (its dK, dV, S^T and dP^T accumulators must fit), except at DP = 16 and 32.
+template <int DP>
+struct BwdTile {
+  static constexpr int BQ = DP > 32 ? 32 : 64;
+  static constexpr int MIN_BLOCKS = DP > 64 ? 1 : 2;
 };
 
-// 64 rows x D columns of one head into smem, row-major (dst[r][c]) and,
-// where dst_t is given, transposed too (dst_t[c][r]). Rows at or beyond T
-// are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          size_t base, int row0, int T, int rs,
-                                          __nv_bfloat16* dst, __nv_bfloat16* dst_t) {
-  constexpr int LDS = BwdSmem<D>::LDS, LDT = BwdSmem<D>::LDT;
-  for (int idx = threadIdx.x; idx < BN * (D / 8); idx += blockDim.x) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + base + (size_t)(row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(&dst[r * LDS + c]) = val;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c + j) * LDT + r] = vp[j];
-    }
+// rows [row0, row0 + R) x columns [0, DP) of one head into a core-matrix
+// tile (wgmma.cuh), asynchronously; rows at or past T and columns at or past
+// dh land as zeros. Eight consecutive threads copy the eight rows of one
+// core matrix; a warp reads 8 rows x 64 bytes.
+template <int R, int DP>
+__device__ __forceinline__ void load_core_tile(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* __restrict__ src,
+                                               size_t base, int row0, int T, int dh, int rs,
+                                               int tid) {
+  constexpr int CB = DP / 8;
+  for (int idx = tid; idx < R * CB; idx += BWD_THREADS) {
+    const int r = (idx & 7) | ((idx / (8 * CB)) << 3);
+    const int c = ((idx >> 3) % CB) * 8;
+    const bool ok = row0 + r < T && c < dh;
+    const __nv_bfloat16* from = ok ? src + base + (size_t)(row0 + r) * rs + c : src;
+    wg::cp_async16(dst + wg::core_offset<R>(r, c), from, ok ? 16 : 0);
   }
 }
 
-// This warp's 16 rows of a row-major [64][D] smem tile as mma A fragments
-template <int D>
-__device__ __forceinline__ void load_a_frags(const __nv_bfloat16* tile, int r0, int t4,
-                                             uint32_t (*a)[4]) {
-  constexpr int LDS = BwdSmem<D>::LDS;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    a[kk][0] = ld32(&tile[r0 * LDS + c]);
-    a[kk][1] = ld32(&tile[(r0 + 8) * LDS + c]);
-    a[kk][2] = ld32(&tile[r0 * LDS + c + 8]);
-    a[kk][3] = ld32(&tile[(r0 + 8) * LDS + c + 8]);
+// n values of a [B, H, T] f32 row from t0 into smem; past T, zeros
+__device__ __forceinline__ void load_stat_row(float* dst, const float* __restrict__ src,
+                                              int t0, int n, int T, int tid) {
+  if (tid < n) {
+    const bool ok = t0 + tid < T;
+    wg::cp_async4(dst + tid, ok ? src + t0 + tid : src, ok ? 4 : 0);
   }
 }
 
-// acc[16 x 64] = A[16 x D] * Bs^T, Bs row-major [64 n][D k] in smem
-template <int D>
-__device__ __forceinline__ void mma_a_bt(float (*acc)[4], uint32_t (*a)[4],
-                                         const __nv_bfloat16* bs, int g, int t4) {
-  constexpr int LDS = BwdSmem<D>::LDS;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int n = j * 8 + g, c = kk * 16 + t4 * 2;
-      uint32_t bb[2] = {ld32(&bs[n * LDS + c]), ld32(&bs[n * LDS + c + 8])};
-      mma_bf16_16816(acc[j], a[kk], bb);
-    }
-  }
+// K-major operand: the tile's rows along M or N (from row0, a multiple of
+// 8), its columns along K; k-step kk
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile, int row0, int kk) {
+  constexpr uint32_t COL = wg::Core<R>::COL_GROUP;
+  return wg::desc(wg::smem_addr(tile) + (row0 >> 3) * wg::Core<R>::ROW_GROUP + kk * 2 * COL,
+                  COL, wg::Core<R>::ROW_GROUP);
 }
 
-// acc[16 x D] += round_bf16(x)[16 x 64] * Bt^T, where x is an accumulator
-// tile of a previous product and Bt is [D n][64 k] in smem (transposed)
-template <int D>
-__device__ __forceinline__ void mma_acc_bt(float (*acc)[4], float (*x)[4],
-                                           const __nv_bfloat16* bt, int g, int t4) {
-  constexpr int LDT = BwdSmem<D>::LDT;
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                     pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                     pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                     pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int n = j * 8 + g, c = kk * 16 + t4 * 2;
-      uint32_t bb[2] = {ld32(&bt[n * LDT + c]), ld32(&bt[n * LDT + c + 8])};
-      mma_bf16_16816(acc[j], a, bb);
-    }
-  }
+// MN-major operand (transpose bit): the tile's rows along K, its columns
+// along N; k-step kk takes rows 16kk .. 16kk + 15
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile, int kk) {
+  return wg::desc(wg::smem_addr(tile) + kk * 2 * wg::Core<R>::ROW_GROUP,
+                  wg::Core<R>::ROW_GROUP, wg::Core<R>::COL_GROUP);
 }
 
-template <int D>
-__device__ __forceinline__ void store_tile_rows(__nv_bfloat16* __restrict__ dst,
-                                                size_t base, int row, int T, int rs,
-                                                float (*acc)[4], int t4) {
+// k-step kk of an accumulator as a bf16 A fragment (columns 16kk .. 16kk+15)
+__device__ __forceinline__ void acc_to_a(const float* x, int kk, uint32_t* a) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// this thread's rows (row, row + 8) of an m64nDP accumulator, columns < dh
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, size_t base,
+                                           int row, int T, int dh, int rs, const float* acc,
+                                           int t4) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     const int col = j * 8 + t4 * 2;
+    if (col >= dh) continue;
     if (row < T)
       *reinterpret_cast<uint32_t*>(dst + base + (size_t)row * rs + col) =
-          pack_bf16(acc[j][0], acc[j][1]);
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
     if (row + 8 < T)
       *reinterpret_cast<uint32_t*>(dst + base + (size_t)(row + 8) * rs + col) =
-          pack_bf16(acc[j][2], acc[j][3]);
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-// ------------------------------------------------------------- bf16 dK/dV
+// The two-stage ring: issue(i) copies tile i into stage i & 1 and commits
+// one cp.async group; body(i) runs once tile i has landed, while tile i + 1
+// is on its way. One barrier a tile: past it, every thread has finished
+// body(i - 1), so stage (i + 1) & 1 may be refilled. Groups committed before
+// (the resident rows) have landed by body(0).
+template <typename Issue, typename Body>
+__device__ __forceinline__ void ring2(int n, Issue&& issue, Body&& body) {
+  if (n > 0) issue(0);
+  for (int i = 0; i < n; ++i) {
+    wg::cp_wait<0>();
+    wg::fence_async_proxy();
+    __syncthreads();
+    if (i + 1 < n) issue(i + 1);
+    body(i);
+  }
+  __syncthreads();  // the stages are free for another ring
+}
 
-template <int D>
-__global__ void __launch_bounds__(128)
-bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, int T, Layout lay, float sm_scale,
-              float scale_log2, int uniform_empty) {
-  constexpr int LDS = BwdSmem<D>::LDS, LDT = BwdSmem<D>::LDT;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BN * LDS];   // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 Qt[D * LDT];    // [d][query]
-  __shared__ __align__(16) __nv_bfloat16 dOs[BN * LDS];  // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 dOt[D * LDT];   // [d][query]
-  __shared__ float lse_s[BN];
-  __shared__ float delta_s[BN];
+template <int DP>
+struct BwdSmemA {  // pass A: Q, dO [128][DP]; two stages of K, V [64][DP]; delta, lse
+  static constexpr int KV = KV_TILE * DP;
+  static constexpr size_t BYTES =
+      (size_t)(2 * BWD_ROWS * DP + 4 * KV) * 2 + 2 * BWD_ROWS * sizeof(float);
+};
 
-  const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+template <int DP>
+struct BwdSmemB {  // pass B: K, V [128][DP]; two stages of Q, dO [BQ][DP], lse, delta
+  static constexpr int BQ = BwdTile<DP>::BQ;
+  static constexpr int QD = BQ * DP;
+  static constexpr size_t BYTES = (size_t)(2 * BWD_ROWS * DP + 4 * QD) * 2 + 4 * BQ * sizeof(float);
+};
+
+// Pass A. CLASSIC: recompute lse2 (written to lse) and give a kv_len <= 0
+// row equal weights; otherwise lse holds the forward's lse2.
+template <int DP, bool CLASSIC>
+__global__ void __launch_bounds__(BWD_THREADS, BwdTile<DP>::MIN_BLOCKS)
+bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+             const __nv_bfloat16* __restrict__ dout, float* __restrict__ lse,
+             float* __restrict__ delta, const int* __restrict__ kv_lens,
+             __nv_bfloat16* __restrict__ dq, int T, int dh, Layout lay, float sm_scale,
+             float scale_log2) {
+  using S = BwdSmemA<DP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + BWD_ROWS * DP;
+  __nv_bfloat16* ring = dOs + BWD_ROWS * DP;  // stage s: K at 2s, V at 2s + 1
+  float* delta_s = reinterpret_cast<float*>(ring + 4 * S::KV);
+  float* lse_s = delta_s + BWD_ROWS;
+
+  const int q0 = blockIdx.x * BWD_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int H = gridDim.y, rs = lay.row_stride;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
   const size_t stat = ((size_t)b * H + h) * T;
   int limit;
   float s_scale;
-  bwd_limit(kv_lens[b], T, scale_log2, uniform_empty, limit, s_scale);
-  const int r0 = warp * 16 + g;
+  bwd_limit(kv_lens[b], T, scale_log2, CLASSIC, limit, s_scale);
+  const int r0 = wgi * 64 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  load_core_tile<BWD_ROWS, DP>(Qs, q, base, q0, T, dh, rs, tid);
+  load_core_tile<BWD_ROWS, DP>(dOs, dout, base, q0, T, dh, rs, tid);
+  wg::cp_commit();
+
+  {  // delta for the block's rows, two threads a row
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    float x = 0.f;
+    if (row < T) {
+      const size_t off = base + (size_t)row * rs;
+      for (int c = half * 8; c < dh; c += 16) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + off + c);
+        const uint4 bb = *reinterpret_cast<const uint4*>(o + off + c);
+        const __nv_bfloat16* pa = reinterpret_cast<const __nv_bfloat16*>(&a);
+        const __nv_bfloat16* pb = reinterpret_cast<const __nv_bfloat16*>(&bb);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  if (k0 < limit) {
-    // this block's keys and values as A fragments (staged through smem)
-    uint32_t ka[D / 16][4], va[D / 16][4];
-    load_tile<D>(k, base, k0, T, rs, Qs, nullptr);
-    load_tile<D>(v, base, k0, T, rs, dOs, nullptr);
-    __syncthreads();
-    load_a_frags<D>(Qs, r0, t4, ka);
-    load_a_frags<D>(dOs, r0, t4, va);
-
-    const int n_q = (T + BN - 1) / BN;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * BN;
-      __syncthreads();  // the previous tile is no longer read
-      load_tile<D>(q, base, q0, T, rs, Qs, Qt);
-      load_tile<D>(dout, base, q0, T, rs, dOs, dOt);
-      if (tid < BN) {
-        const bool ok = q0 + tid < T;
-        lse_s[tid] = ok ? lse[stat + q0 + tid] : INFINITY;  // p = 0 past T
-        delta_s[tid] = ok ? delta[stat + q0 + tid] : 0.f;
+        for (int j = 0; j < 8; ++j) x += __bfloat162float(pa[j]) * __bfloat162float(pb[j]);
       }
-      __syncthreads();
-
-      float s[BN / 8][4], dp[BN / 8][4];
-      mma_a_bt<D>(s, ka, Qs, g, t4);    // S^T  = K Q^T   [key][query]
-      mma_a_bt<D>(dp, va, dOs, g, t4);  // dP^T = V dO^T  [key][query]
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + t4 * 2 + (e & 1);
-          const int key = k0 + r0 + (e >> 1) * 8;
-          const float p = key < limit ? exp2f(s[j][e] * s_scale - lse_s[qc]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - delta_s[qc]) * sm_scale;
-        }
-      mma_acc_bt<D>(dv_acc, s, dOt, g, t4);  // dV += P^T dO
-      mma_acc_bt<D>(dk_acc, dp, Qt, g, t4);  // dK += dS^T Q
+    }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    if (half == 0) {
+      delta_s[r] = x;
+      if (row < T) delta[stat + row] = x;
+      if (!CLASSIC) lse_s[r] = row < T ? lse[stat + row] : 0.f;
     }
   }
-  store_tile_rows<D>(dk, base, k0 + r0, T, rs, dk_acc, t4);
-  store_tile_rows<D>(dv, base, k0 + r0, T, rs, dv_acc, t4);
+
+  const int n_tiles = (limit + KV_TILE - 1) / KV_TILE;
+  float s[KV_TILE / 2], dp[KV_TILE / 2];
+#pragma unroll
+  for (int i = 0; i < KV_TILE / 2; ++i) s[i] = dp[i] = 0.f;
+  auto stage = [&](int kt) { return ring + (kt & 1) * 2 * S::KV; };
+
+  if (CLASSIC) {
+    // lse2 = m + log2(max(l, 1e-30)) from S alone, as the forward's STATS
+    // mode, over 128 keys a step: a stage's K and V slots take two K tiles,
+    // S and dP's accumulators their two score tiles. The max is taken over
+    // the raw scores (the scale is >= 0), each key costs one FFMA and one ex2.
+    float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+    ring2(
+        (limit + 2 * KV_TILE - 1) / (2 * KV_TILE),
+        [&](int it) {
+          load_core_tile<KV_TILE, DP>(stage(it), k, base, 2 * it * KV_TILE, T, dh, rs, tid);
+          load_core_tile<KV_TILE, DP>(stage(it) + S::KV, k, base, (2 * it + 1) * KV_TILE, T, dh,
+                                      rs, tid);
+          wg::cp_commit();
+        },
+        [&](int it) {
+          const __nv_bfloat16* K0 = stage(it);
+          wg::fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk)
+            wg::wgmma_ss<KV_TILE>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
+                                  desc_k<KV_TILE>(K0, 0, kk), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk)
+            wg::wgmma_ss<KV_TILE>(dp, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
+                                  desc_k<KV_TILE>(K0 + S::KV, 0, kk), kk > 0);
+          wg::commit();
+          wg::wait<0>();
+          wg::fence_regs<KV_TILE / 2>(s);
+          wg::fence_regs<KV_TILE / 2>(dp);
+          const int k0 = 2 * it * KV_TILE;
+          const bool ragged = k0 + 2 * KV_TILE > limit;
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int i = 0; i < KV_TILE / 2; ++i) {
+            if (ragged) {
+              const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+              if (col >= limit) s[i] = -INFINITY;
+              if (col + KV_TILE >= limit) dp[i] = -INFINITY;
+            }
+            mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fmaxf(s[i], dp[i]));
+          }
+          float nm[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float m_new = fmaxf(m_i[r], mx[r] * s_scale);  // key k0 counts: finite
+            l_i[r] *= exp2_approx(m_i[r] - m_new);                 // 0 on the first step
+            m_i[r] = m_new;
+            nm[r] = -m_new;
+          }
+#pragma unroll
+          for (int i = 0; i < KV_TILE / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            float e0 = exp2_approx(fmaf(s[i], s_scale, nm[r]));
+            float e1 = exp2_approx(fmaf(dp[i], s_scale, nm[r]));
+            if (ragged) {  // -inf * 0 would be NaN where the scale is 0 (empty rows)
+              const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+              e0 = col < limit ? e0 : 0.f;
+              e1 = col + KV_TILE < limit ? e1 : 0.f;
+            }
+            l_i[r] += e0 + e1;
+          }
+        });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_i[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float lse2 = m_i[r] + log2f(fmaxf(l, 1e-30f));
+      const int rr = r0 + 8 * r;
+      if (t4 == 0) {
+        lse_s[rr] = lse2;
+        if (q0 + rr < T) lse[stat + q0 + rr] = lse2;
+      }
+    }
+  }
+  __syncthreads();
+  // p / sqrt(D) = exp2(s * scale - (lse2 - log2(sm_scale))): dS takes one FMUL less
+  const float shift = log2f(sm_scale);
+  const float nlse[2] = {shift - lse_s[r0], shift - lse_s[r0 + 8]};
+  const float delta_r[2] = {delta_s[r0], delta_s[r0 + 8]};
+
+  float dqa[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+  ring2(
+      n_tiles,
+      [&](int kt) {
+        load_core_tile<KV_TILE, DP>(stage(kt), k, base, kt * KV_TILE, T, dh, rs, tid);
+        load_core_tile<KV_TILE, DP>(stage(kt) + S::KV, v, base, kt * KV_TILE, T, dh, rs, tid);
+        wg::cp_commit();
+      },
+      [&](int kt) {
+        const __nv_bfloat16* Ks = stage(kt);
+        const __nv_bfloat16* Vs = Ks + S::KV;
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)  // S = Q K^T
+          wg::wgmma_ss<KV_TILE>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
+                                desc_k<KV_TILE>(Ks, 0, kk), kk > 0);
+        wg::commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)  // dP = dO V^T
+          wg::wgmma_ss<KV_TILE>(dp, desc_k<BWD_ROWS>(dOs, wgi * 64, kk),
+                                desc_k<KV_TILE>(Vs, 0, kk), kk > 0);
+        wg::commit();
+        wg::wait<1>();  // P while dP is still on the tensor cores
+        wg::fence_regs<KV_TILE / 2>(s);
+        const int k0 = kt * KV_TILE;
+        const bool ragged = k0 + KV_TILE > limit;  // only the last tile masks keys
+#pragma unroll
+        for (int i = 0; i < KV_TILE / 2; ++i) {
+          s[i] = exp2_approx(fmaf(s[i], s_scale, nlse[(i >> 1) & 1]));
+          if (ragged && k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) >= limit) s[i] = 0.f;
+        }
+        wg::wait<0>();
+        wg::fence_regs<KV_TILE / 2>(dp);
+#pragma unroll
+        for (int i = 0; i < KV_TILE / 2; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < KV_TILE / 16; ++kk) {  // dQ += dS K
+          uint32_t a[4];
+          acc_to_a(dp, kk, a);
+          wg::wgmma_rs_t<DP>(dqa, a, desc_mn<KV_TILE>(Ks, kk));
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_regs<DP / 2>(dqa);
+      });
+  wg::cp_wait<0>();
+  store_rows<DP>(dq, base, q0 + r0, T, dh, rs, dqa, t4);
 }
 
-// ---------------------------------------------------------------- bf16 dQ
+// Pass B; lse and delta are pass A's (or the forward's) [B, H, T] rows.
+template <int DP, bool CLASSIC>
+__global__ void __launch_bounds__(BWD_THREADS, BwdTile<DP>::MIN_BLOCKS)
+bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int T, int dh, Layout lay, float sm_scale,
+               float scale_log2) {
+  using S = BwdSmemB<DP>;
+  constexpr int BQ = S::BQ;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + BWD_ROWS * DP;
+  __nv_bfloat16* ring = Vs + BWD_ROWS * DP;  // stage s: Q at 2s, dO at 2s + 1
+  float* stats = reinterpret_cast<float*>(ring + 4 * S::QD);  // stage s: lse, delta
 
-template <int D>
-__global__ void __launch_bounds__(128)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ dq, int T,
-            Layout lay, float sm_scale, float scale_log2, int uniform_empty) {
-  constexpr int LDS = BwdSmem<D>::LDS, LDT = BwdSmem<D>::LDT;
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LDS];  // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 Kt[D * LDT];   // [d][key]
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * LDS];  // [key][d]
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BWD_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int H = gridDim.y, rs = lay.row_stride;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
   const size_t stat = ((size_t)b * H + h) * T;
   int limit;
   float s_scale;
-  bwd_limit(kv_lens[b], T, scale_log2, uniform_empty, limit, s_scale);
-  const int r0 = warp * 16 + g;
+  bwd_limit(kv_lens[b], T, scale_log2, CLASSIC, limit, s_scale);
+  const int r0 = wgi * 64 + warp * 16 + g;  // this thread's keys k0 + r0 and + 8
 
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-  load_tile<D>(q, base, q0, T, rs, Ks, nullptr);
-  load_tile<D>(dout, base, q0, T, rs, Vs, nullptr);
-  __syncthreads();
-  load_a_frags<D>(Ks, r0, t4, qa);
-  load_a_frags<D>(Vs, r0, t4, doa);
-
-  float lse_r[2], delta_r[2];
+  float dka[DP / 2], dva[DP / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    lse_r[r] = row < T ? lse[stat + row] : INFINITY;
-    delta_r[r] = row < T ? delta[stat + row] : 0.f;
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  // key tiles at or past the limit stream nothing and store zeros; no
+  // branch around the products, which would make ptxas serialise them
+  const int n_q = k0 < limit ? (T + BQ - 1) / BQ : 0;
+  {
+    if (n_q > 0) {
+      load_core_tile<BWD_ROWS, DP>(Ks, k, base, k0, T, dh, rs, tid);
+      load_core_tile<BWD_ROWS, DP>(Vs, v, base, k0, T, dh, rs, tid);
+      wg::cp_commit();
+    }
+    float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    auto stage = [&](int qt) { return ring + (qt & 1) * 2 * S::QD; };
+    auto stage_stats = [&](int qt) { return stats + (qt & 1) * 2 * BQ; };
+    ring2(
+        n_q,
+        [&](int qt) {
+          load_core_tile<BQ, DP>(stage(qt), q, base, qt * BQ, T, dh, rs, tid);
+          load_core_tile<BQ, DP>(stage(qt) + S::QD, dout, base, qt * BQ, T, dh, rs, tid);
+          load_stat_row(stage_stats(qt), lse + stat, qt * BQ, BQ, T, tid);
+          load_stat_row(stage_stats(qt) + BQ, delta + stat, qt * BQ, BQ, T, tid);
+          wg::cp_commit();
+        },
+        [&](int qt) {
+          const __nv_bfloat16* Qs = stage(qt);
+          const __nv_bfloat16* dOs = Qs + S::QD;
+          const float* lse_s = stage_stats(qt);
+          const float* delta_s = lse_s + BQ;
+          wg::fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk)  // S^T = K Q^T   [key][query]
+            wg::wgmma_ss<BQ>(st, desc_k<BWD_ROWS>(Ks, wgi * 64, kk), desc_k<BQ>(Qs, 0, kk),
+                             kk > 0);
+          wg::commit();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk)  // dP^T = V dO^T
+            wg::wgmma_ss<BQ>(dpt, desc_k<BWD_ROWS>(Vs, wgi * 64, kk), desc_k<BQ>(dOs, 0, kk),
+                             kk > 0);
+          wg::commit();
+          wg::wait<1>();  // P^T while dP^T is still on the tensor cores
+          wg::fence_regs<BQ / 2>(st);
+          // queries past T: zero rows of Q and dO and zero delta make their
+          // p times dO and ds exactly 0
+          float nl[BQ / 8][2], nd[BQ / 8][2];  // per query column: -lse2, -delta / sqrt(D)
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              nl[j][e] = -lse_s[j * 8 + t4 * 2 + e];
+              nd[j][e] = -delta_s[j * 8 + t4 * 2 + e] * sm_scale;
+            }
+          const bool keep[2] = {k0 + r0 < limit, k0 + r0 + 8 < limit};
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) {
+            const float p = exp2_approx(fmaf(st[i], s_scale, nl[i >> 2][i & 1]));
+            st[i] = keep[(i >> 1) & 1] ? p : 0.f;
+          }
+          wg::fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {  // dV += P^T dO
+            uint32_t a[4];
+            acc_to_a(st, kk, a);
+            wg::wgmma_rs_t<DP>(dva, a, desc_mn<BQ>(dOs, kk));
+          }
+          wg::commit();
+          wg::wait<1>();  // dS^T while dV is on the tensor cores
+          wg::fence_regs<BQ / 2>(dpt);
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i)
+            dpt[i] = st[i] * fmaf(dpt[i], sm_scale, nd[i >> 2][i & 1]);
+          wg::fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {  // dK += dS^T Q
+            uint32_t a[4];
+            acc_to_a(dpt, kk, a);
+            wg::wgmma_rs_t<DP>(dka, a, desc_mn<BQ>(Qs, kk));
+          }
+          wg::commit();
+          wg::wait<0>();
+          wg::fence_regs<DP / 2>(dva);
+          wg::fence_regs<DP / 2>(dka);
+        });
+    wg::cp_wait<0>();
   }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  const int n_tiles = (limit + BN - 1) / BN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile (or the staging) is no longer read
-    load_tile<D>(k, base, k0, T, rs, Ks, Kt);
-    load_tile<D>(v, base, k0, T, rs, Vs, nullptr);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-    mma_a_bt<D>(s, qa, Ks, g, t4);    // S  = Q K^T   [query][key]
-    mma_a_bt<D>(dp, doa, Vs, g, t4);  // dP = dO V^T  [query][key]
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-        const float p = key < limit ? exp2f(s[j][e] * s_scale - lse_r[e >> 1]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * sm_scale;
-      }
-    mma_acc_bt<D>(dq_acc, dp, Kt, g, t4);  // dQ += dS K
-  }
-  store_tile_rows<D>(dq, base, q0 + r0, T, rs, dq_acc, t4);
+  store_rows<DP>(dk, base, k0 + r0, T, dh, rs, dka, t4);
+  store_rows<DP>(dv, base, k0 + r0, T, dh, rs, dva, t4);
 }
 
 // ------------------------------------------------------------ f32 (SIMT)
 
+// delta[(b*H + h)*T + t] = sum_d dO[row] * O[row]; one warp each
+__global__ void __launch_bounds__(256)
+attn_delta_f32(const float* __restrict__ o, const float* __restrict__ dout,
+               float* __restrict__ delta, int B, int Tn, int H, int dh, Layout lay) {
+  const int lane = threadIdx.x & 31;
+  const size_t idx = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (idx >= (size_t)B * H * Tn) return;
+  const int t = (int)(idx % Tn);
+  const size_t bh = idx / Tn;
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  const size_t off = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride +
+                     (size_t)t * lay.row_stride;
+  float x = 0.f;
+  for (int d = lane; d < dh; d += 32) x += dout[off + d] * o[off + d];
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+  if (lane == 0) delta[idx] = x;
+}
+
 constexpr int F32_TILE = 16;  // rows of the streamed tile
 
+// dynamic shared memory of either f32 kernel: two [F32_ROWS][D + 1] resident
+// tiles, two [F32_TILE][D] streamed ones and two rows of statistics
+template <int D>
+constexpr size_t f32_bwd_smem() {
+  return (size_t)(2 * F32_ROWS * (D + 1) + 2 * F32_TILE * D + 2 * F32_TILE) * sizeof(float);
+}
+
+// D is the padded width: columns from dh to D are zeros
 template <int D>
 __global__ void __launch_bounds__(F32_ROWS)
 bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const int* __restrict__ kv_lens, float* __restrict__ dk,
-             float* __restrict__ dv, int T, Layout lay, float sm_scale, float scale_log2,
-             int uniform_empty) {
+             float* __restrict__ dv, int T, int dh, Layout lay, float sm_scale,
+             float scale_log2, int uniform_empty) {
   constexpr int LDF = D + 1;  // padded stride: thread r reads row r
-  __shared__ float Ks[F32_ROWS * LDF];
-  __shared__ float Vs[F32_ROWS * LDF];
-  __shared__ float Qs[F32_TILE][D];
-  __shared__ float dOs[F32_TILE][D];
-  __shared__ float lse_s[F32_TILE];
-  __shared__ float delta_s[F32_TILE];
+  extern __shared__ float fsm[];
+  float* Ks = fsm;                       // [F32_ROWS][LDF]
+  float* Vs = Ks + F32_ROWS * LDF;
+  float (*Qs)[D] = reinterpret_cast<float (*)[D]>(Vs + F32_ROWS * LDF);  // [F32_TILE][D]
+  float (*dOs)[D] = Qs + F32_TILE;
+  float* lse_s = &dOs[F32_TILE][0];
+  float* delta_s = lse_s + F32_TILE;
 
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y, rs = lay.row_stride;
   const int k0 = blockIdx.x * F32_ROWS, tid = threadIdx.x;
@@ -370,7 +581,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (k0 < limit) {
     for (int idx = tid; idx < F32_ROWS * D; idx += blockDim.x) {
       const int r = idx / D, c = idx % D;
-      const bool ok = k0 + r < T;
+      const bool ok = k0 + r < T && c < dh;
       Ks[r * LDF + c] = ok ? k[base + (size_t)(k0 + r) * rs + c] : 0.f;
       Vs[r * LDF + c] = ok ? v[base + (size_t)(k0 + r) * rs + c] : 0.f;
     }
@@ -380,7 +591,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       for (int idx = tid; idx < F32_TILE * D; idx += blockDim.x) {
         const int r = idx / D, c = idx % D;
-        const bool ok = q0 + r < T;
+        const bool ok = q0 + r < T && c < dh;
         Qs[r][c] = ok ? q[base + (size_t)(q0 + r) * rs + c] : 0.f;
         dOs[r][c] = ok ? dout[base + (size_t)(q0 + r) * rs + c] : 0.f;
       }
@@ -413,6 +624,7 @@ bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (key < T) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
+      if (d >= dh) break;
       dk[base + (size_t)key * rs + d] = dk_acc[d];
       dv[base + (size_t)key * rs + d] = dv_acc[d];
     }
@@ -424,13 +636,14 @@ __global__ void __launch_bounds__(F32_ROWS)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           const int* __restrict__ kv_lens, float* __restrict__ dq, int T, Layout lay,
+           const int* __restrict__ kv_lens, float* __restrict__ dq, int T, int dh, Layout lay,
            float sm_scale, float scale_log2, int uniform_empty) {
   constexpr int LDF = D + 1;
-  __shared__ float Qs[F32_ROWS * LDF];
-  __shared__ float dOs[F32_ROWS * LDF];
-  __shared__ float Ks[F32_TILE][D];
-  __shared__ float Vs[F32_TILE][D];
+  extern __shared__ float fsm[];
+  float* Qs = fsm;                       // [F32_ROWS][LDF]
+  float* dOs = Qs + F32_ROWS * LDF;
+  float (*Ks)[D] = reinterpret_cast<float (*)[D]>(dOs + F32_ROWS * LDF);  // [F32_TILE][D]
+  float (*Vs)[D] = Ks + F32_TILE;
 
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y, rs = lay.row_stride;
   const int q0 = blockIdx.x * F32_ROWS, tid = threadIdx.x;
@@ -443,7 +656,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int idx = tid; idx < F32_ROWS * D; idx += blockDim.x) {
     const int r = idx / D, c = idx % D;
-    const bool ok = q0 + r < T;
+    const bool ok = q0 + r < T && c < dh;
     Qs[r * LDF + c] = ok ? q[base + (size_t)(q0 + r) * rs + c] : 0.f;
     dOs[r * LDF + c] = ok ? dout[base + (size_t)(q0 + r) * rs + c] : 0.f;
   }
@@ -460,7 +673,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int idx = tid; idx < F32_TILE * D; idx += blockDim.x) {
       const int r = idx / D, c = idx % D;
-      const bool ok = k0 + r < T;
+      const bool ok = k0 + r < T && c < dh;
       Ks[r][c] = ok ? k[base + (size_t)(k0 + r) * rs + c] : 0.f;
       Vs[r][c] = ok ? v[base + (size_t)(k0 + r) * rs + c] : 0.f;
     }
@@ -481,47 +694,78 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (row < T) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) dq[base + (size_t)row * rs + d] = dq_acc[d];
+    for (int d = 0; d < D; ++d) {
+      if (d >= dh) break;
+      dq[base + (size_t)row * rs + d] = dq_acc[d];
+    }
   }
 }
 
 // ------------------------------------------------------------------ host
 
-// delta, then dK/dV and dQ; lse [B, H, T] f32 must already hold lse2.
-template <typename T, int D>
+// Passes: bit 0 runs pass A (delta, the classic lse2, dQ), bit 1 pass B
+// (dK, dV); the entry points run both, in that order. Pass B alone reads
+// the delta and lse2 an earlier pass A left in the scratch. The lanes
+// kernel's lse holds the forward's lse2; the classic kernel's is scratch.
+template <int DP, bool CLASSIC>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const void* lse, const void* kv_lens, void* delta,
-               void* dq, void* dk, void* dv, int B, int Tn, int H, Layout lay,
-               int uniform_empty, cudaStream_t st) {
-  const float sm_scale = 1.f / sqrtf((float)D);
+               const void* dout, void* lse, const void* kv_lens, void* delta, void* dq,
+               void* dk, void* dv, int B, int Tn, int H, int dh, Layout lay, int is_bf16,
+               int passes, cudaStream_t st) {
+  const float sm_scale = 1.f / sqrtf((float)dh);
   const float scale_log2 = 1.4426950408889634f * sm_scale;
-  const size_t n_warps = (size_t)B * Tn * H;
-  attn_delta<T, D><<<(unsigned)((n_warps + 7) / 8), 256, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<float*>(delta),
-      B, Tn, H, lay);
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* delta_f = static_cast<const float*>(delta);
+  float* lse_f = static_cast<float*>(lse);
+  float* delta_f = static_cast<float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
-  if constexpr (sizeof(T) == 2) {
-    dim3 grid((Tn + BM - 1) / BM, H, B);
-    bwd_dkdv_bf16<D><<<grid, 128, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse_f, delta_f, lens, static_cast<T*>(dk),
-        static_cast<T*>(dv), Tn, lay, sm_scale, scale_log2, uniform_empty);
-    bwd_dq_bf16<D><<<grid, 128, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse_f, delta_f, lens, static_cast<T*>(dq), Tn, lay,
-        sm_scale, scale_log2, uniform_empty);
-  } else {
-    dim3 grid((Tn + F32_ROWS - 1) / F32_ROWS, H, B);
-    bwd_dkdv_f32<D><<<grid, F32_ROWS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse_f, delta_f, lens, static_cast<T*>(dk),
-        static_cast<T*>(dv), Tn, lay, sm_scale, scale_log2, uniform_empty);
-    bwd_dq_f32<D><<<grid, F32_ROWS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse_f, delta_f, lens, static_cast<T*>(dq), Tn, lay,
-        sm_scale, scale_log2, uniform_empty);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    const dim3 grid((Tn + BWD_ROWS - 1) / BWD_ROWS, H, B);
+    if (passes & 1) {
+      auto kern = bwd_dq_wgmma<DP, CLASSIC>;
+      if ((err = allow_smem(kern, BwdSmemA<DP>::BYTES)) != cudaSuccess) return (int)err;
+      kern<<<grid, BWD_THREADS, BwdSmemA<DP>::BYTES, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+          static_cast<const bf*>(out), static_cast<const bf*>(dout), lse_f, delta_f, lens,
+          static_cast<bf*>(dq), Tn, dh, lay, sm_scale, scale_log2);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    if (passes & 2) {
+      auto kern = bwd_dkdv_wgmma<DP, CLASSIC>;
+      if ((err = allow_smem(kern, BwdSmemB<DP>::BYTES)) != cudaSuccess) return (int)err;
+      kern<<<grid, BWD_THREADS, BwdSmemB<DP>::BYTES, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+          static_cast<const bf*>(dout), lse_f, delta_f, lens, static_cast<bf*>(dk),
+          static_cast<bf*>(dv), Tn, dh, lay, sm_scale, scale_log2);
+    }
+    return (int)cudaGetLastError();
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* dof = static_cast<const float*>(dout);
+  const dim3 grid((Tn + F32_ROWS - 1) / F32_ROWS, H, B);
+  const size_t smem = f32_bwd_smem<DP>();
+  if (passes & 1) {
+    if (CLASSIC) {
+      const int rc = launch_fwd<DP, STATS, 1>(q, k, nullptr, kv_lens, nullptr, lse_f, B, Tn, H,
+                                              dh, lay, scale_log2, 1, 0, st);
+      if (rc != 0) return rc;
+    }
+    const size_t n_warps = (size_t)B * Tn * H;
+    attn_delta_f32<<<(unsigned)((n_warps + 7) / 8), 256, 0, st>>>(
+        static_cast<const float*>(out), dof, delta_f, B, Tn, H, dh, lay);
+    if ((err = allow_smem(bwd_dq_f32<DP>, smem)) != cudaSuccess) return (int)err;
+    bwd_dq_f32<DP><<<grid, F32_ROWS, smem, st>>>(qf, kf, vf, dof, lse_f, delta_f, lens,
+                                                 static_cast<float*>(dq), Tn, dh, lay, sm_scale,
+                                                 scale_log2, CLASSIC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    if ((err = allow_smem(bwd_dkdv_f32<DP>, smem)) != cudaSuccess) return (int)err;
+    bwd_dkdv_f32<DP><<<grid, F32_ROWS, smem, st>>>(
+        qf, kf, vf, dof, lse_f, delta_f, lens, static_cast<float*>(dk), static_cast<float*>(dv),
+        Tn, dh, lay, sm_scale, scale_log2, CLASSIC);
   }
   return (int)cudaGetLastError();
 }

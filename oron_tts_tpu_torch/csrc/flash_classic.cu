@@ -10,8 +10,8 @@
 // q, k, v and o are [B, H, T, D], contiguous, bf16 or f32; kv_lens [B] int32
 // is read for every (b, h) row, as the TPU kernels read their [B*H] copy. The
 // device body is flash_fwd.cuh's with the classic Layout (row stride D): the
-// lanes kernels' body with another stride. D is a multiple of 16 from 32 to
-// 128.
+// lanes kernels' body with another stride. D is a multiple of 8 from 8 to
+// 128; a width that is not a multiple of 16 runs padded to the next one.
 //
 // flash_classic_fwd: one group of 128 threads per (64 query rows, head, batch
 // row); exp2 of s*scale*log2(e) or (use_exp2 = 0) exp of s*scale. The TPU
@@ -39,18 +39,16 @@
 
 using namespace oron::attn;
 
-#define ORON_CLASSIC_DIMS 32, 48, 64, 80, 96, 112, 128
-
 extern "C" int flash_classic_fwd(const void* q, const void* k, const void* v,
                                  const void* kv_lens, void* out, int B, int H, int T,
                                  int Dh, int use_exp2, int is_bf16, void* stream) {
   const float sm_scale = 1.f / sqrtf((float)Dh);
   const float scale = use_exp2 ? 1.4426950408889634f * sm_scale : sm_scale;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_head_dim<ORON_CLASSIC_DIMS>(Dh, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    return launch_fwd<D, SOFTMAX, 1>(q, k, v, kv_lens, out, nullptr, B, T, H,
-                                     classic_layout(T, H, D), scale, use_exp2, is_bf16, st);
+  return with_padded_dim(Dh, [&](auto d) {
+    constexpr int DP = decltype(d)::value;
+    return launch_fwd<DP, SOFTMAX, 1>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
+                                      classic_layout(T, H, Dh), scale, use_exp2, is_bf16, st);
   });
 }
 
@@ -60,19 +58,19 @@ extern "C" int flash_packed_fwd(const void* q, const void* k, const void* v,
   if (H % 2) return (int)cudaErrorInvalidValue;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)Dh);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_head_dim<ORON_CLASSIC_DIMS>(Dh, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    return launch_fwd<D, SOFTMAX, 2>(q, k, v, kv_lens, out, nullptr, B, T, H,
-                                     classic_layout(T, H, D), scale_log2, 1, is_bf16, st);
+  return with_padded_dim(Dh, [&](auto d) {
+    constexpr int DP = decltype(d)::value;
+    return launch_fwd<DP, SOFTMAX, 2>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
+                                      classic_layout(T, H, Dh), scale_log2, 1, is_bf16, st);
   });
 }
 
 extern "C" int flash_nosm(const void* q, const void* k, const void* v, void* out, int B,
                           int H, int T, int Dh, int is_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_head_dim<ORON_CLASSIC_DIMS>(Dh, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    return launch_fwd<D, NOSM, 1>(q, k, v, nullptr, out, nullptr, B, T, H,
-                                  classic_layout(T, H, D), 1.f / (float)T, 1, is_bf16, st);
+  return with_padded_dim(Dh, [&](auto d) {
+    constexpr int DP = decltype(d)::value;
+    return launch_fwd<DP, NOSM, 1>(q, k, v, nullptr, out, nullptr, B, T, H, Dh,
+                                   classic_layout(T, H, Dh), 1.f / (float)T, 1, is_bf16, st);
   });
 }

@@ -95,7 +95,7 @@ template <int D, int MODE>
 __device__ __forceinline__ void fwd_group_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse_row, size_t base, int rs, int T, int kv, int q0,
+    float* __restrict__ lse_row, size_t base, int rs, int T, int dh, int kv, int q0,
     float scale, bool use_exp2, __nv_bfloat16* Ks, int tid) {
   using S = FwdSmem<D>;
   constexpr int LDS = S::LDS, LDV = S::LDV, KD = D / 16, ND = D / 8;
@@ -116,7 +116,7 @@ __device__ __forceinline__ void fwd_group_bf16(
   for (int idx = tid; idx < BM * (D / 8); idx += NT) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T)
+    if (q0 + r < T && c < dh)
       val = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * rs + c);
     *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) = val;
   }
@@ -148,7 +148,7 @@ __device__ __forceinline__ void fwd_group_bf16(
     for (int idx = tid; idx < BN * (D / 8); idx += NT) {
       const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
       uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-      if (k0 + r < T) {
+      if (k0 + r < T && c < dh) {
         const size_t off = base + (size_t)(k0 + r) * rs + c;
         kval = *reinterpret_cast<const uint4*>(k + off);
         if (MODE != STATS) vval = *reinterpret_cast<const uint4*>(v + off);
@@ -254,6 +254,7 @@ __device__ __forceinline__ void fwd_group_bf16(
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + t4 * 2;
+    if (col >= dh) continue;
     if (row < T)
       *reinterpret_cast<uint32_t*>(o + base + (size_t)row * rs + col) =
           pack_bf16(acc[j][0] / l[0], acc[j][1] / l[0]);
@@ -270,7 +271,7 @@ __global__ void __launch_bounds__(NT * HPB)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int H,
-              Layout lay, float scale, int use_exp2) {
+              int dh, Layout lay, float scale, int use_exp2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int grp = threadIdx.x / NT, tid = threadIdx.x % NT;
   const int h = blockIdx.y * HPB + grp, b = blockIdx.z;
@@ -278,7 +279,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
   const int kv = MODE == NOSM ? T : kv_lens[b];
   float* lse_row = lse == nullptr ? nullptr : lse + ((size_t)b * H + h) * T;
-  fwd_group_bf16<D, MODE>(q, k, v, o, lse_row, base, lay.row_stride, T, kv,
+  fwd_group_bf16<D, MODE>(q, k, v, o, lse_row, base, lay.row_stride, T, dh, kv,
                           blockIdx.x * BM, scale, use_exp2 != 0, Ks, tid);
 }
 
@@ -291,8 +292,8 @@ template <int D, int MODE, int HPB>
 __global__ void __launch_bounds__(F32_ROWS * HPB)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ kv_lens,
-             float* __restrict__ o, float* __restrict__ lse, int T, int H, Layout lay,
-             float scale, int use_exp2) {
+             float* __restrict__ o, float* __restrict__ lse, int T, int H, int dh,
+             Layout lay, float scale, int use_exp2) {
   extern __shared__ float fsm[];
   const int grp = threadIdx.x / F32_ROWS, tid = threadIdx.x % F32_ROWS;
   const int h = blockIdx.y * HPB + grp, b = blockIdx.z;
@@ -315,7 +316,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = row < T ? q[base + (size_t)row * rs + d] : 0.f;
+    qr[d] = row < T && d < dh ? q[base + (size_t)row * rs + d] : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -323,7 +324,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int idx = tid; idx < F32_KEYS * D; idx += F32_ROWS) {
       const int r = idx / D, c = idx % D;
-      const bool ok = k0 + r < T;
+      const bool ok = k0 + r < T && c < dh;
       Ks[idx] = ok ? k[base + (size_t)(k0 + r) * rs + c] : 0.f;
       if (MODE != STATS) Vs[idx] = ok ? v[base + (size_t)(k0 + r) * rs + c] : 0.f;
     }
@@ -355,7 +356,8 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = MODE == NOSM ? 1.f : fmaxf(l, 1e-30f);
     if (MODE != STATS) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) o[base + (size_t)row * rs + d] = acc[d] / denom;
+      for (int d = 0; d < D; ++d)
+        if (d < dh) o[base + (size_t)row * rs + d] = acc[d] / denom;
     }
     if (MODE != NOSM && lse != nullptr)
       lse[((size_t)b * H + h) * T + row] = m + log2f(denom);
@@ -374,8 +376,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // One launch of the forward; q/k/v/o are bf16 (is_bf16) or f32.
 template <int D, int MODE, int HPB>
 inline int launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
-                      void* o, float* lse, int B, int T, int H, Layout lay, float scale,
-                      int use_exp2, int is_bf16, cudaStream_t st) {
+                      void* o, float* lse, int B, int T, int H, int dh, Layout lay,
+                      float scale, int use_exp2, int is_bf16, cudaStream_t st) {
   cudaError_t err;
   if (is_bf16) {
     auto kern = attn_fwd_bf16<D, MODE, HPB>;
@@ -385,7 +387,7 @@ inline int launch_fwd(const void* q, const void* k, const void* v, const void* k
     kern<<<grid, NT * HPB, smem, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
-        static_cast<__nv_bfloat16*>(o), lse, T, H, lay, scale, use_exp2);
+        static_cast<__nv_bfloat16*>(o), lse, T, H, dh, lay, scale, use_exp2);
   } else {
     auto kern = attn_fwd_f32<D, MODE, HPB>;
     const size_t smem = (size_t)HPB * 2 * F32_KEYS * D * sizeof(float);
@@ -394,17 +396,28 @@ inline int launch_fwd(const void* q, const void* k, const void* v, const void* k
     kern<<<grid, F32_ROWS * HPB, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(kv_lens),
-        static_cast<float*>(o), lse, T, H, lay, scale, use_exp2);
+        static_cast<float*>(o), lse, T, H, dh, lay, scale, use_exp2);
   }
   return (int)cudaGetLastError();
 }
 
-// Calls fn(std::integral_constant<int, D>) for a supported head width.
-template <int... Ds, typename Fn>
-inline int with_head_dim(int D, Fn fn) {
-  int rc = (int)cudaErrorInvalidValue;
-  (void)((D == Ds ? (rc = fn(std::integral_constant<int, Ds>{}), true) : false) || ...);
-  return rc;
+// Calls fn(std::integral_constant<int, DP>) with DP the head width dh
+// rounded up to a multiple of 16 (the mma depth); dh must be a multiple of 8
+// (16-byte rows) from 8 to 128. Columns from dh to DP are zeros in shared
+// memory and are never stored.
+template <typename Fn>
+inline int with_padded_dim(int dh, Fn fn) {
+  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
+  switch ((dh + 15) / 16) {
+    case 1: return fn(std::integral_constant<int, 16>{});
+    case 2: return fn(std::integral_constant<int, 32>{});
+    case 3: return fn(std::integral_constant<int, 48>{});
+    case 4: return fn(std::integral_constant<int, 64>{});
+    case 5: return fn(std::integral_constant<int, 80>{});
+    case 6: return fn(std::integral_constant<int, 96>{});
+    case 7: return fn(std::integral_constant<int, 112>{});
+    default: return fn(std::integral_constant<int, 128>{});
+  }
 }
 
 }  // namespace attn

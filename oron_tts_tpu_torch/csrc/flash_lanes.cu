@@ -6,7 +6,9 @@
 // the [B, T, H*D] layout the projections write: a block reads its head's D
 // columns with strided rows, so no head transpose is ever materialised. The
 // device body is flash_fwd.cuh's (semantics, design and the online softmax
-// are described there), with the lanes Layout; head widths 32 and 64.
+// are described there), with the lanes Layout. Head widths: multiples of 8
+// from 8 to 128 (every width the JAX lanes rule admits whose rows are 16-byte
+// aligned); a width that is not a multiple of 16 runs padded to the next one.
 //
 // Bound on the H100: at the slice's shapes (T ~ 832, H*D = 1024) the work
 // is ~4*T*kv*H*D flops over ~8*T*H*D bytes, some 400 flops per byte, so
@@ -33,10 +35,10 @@ int launch_lanes(const void* q, const void* k, const void* v, const void* kv_len
                  void* stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)Dh);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_head_dim<32, 64>(Dh, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    return launch_fwd<D, SOFTMAX, 1>(q, k, v, kv_lens, out, lse, B, T, H,
-                                     lanes_layout(T, H, D), scale_log2, 1, is_bf16, st);
+  return with_padded_dim(Dh, [&](auto d) {
+    constexpr int DP = decltype(d)::value;
+    return launch_fwd<DP, SOFTMAX, 1>(q, k, v, kv_lens, out, lse, B, T, H, Dh,
+                                      lanes_layout(T, H, Dh), scale_log2, 1, is_bf16, st);
   });
 }
 

@@ -24,8 +24,12 @@
 // stages fewer input channels and runs fewer mma k-steps; a width of 16 puts
 // two groups in the block's 32 outputs, each reading its own 16 inputs. The
 // taps' weights are staged in chunks that fit shared memory: all 31 taps up
-// to width 64 (127 KB at 64), 18 at a time at 128. f32 inputs take a SIMT
-// kernel in true f32, 8 output channels and 64 rows per block.
+// to width 64 (127 KB at 64), 18 at a time at 128. Group widths 1, 2, 4 and
+// 8 (dim 128 or less with 16 groups), too narrow for a useful mma tile, take
+// the SIMT kernel in bf16: bf16 loads and stores, f32 sums, bias and Mish
+// fused, 8 output channels (one group, or 8 / width whole groups) and 64 rows
+// per block. f32 inputs take the same SIMT kernel in true f32 at any width
+// that is a multiple of 8 or divides 8.
 #include "common.cuh"
 
 namespace {
@@ -166,41 +170,61 @@ cudaError_t launch_gconv_bf16(const void* x, const void* w, const void* bias, vo
   return cudaGetLastError();
 }
 
-constexpr int F_OUTS = 8;    // output channels per block (f32 path)
+constexpr int F_OUTS = 8;    // output channels per block (SIMT path)
 constexpr int F_ROWS = 64;   // rows per block; 256 threads, 2 rows each
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Input channels a SIMT block stages: its group's, or, for a group width
+// below 8, the 8 / width whole groups its 8 outputs belong to.
+inline __host__ __device__ int simt_inputs(int cin_g) { return cin_g < F_OUTS ? F_OUTS : cin_g; }
+
+// f32 arithmetic on f32 or bf16 storage; group widths that are multiples of
+// 8 or divide 8 (1, 2, 4)
+template <typename T>
 __global__ void __launch_bounds__(256)
-gconv_f32(const float* __restrict__ x, const float* __restrict__ w,
-          const float* __restrict__ bias, float* __restrict__ y, int T, int C,
-          int cin_g, int out_g, int K) {
+gconv_simt(const T* __restrict__ x, const T* __restrict__ w,
+           const float* __restrict__ bias, T* __restrict__ y, int Tn, int C,
+           int cin_g, int K) {
   extern __shared__ float fsm[];
+  const int xc = simt_inputs(cin_g);
   float* Ws = fsm;                                   // [K][cin_g][OUTS]
-  const int ldx = cin_g + 1;                         // padded: no bank conflicts
+  const int ldx = xc + 1;                            // padded: no bank conflicts
   float* Xs = Ws + (size_t)K * cin_g * F_OUTS;       // [ROWS+K-1][ldx]
 
   const int t0 = blockIdx.x * F_ROWS;
   const int oc0 = blockIdx.y * F_OUTS;
   const int b = blockIdx.z;
-  const int ic0 = (oc0 / out_g) * cin_g;
+  const int ic0 = oc0 - oc0 % xc;  // the staged inputs (C/groups in = out)
   const int pad_l = K / 2;
 
   for (int idx = threadIdx.x; idx < K * cin_g * F_OUTS; idx += blockDim.x) {
     const int o = idx % F_OUTS, ki = idx / F_OUTS;
-    Ws[idx] = w[(size_t)ki * C + oc0 + o];
+    Ws[idx] = to_f32(w[(size_t)ki * C + oc0 + o]);
   }
   const int win = F_ROWS + K - 1;
-  for (int idx = threadIdx.x; idx < win * cin_g; idx += blockDim.x) {
-    const int r = idx / cin_g, c = idx % cin_g;
+  for (int idx = threadIdx.x; idx < win * xc; idx += blockDim.x) {
+    const int r = idx / xc, c = idx % xc;
     const int t = t0 - pad_l + r;
-    Xs[r * ldx + c] = (t >= 0 && t < T) ? x[((size_t)b * T + t) * C + ic0 + c] : 0.f;
+    Xs[r * ldx + c] = (t >= 0 && t < Tn) ? to_f32(x[((size_t)b * Tn + t) * C + ic0 + c]) : 0.f;
   }
   __syncthreads();
 
   const int o = threadIdx.x % F_OUTS, r = threadIdx.x / F_OUTS;  // r in [0, 32)
+  const int xo = (oc0 + o) / cin_g * cin_g - ic0;                 // this output's group
   float acc0 = 0.f, acc1 = 0.f;
   for (int kk = 0; kk < K; ++kk) {
-    const float* x0 = &Xs[(r + kk) * ldx];
-    const float* x1 = &Xs[(r + 32 + kk) * ldx];
+    const float* x0 = &Xs[(r + kk) * ldx + xo];
+    const float* x1 = &Xs[(r + 32 + kk) * ldx + xo];
     const float* wk = &Ws[(size_t)kk * cin_g * F_OUTS + o];
     for (int i = 0; i < cin_g; ++i) {
       const float wv = wk[i * F_OUTS];
@@ -210,8 +234,25 @@ gconv_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
   const int oc = oc0 + o;
   const float bo = bias[oc];
-  if (t0 + r < T) y[((size_t)b * T + t0 + r) * C + oc] = oron::mish(acc0 + bo);
-  if (t0 + r + 32 < T) y[((size_t)b * T + t0 + r + 32) * C + oc] = oron::mish(acc1 + bo);
+  if (t0 + r < Tn) y[((size_t)b * Tn + t0 + r) * C + oc] = from_f32<T>(oron::mish(acc0 + bo));
+  if (t0 + r + 32 < Tn)
+    y[((size_t)b * Tn + t0 + r + 32) * C + oc] = from_f32<T>(oron::mish(acc1 + bo));
+}
+
+template <typename T>
+cudaError_t launch_gconv_simt(const void* x, const void* w, const void* bias, void* y,
+                              int B, int Tn, int C, int cin_g, int K, cudaStream_t st) {
+  if (C % F_OUTS || (cin_g % F_OUTS && F_OUTS % cin_g)) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)K * cin_g * F_OUTS +
+                       (size_t)(F_ROWS + K - 1) * (simt_inputs(cin_g) + 1)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gconv_simt<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tn + F_ROWS - 1) / F_ROWS, C / F_OUTS, B);
+  gconv_simt<T><<<grid, 256, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                         static_cast<const float*>(bias), static_cast<T*>(y),
+                                         Tn, C, cin_g, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -219,10 +260,14 @@ gconv_f32(const float* __restrict__ x, const float* __restrict__ w,
 extern "C" int grouped_conv1d_mish(const void* x, const void* w, const void* bias,
                                    void* y, int B, int T, int C, int groups,
                                    int K, int is_bf16, void* stream) {
-  const int cin_g = C / groups, out_g = C / groups;
+  const int cin_g = C / groups;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16) {
+  if (!is_bf16) {
+    err = launch_gconv_simt<float>(x, w, bias, y, B, T, C, cin_g, K, st);
+  } else if (cin_g <= 8) {
+    err = launch_gconv_simt<__nv_bfloat16>(x, w, bias, y, B, T, C, cin_g, K, st);
+  } else {
     if (C % BF_OUTS) return (int)cudaErrorInvalidValue;
     switch (cin_g) {
       case 16: err = launch_gconv_bf16<16>(x, w, bias, y, B, T, C, K, st); break;
@@ -231,18 +276,6 @@ extern "C" int grouped_conv1d_mish(const void* x, const void* w, const void* bia
       case 128: err = launch_gconv_bf16<128>(x, w, bias, y, B, T, C, K, st); break;
       default: return (int)cudaErrorInvalidValue;
     }
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    if (out_g % F_OUTS) return (int)cudaErrorInvalidValue;
-    const size_t smem =
-        ((size_t)K * cin_g * F_OUTS + (size_t)(F_ROWS + K - 1) * (cin_g + 1)) * sizeof(float);
-    err = cudaFuncSetAttribute(gconv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((T + F_ROWS - 1) / F_ROWS, C / F_OUTS, B);
-    gconv_f32<<<grid, 256, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(y), T, C, cin_g, out_g, K);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

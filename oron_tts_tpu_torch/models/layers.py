@@ -176,10 +176,10 @@ class ConvPositionEmbedding(nn.Module):
     """Two grouped 1-D convs (k=31, groups=16) with Mish, padding re-masked.
 
     On the "kernel" route (:func:`conv_route`) each conv is one launch of the
-    grouped-conv kernel with bias and Mish fused; the kernel takes group
-    widths 16 to 128 in bf16, so a width of 1 to 8 (dim 128 or less) raises
-    there and names the width. On the "library" route each is ``F.conv1d``
-    with groups, then Mish, as the JAX package hands such shapes to XLA.
+    grouped-conv kernel with bias and Mish fused; the kernel takes every
+    width that route sends it (1 to 128). On the "library" route each is
+    ``F.conv1d`` with groups, then Mish, as the JAX package hands such shapes
+    to XLA.
     mish(0) = 0, so masking after the conv is exact.
     """
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
 ``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
-``flash_bwd.cuh``) exposes a plain C interface and becomes its own shared
-library, ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
+``flash_bwd.cuh``, the backwards also ``wgmma.cuh``) exposes a plain C
+interface and becomes its own shared library,
+``build/torch_kernels/lib<name>_<hash>.so`` under the repository
 root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
 (or when ``build_all`` is called). The hash covers the source, every
 header and the flags, so an edited kernel is rebuilt and a built one is
@@ -48,8 +49,8 @@ SIGNATURES = {
     },
     "flash_lanes_bwd": {
         # q, k, v, out, dout, lse2, kv_lens, delta (scratch [B, H, T] f32),
-        # dq, dk, dv, B, T, H, D, is_bf16, stream
-        "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
+        # dq, dk, dv, B, T, H, D, is_bf16, passes (3; 1 or 2 for one), stream
+        "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _I, _P),
     },
     "flash_classic": {
         # q, k, v, kv_lens, out, B, H, T, D, use_exp2, is_bf16, stream
@@ -61,8 +62,8 @@ SIGNATURES = {
     },
     "flash_classic_bwd": {
         # q, k, v, out, dout, kv_lens, lse2 and delta (scratch [B, H, T] f32),
-        # dq, dk, dv, B, H, T, D, is_bf16, stream
-        "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _P),
+        # dq, dk, dv, B, H, T, D, is_bf16, passes (3; 1 or 2 for one), stream
+        "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _I, _P),
     },
     "gelu_dropout": {
         # x, out, n, seed, threshold, inv_keep, is_bf16, stream

@@ -3,7 +3,10 @@
 ``flash_lanes_fwd(q, k, v, kv_lens, heads)`` computes non-causal softmax
 attention on ``[B, T, H·D]`` tensors, keys at or beyond ``kv_lens[b]``
 masked, exactly as the JAX package's ``flash_attention_lanes`` forward.
-Head widths 32 and 64 (other widths the JAX lanes rule admits raise here).
+Every kernel of this module takes the head widths :func:`kernel_head_dim_ok`
+admits: multiples of 8 from 8 to 128, run padded to the next multiple of 16
+where they are not one. A width that is not a multiple of 8 raises on CUDA
+tensors: a head's rows would not start on 16-byte boundaries.
 
 - CUDA tensors launch ``csrc/flash_lanes.cu`` (bf16: ``mma.sync`` tensor
   cores; f32: true-f32 SIMT), or raise.
@@ -19,7 +22,8 @@ Training goes through :func:`flash_attention_lanes`, a
 :func:`flash_lanes_fwd_stats` (the same output bit for bit, plus the row
 statistic ``lse2``; replaces ``_flash_lanes_fwd_stats_kernel``, ``:424``)
 and its backward is :func:`flash_lanes_bwd` (``csrc/flash_lanes_bwd.cu``;
-replaces ``_flash_lanes_bwd_kernel``, ``:528``). ``lse2`` is
+replaces ``_flash_lanes_bwd_kernel``, ``:528``; bf16 on ``wgmma``, two
+launches). ``lse2`` is
 ``m + log2(max(l, 1e-30))`` in base-2 units of the scaled scores, stored
 ``[B, H, T]`` f32 (the JAX package keeps ``[B, H·D/128, 128/D, T]``). On CPU
 tensors the same Function calls the plain versions. A row with
@@ -49,9 +53,12 @@ import torch
 
 NEG_INF = -1e30  # the TPU kernel's key mask value
 LOG2_E = 1.4426950408889634
-LANES_HEAD_DIMS = (32, 64)
-CLASSIC_HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)
-CLASSIC_BWD_HEAD_DIMS = (32, 48, 64)
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
+
+
+def kernel_head_dim_ok(dim_head: int) -> bool:
+    """Whether the attention kernels take this head width (either dtype)."""
+    return dim_head in KERNEL_HEAD_DIMS
 
 
 def flash_lanes_plain(
@@ -143,8 +150,9 @@ def _checked(name, q, k, v, kv_lens, heads):
         raise ValueError("q, k and v must share one [B, T, H·D] shape")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v, got {q.dtype}")
-    if HD % heads or HD // heads not in LANES_HEAD_DIMS:
-        raise ValueError(f"{name} takes head widths {LANES_HEAD_DIMS}, got {HD}/{heads}")
+    if HD % heads or not kernel_head_dim_ok(HD // heads):
+        raise ValueError(f"{name} takes head widths that are multiples of 8 up to 128 "
+                         f"(16-byte rows), got {HD}/{heads}")
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (B,):
         raise ValueError(f"kv_lens must be [B]={B}, got {tuple(lens.shape)}")
@@ -221,7 +229,7 @@ def flash_lanes_bwd(q, k, v, kv_lens, out, dout, lse2, heads):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse2.data_ptr(), lens.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, heads, HD // heads,
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        int(q.dtype == torch.bfloat16), 3, _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_lanes_bwd")
     flash_lanes_bwd.launches += 1
@@ -292,7 +300,7 @@ def flash_attention_plain(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
     return (acc / l).to(q.dtype)
 
 
-def _checked_classic(name, q, k, v, kv_lens, dims):
+def _checked_classic(name, q, k, v, kv_lens):
     """Validate a classic CUDA call; contiguous q, k, v and int32 lens (T if None)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -301,8 +309,9 @@ def _checked_classic(name, q, k, v, kv_lens, dims):
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v, got {q.dtype}")
     B, H, T, D = q.shape
-    if D not in dims:
-        raise ValueError(f"{name} takes head widths {dims}, got {D}")
+    if not kernel_head_dim_ok(D):
+        raise ValueError(f"{name} takes head widths that are multiples of 8 up to 128 "
+                         f"(16-byte rows), got {D}")
     if kv_lens is None:
         lens = torch.full((B,), T, dtype=torch.int32, device=q.device)
     else:
@@ -324,7 +333,7 @@ def flash_attention(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
         return flash_attention_plain(q, k, v, kv_lens=kv_lens, use_exp2=use_exp2)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention", q, k, v, kv_lens, CLASSIC_HEAD_DIMS)
+    q, k, v, lens = _checked_classic("flash_attention", q, k, v, kv_lens)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_classic_fwd(
@@ -370,8 +379,7 @@ def flash_attention_bwd(q, k, v, kv_lens, out, dout):
         return flash_attention_bwd_plain(q, k, v, kv_lens, out, dout)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention_bwd", q, k, v, kv_lens,
-                                     CLASSIC_BWD_HEAD_DIMS)
+    q, k, v, lens = _checked_classic("flash_attention_bwd", q, k, v, kv_lens)
     B, H, T, D = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("out and dout must match q's shape and dtype")
@@ -382,7 +390,7 @@ def flash_attention_bwd(q, k, v, kv_lens, out, dout):
     err = _build.load("flash_classic_bwd").flash_classic_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lens.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, T, D, int(q.dtype == torch.bfloat16),
+        dv.data_ptr(), B, H, T, D, int(q.dtype == torch.bfloat16), 3,
         _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_classic_bwd")
@@ -439,8 +447,7 @@ def flash_attention_packed(q, k, v, kv_lens=None):
         return flash_attention_plain(q, k, v, kv_lens=kv_lens)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention_packed", q, k, v, kv_lens,
-                                     CLASSIC_HEAD_DIMS)
+    q, k, v, lens = _checked_classic("flash_attention_packed", q, k, v, kv_lens)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_packed_fwd(
@@ -469,7 +476,7 @@ def flash_nosm(q, k, v):
         return flash_nosm_plain(q, k, v)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, _ = _checked_classic("flash_nosm", q, k, v, None, CLASSIC_HEAD_DIMS)
+    q, k, v, _ = _checked_classic("flash_nosm", q, k, v, None)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_nosm(

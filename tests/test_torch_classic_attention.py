@@ -4,9 +4,11 @@ The plain versions of kernels 6, 7, 8 and 12 (``ops/flash_attention.py``:
 ``flash_attention``, its backward, ``flash_attention_packed`` and
 ``flash_nosm``) against the JAX kernels run in interpret mode, as
 ``tests/test_flash_attention.py`` and ``test_flash_backward.py`` run them;
-the two repairs of this slice (the lanes kernels at head width 32 and the
-position-embedding conv's route at the Small and test widths); the attention
-bench on the CPU. Inputs come from numpy seeds; everything runs in f32.
+the width repairs (the lanes kernels at head width 32, the classic backward
+at 80 and 128, the position-embedding conv's route at the Small, test and
+dim-128 widths) and the kernels' width predicates against the JAX rules;
+the attention bench on the CPU. Inputs come from numpy seeds; everything
+runs in f32.
 """
 
 import jax
@@ -112,7 +114,7 @@ def test_flash_attention_packed_refuses_a_gradient():
 # ── kernel 7: the classic backward ──────────────────────────────────────
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
 def test_flash_attention_gradients_match_jax_grad(D):
     B, H, T = 2, 2, 128
     q, k, v, probe = _qkv((B, H, T, D), seed=10 + D, n=4)
@@ -191,11 +193,12 @@ def test_lanes_plain_at_head_width_32_matches_jax_kernel():
         np.testing.assert_allclose(got.numpy() / scale, np.asarray(ref) / scale, atol=2e-4)
 
 
-@pytest.mark.parametrize("dim,route", [(512, "kernel"), (64, "library")])
+@pytest.mark.parametrize("dim,route", [(512, "kernel"), (64, "library"), (128, "kernel")])
 def test_conv_position_embedding_routes_like_jax(dim, route):
-    """dim 512 (the Small config, group width 32): the JAX package runs its
-    Pallas conv and the port its kernel; dim 64 (configs/test.yaml, width 4):
-    both hand the shape to the library's grouped conv."""
+    """dim 512 (the Small config, group width 32) and dim 128 (width 8): the
+    JAX package runs its Pallas conv and the port its kernel; dim 64
+    (configs/test.yaml, width 4): both hand the shape to the library's
+    grouped conv."""
     B, T = 2, 48
     rng = np.random.default_rng(dim)
     x = rng.standard_normal((B, T, dim)).astype(np.float32)
@@ -225,9 +228,67 @@ def test_conv_position_embedding_routes_like_jax(dim, route):
 def test_conv_route_follows_the_jax_rule():
     assert tl.conv_route(1024, 16) == "kernel"   # Base, width 64
     assert tl.conv_route(512, 16) == "kernel"    # Small, width 32
-    assert tl.conv_route(128, 16) == "kernel"    # width 8: the bf16 kernel raises on it
+    assert tl.conv_route(128, 16) == "kernel"    # width 8: the SIMT kernel in bf16
     assert tl.conv_route(64, 16) == "library"    # test config, dim % 128 != 0
     assert tl.conv_route(768, 16) == "library"   # width 48 does not divide 128
+
+
+# ── the widths the kernels take, against the JAX rules ─────────────────
+
+DIMS = (64, 96, 120, 128, 192, 256, 320, 384, 512, 640, 768, 1024, 2048)
+
+
+def _jax_lanes_ok(heads, dim_head):
+    """``oron_tts_tpu/models/layers.py:489-492``, the lanes geometry rule."""
+    inner = heads * dim_head
+    return inner <= 128 or (inner % 128 == 0 and 128 % dim_head == 0)
+
+
+def _jax_conv_kernel(dim, groups):
+    """``oron_tts_tpu/models/layers.py:220-225``, the Pallas conv's route."""
+    return dim % 128 == 0 and 128 % (dim // groups) == 0
+
+
+@pytest.mark.parametrize("rule", ["lanes", "classic", "conv"])
+def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
+    """Over a grid of (dim, heads) or (dim, groups), the shapes a JAX rule
+    sends to its Pallas kernel are the shapes the port's kernels take, except
+    a head width that is not a multiple of 8: its rows would not start on
+    16-byte boundaries, and the wrappers raise on it (ROADMAP §3). Decided from
+    the shapes alone, so no card is needed."""
+    from oron_tts_tpu_torch.ops import grouped_conv as tgc
+
+    checked = 0
+    for dim in DIMS:
+        if rule == "conv":
+            for groups in (1, 2, 4, 8, 16, 32, 64, 128):
+                if dim % groups:
+                    continue
+                kernel = _jax_conv_kernel(dim, groups)
+                assert tl.conv_route(dim, groups) == ("kernel" if kernel else "library")
+                if kernel:
+                    checked += 1
+                    for dtype in (torch.bfloat16, torch.float32):
+                        assert tgc.kernel_group_width_ok(dim // groups, dtype), (dim, groups)
+            continue
+        for heads in range(1, 17):
+            if dim % heads:
+                continue
+            d = dim // heads
+            if rule == "lanes":
+                ok = _jax_lanes_ok(heads, d)
+                if ok:
+                    assert tl.resolve_attn_impl(heads, d, attn_impl="lanes") == "lanes"
+                else:
+                    with pytest.raises(ValueError):
+                        tl.resolve_attn_impl(heads, d, attn_impl="lanes")
+                    assert tl.resolve_attn_impl(heads, d, use_flash=True) == "flash"
+                    continue
+            else:  # the JAX classic kernel takes any head width
+                assert tl.resolve_attn_impl(heads, d, attn_impl="flash") == "flash"
+            checked += 1
+            assert tfa.kernel_head_dim_ok(d) == (d % 8 == 0 and d <= 128), (dim, heads)
+    assert checked > 20
 
 
 # ── the bench entry point ───────────────────────────────────────────────

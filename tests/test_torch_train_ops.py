@@ -46,9 +46,9 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def _qkv(seed, B, T, heads, n=3):
+def _qkv(seed, B, T, heads, n=3, dim_head=64):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, T, heads * 64)).astype(np.float32) for _ in range(n)]
+    return [rng.standard_normal((B, T, heads * dim_head)).astype(np.float32) for _ in range(n)]
 
 
 def _lse_to_port_layout(lse, heads):
@@ -57,12 +57,21 @@ def _lse_to_port_layout(lse, heads):
     return lse.reshape(lse.shape[0], heads, lse.shape[-1])
 
 
-ATTN_CASES = [(128, 2, [128, 91]), (256, 4, [256, 1])]
+# the other head widths the JAX lanes rule admits (layers.py:489-492): D = 16
+# and 128 with H·D a multiple of 128, and 3 heads of 40 (H·D <= 128); the
+# first two cases are the D = 64 ones
+WIDTH_CASES = [
+    pytest.param(128, 2, [128, 91], 64, id="128-2-lens0"),
+    pytest.param(256, 4, [256, 1], 64, id="256-4-lens1"),
+    pytest.param(128, 8, [128, 77], 16, id="d16-h8"),
+    pytest.param(128, 2, [128, 77], 128, id="d128-h2"),
+    pytest.param(128, 3, [128, 77], 40, id="d40-h3"),
+]
 
 
-@pytest.mark.parametrize("T,heads,lens", ATTN_CASES)
-def test_stats_forward_plain_matches_jax(T, heads, lens):
-    q, k, v = _qkv(0, 2, T, heads)
+@pytest.mark.parametrize("T,heads,lens,dim_head", WIDTH_CASES)
+def test_stats_forward_plain_matches_jax(T, heads, lens, dim_head):
+    q, k, v = _qkv(0, 2, T, heads, dim_head=dim_head)
     lens = np.asarray(lens, np.int32)
     j_out, j_lse = _flash_lanes_fwd_stats_call(q, k, v, jnp.asarray(lens), heads, interpret=True)
     out, lse = flash_lanes_fwd_stats(_t(q), _t(k), _t(v), _t(lens), heads)
@@ -83,9 +92,9 @@ def test_stats_forward_row_without_keys():
         out.numpy(), np.broadcast_to(v.mean(axis=1, keepdims=True), v.shape), atol=1e-5)
 
 
-@pytest.mark.parametrize("T,heads,lens", ATTN_CASES)
-def test_backward_plain_matches_jax_kernel(T, heads, lens):
-    q, k, v, dout = _qkv(1, 2, T, heads, n=4)
+@pytest.mark.parametrize("T,heads,lens,dim_head", WIDTH_CASES)
+def test_backward_plain_matches_jax_kernel(T, heads, lens, dim_head):
+    q, k, v, dout = _qkv(1, 2, T, heads, n=4, dim_head=dim_head)
     lens = np.asarray(lens, np.int32)
     j_out, j_lse = _flash_lanes_fwd_stats_call(q, k, v, jnp.asarray(lens), heads, interpret=True)
     j_grads = _flash_lanes_bwd_call(q, k, v, jnp.asarray(lens), j_out, dout, j_lse, heads,
