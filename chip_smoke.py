@@ -9,20 +9,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: ``nvcc`` builds every kernel of ``oron_tts_tpu_torch/csrc`` into
-   ``build/torch_kernels/`` (one process per source, in parallel); where
-   ``cuobjdump`` is found, the count of HGMMA (wgmma) instructions in each
-   backward library's SASS.
+   ``build/torch_kernels/`` (one process per source, in parallel, each
+   timed); where ``cuobjdump`` is found, the count of HGMMA (wgmma)
+   instructions in each attention library's SASS (the two forward and the
+   two backward ones, each must hold some); the bf16 forward body's
+   registers, spills and blocks an SM at each template width, with the
+   shared memory a block asks for.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
-   library call's where one computes the same function, and its bound;
+   library call's where one computes the same function, and its bound
+   (every time from calls launched one by one, as in earlier slices; the
+   attention forwards and their library calls are also timed from a CUDA
+   graph of the calls, ``graph_ms`` and ``library_graph_ms``, since a
+   call's host side can outlast its kernel);
    the two attention backwards also with their two launches (pass A: dQ,
    pass B: dK and dV) timed apart, and called twice on the same inputs,
-   which must give the same bits. The classic-layout kernels also at small
-   shapes (f32 and bf16, head widths 32 to 128 and 40, a ``kv_len = 0``
-   row, odd H), the lanes kernels at head widths 32, 16, 128 and 3 heads of
-   40 (a ``kv_len = 0`` row's gradients exactly zero), the grouped conv at
-   group widths 4, 8, 16, 32 and 128, and a bf16 head width of 20 refused
-   before any launch.
+   which must give the same bits. The forwards (classic, packed, no-softmax
+   and lanes) also at small shapes at every template width of the forward
+   body, 16 to 256, and at head widths 20, 12 and 40, which the wrappers
+   zero-pad (f32 and bf16, a ``kv_len = 0`` row, odd H); the classic
+   backward at every width of its body, 16 to 128, and at 40, 20 and 12,
+   the lanes one at 12 to 128 (with 2, 3, 5, 8 and 16 heads, a
+   ``kv_len = 0`` row's gradients exactly zero), and a backward at head width
+   192 refused before any launch; the grouped conv at group widths 4, 8, 16,
+   32 and 128.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -69,7 +79,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``cli.train`` epochs on ``configs/test.yaml`` (head width 32 through the
     lanes kernels, the conv through ``F.conv1d``), and two ``F5Trainer``
     steps in bf16 on that config with dim 128 and one head (head width 128
-    through the lanes kernels, the conv kernel at group width 8), all on
+    through the lanes kernels, the conv kernel at group width 8), and one
+    synthesis of that config with dim 128 and a DiT of 5 heads of width 20
+    (seeded weights; the lanes kernels with each head padded to 24), all on
     the card.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
@@ -114,14 +126,44 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def cuda_graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()``: ``iters`` calls captured in one CUDA graph
+    and replayed, timed with CUDA events. Calls shorter than their host-side
+    launch (a wrapper's checks and the ``ctypes`` call, some 40 us) would
+    make :func:`cuda_ms` time the host; a replay launches them back to back."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (3 * iters)
+
+
 def bound_ms(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / H100_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sdpa_by_backend(torch, F, qh, kh, vh, mask) -> dict[str, float | str]:
-    """SDPA's time under each backend it offers; a backend that refuses a
-    bool mask at these shapes is recorded with its refusal, not timed."""
+def sdpa_by_backend(torch, F, qh, kh, vh, mask, timer=cuda_ms) -> dict[str, float | str]:
+    """SDPA's time under each backend it offers (by ``timer``); a backend
+    that refuses a bool mask at these shapes is recorded with its refusal,
+    not timed."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     out: dict[str, float | str] = {}
@@ -131,7 +173,7 @@ def sdpa_by_backend(torch, F, qh, kh, vh, mask) -> dict[str, float | str]:
             continue
         try:
             with sdpa_kernel([backend]):
-                out[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                out[name] = timer(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask))
         except RuntimeError as exc:  # a yardstick only: the port never calls SDPA
             out[name] = "refused: " + str(exc).splitlines()[0][:80]
@@ -141,6 +183,22 @@ def sdpa_by_backend(torch, F, qh, kh, vh, mask) -> dict[str, float | str]:
 def fastest(times: dict[str, float | str]) -> tuple[str, float]:
     name = min((k for k, v in times.items() if isinstance(v, float)), key=lambda k: times[k])
     return name, times[name]
+
+
+def forward_times(fn) -> dict[str, float]:
+    """An attention forward's time launched one by one and from a CUDA graph."""
+    return {"ms": cuda_ms(fn), "graph_ms": cuda_graph_ms(fn)}
+
+
+def sdpa_yardstick(torch, F, qh, kh, vh, mask) -> dict:
+    """SDPA's fastest backend, timed both ways as the forward beside it."""
+    per_call = sdpa_by_backend(torch, F, qh, kh, vh, mask)
+    graphed = sdpa_by_backend(torch, F, qh, kh, vh, mask, timer=cuda_graph_ms)
+    best, best_ms = fastest(per_call)
+    graph_best, graph_ms = fastest(graphed)
+    return {"library_ms": best_ms, "library": "SDPA " + best, "sdpa_ms_by_backend": per_call,
+            "library_graph_ms": graph_ms, "library_graph": "SDPA " + graph_best,
+            "sdpa_graph_ms_by_backend": graphed}
 
 
 def backward_passes(torch, kind, q, k, v, lens, out, do, lse=None, heads=None) -> dict:
@@ -164,7 +222,8 @@ def backward_passes(torch, kind, q, k, v, lens, out, do, lse=None, heads=None) -
             _build.check(lib.flash_lanes_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), lens.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, T, heads, HD // heads, 1, passes, stream), "flash_lanes_bwd")
+                dv.data_ptr(), B, T, heads, HD // heads, 1.0 / math.sqrt(HD // heads), 1, passes,
+                stream), "flash_lanes_bwd")
     else:
         B, H, T, D = q.shape
         lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -175,7 +234,8 @@ def backward_passes(torch, kind, q, k, v, lens, out, do, lse=None, heads=None) -
             _build.check(lib.flash_classic_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
                 lens.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, H, T, D, 1, passes, stream), "flash_classic_bwd")
+                dk.data_ptr(), dv.data_ptr(), B, H, T, D, 1.0 / math.sqrt(D), 1, passes, stream),
+                "flash_classic_bwd")
     call(3)
     return {"pass_a_ms": cuda_ms(lambda: call(1), iters=5),
             "pass_b_ms": cuda_ms(lambda: call(2), iters=5)}
@@ -187,8 +247,11 @@ def bit_identical(first, second) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+ATTN_LIBS = ("flash_lanes", "flash_classic", "flash_lanes_bwd", "flash_classic_bwd")
+
+
 def hgmma_counts(libs: dict) -> dict:
-    """HGMMA (wgmma) instructions in each backward library's SASS, by kernel."""
+    """HGMMA (wgmma) instructions in each attention library's SASS, by kernel."""
     import os
     import shutil
 
@@ -196,7 +259,7 @@ def hgmma_counts(libs: dict) -> dict:
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
     counts = {}
-    for name in ("flash_lanes_bwd", "flash_classic_bwd"):
+    for name in ATTN_LIBS:
         run = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True)
         if run.returncode != 0:
             counts[name] = "cuobjdump failed: " + run.stderr.strip()[:200]
@@ -210,6 +273,42 @@ def hgmma_counts(libs: dict) -> dict:
         if not per_fn:
             raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
     return counts
+
+
+def forward_build(log: str) -> dict:
+    """Registers and spills of the bf16 forward body at each template width
+    (``-Xptxas -v`` of ``flash_classic``; the lanes library builds the same
+    kernel), the blocks an SM holds (the occupancy API), and the dynamic
+    shared memory a block asks for, computed as ``FwdSmem<DP>::BYTES`` is
+    (ptxas reports static shared memory only, and the body has none)."""
+    import re
+
+    from oron_tts_tpu_torch.ops import _build
+
+    widths, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(_ZN4oron4attn14attn_fwd_wgmmaILi(\d+)ELi(\d)E\S*)'", line)
+        if m:
+            current = (int(m.group(2)), "nosm" if m.group(3) == "2" else "softmax")
+            continue
+        if current is None:
+            continue
+        row = widths.setdefault(current[0], {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            row[current[1] + "_spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row[current[1] + "_registers"] = int(m.group(1))
+            current = None
+    lib = _build.load("flash_classic")
+    for dp in range(16, 257, 16):
+        row = widths.setdefault(dp, {})
+        row["smem_bytes_computed"] = 2 * (128 + 5 * 64) * dp
+        row["blocks_per_sm"] = lib.flash_fwd_blocks_per_sm(dp)
+        if row["blocks_per_sm"] < 1:
+            raise AssertionError(f"the forward at width {dp} fits no SM: {row}")
+    return {str(k): widths[k] for k in sorted(widths)}
 
 
 TRAIN_B, TRAIN_T = 12, 2048  # the single-chip training shape (Base, bf16)
@@ -284,8 +383,8 @@ def check_train_kernels(torch, F, report) -> list[dict]:
             qh, kh, vh, doh = (x.view(B, T, H, D).transpose(1, 2).contiguous().requires_grad_(
                 x is not do) for x in (q, k, v, do))
             mask = (torch.arange(T, device=dev)[None, :] < lens_t[:, None])[:, None, None, :]
-            fwd_times = sdpa_by_backend(torch, F, qh.detach(), kh.detach(), vh.detach(), mask)
-            best, best_ms = fastest(fwd_times)
+            yardstick = sdpa_yardstick(torch, F, qh.detach(), kh.detach(), vh.detach(), mask)
+            best = yardstick["library"].removeprefix("SDPA ")
             from torch.nn.attention import SDPBackend, sdpa_kernel
 
             with sdpa_kernel([getattr(SDPBackend, best)]):
@@ -297,9 +396,9 @@ def check_train_kernels(torch, F, report) -> list[dict]:
             b_ms, b_by = bound_ms(4.0 * T * H * D * kept, H100_BF16_FLOPS,
                                   4 * nb + lse.numel() * 4 + lens_t.numel() * 4)
             fwd_row.update(
-                ms=cuda_ms(lambda: flash_lanes_fwd_stats(q, k, v, lens_t, H)),
+                **forward_times(lambda: flash_lanes_fwd_stats(q, k, v, lens_t, H)),
                 plain_ms=cuda_ms(lambda: flash_lanes_fwd_stats_plain(q, k, v, lens_t, H), iters=3),
-                library_ms=best_ms, library="SDPA " + best, sdpa_ms_by_backend=fwd_times,
+                **yardstick,
                 bound_ms=b_ms, bound_by=b_by, route="cuda", source=src_fwd,
                 replaces="oron_tts_tpu/ops/flash_attention.py:424")
             b_ms, b_by = bound_ms(10.0 * T * H * D * kept, H100_BF16_FLOPS,
@@ -459,16 +558,14 @@ def check_kernels(torch, F) -> list[dict]:
             flops = 4.0 * T * H * D * float(lens.clamp(max=T).sum())
             b_ms, b_by = bound_ms(flops, H100_BF16_FLOPS, 4 * q.numel() * 2 + lens.numel() * 4)
             row.update(
-                ms=cuda_ms(lambda: flash_lanes_fwd(q, k, v, lens, H)),
+                **forward_times(lambda: flash_lanes_fwd(q, k, v, lens, H)),
                 plain_ms=cuda_ms(lambda: flash_lanes_plain(q, k, v, lens, H)),
                 bound_ms=b_ms, bound_by=b_by,
                 route="cuda", source="oron_tts_tpu_torch/csrc/flash_lanes.cu",
                 replaces="oron_tts_tpu/ops/flash_attention.py:387",
             )
             # the library yardstick: SDPA under each backend, the fastest kept
-            row["sdpa_ms_by_backend"] = sdpa_by_backend(torch, F, qh, kh, vh, mask)
-            best, row["library_ms"] = fastest(row["sdpa_ms_by_backend"])
-            row["library"] = "SDPA " + best
+            row.update(sdpa_yardstick(torch, F, qh, kh, vh, mask))
             rows.append(row)
         report(row)
 
@@ -560,6 +657,9 @@ def check_kernels(torch, F) -> list[dict]:
 
 
 CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
+# the forward body's template widths, and 20, 12 and 40, which the wrappers
+# pad to 24, 16 and 40
+FWD_WIDTHS = tuple(range(16, 257, 16)) + (20, 12, 40)
 BWD_SRC = "oron_tts_tpu_torch/csrc/flash_bwd.cuh"  # rows 5 and 7: one wgmma body
 # bench.py's synthesis protocol: 120 letters, 1,560 frames; its comment says
 # "bucketed to 1664", its arithmetic (and the facade's multiple of 64) 1,600
@@ -629,10 +729,29 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     def sdpa_mask(lens, T):
         return (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
 
-    # kernel 6 (and 8) at small shapes: f32 and bf16, D 32/48/64, exp and
-    # exp2, a kv_len = 0 row (every key weighs 1/T), odd H for the packed one
+    def nosm_row(q, k, v) -> dict:
+        """Kernel 12's error. The plain version takes f32 q and k and the
+        input-typed v, so it rounds each weight q.k / T to v's type as the
+        kernel does and keeps its output in f32. Its output is not an average
+        (no softmax): in bf16 it reaches ~4, where the kernel's one output
+        rounding is up to 2^-8 of the value, so the error beyond that
+        rounding is what is held to 5e-3: q.k and P.V summed in another
+        order, and the rare weight on a rounding midpoint that rounds the
+        other way for it."""
+        ref = flash_nosm_plain(q.float(), k.float(), v)
+        diff = (flash_nosm(q, k, v).float() - ref).abs()
+        half_step = 2.0 ** -8 if q.dtype == bf16 else 0.0
+        return {"name": "flash_nosm", "dtype": str(q.dtype), "shape": list(q.shape),
+                "max_abs_err": diff.max().item(), "ref_max": ref.abs().max().item(),
+                "max_excess": (diff - half_step * ref.abs()).max().item(),
+                "tol": fwd_tol[q.dtype], "tol_on": "max_excess"}
+
+    # kernels 6, 8 and 12 at small shapes, at every template width of the
+    # forward body (16 to 256) and at 20, 12 and 40, which the wrappers pad
+    # to 24, 16 and 40 (F3): f32 and bf16, exp and exp2, a kv_len = 0 row
+    # (every key weighs 1/T), odd H for the packed one
     for dtype in (f32, bf16):
-        for D in (32, 40, 48, 64, 128):
+        for D in FWD_WIDTHS:
             for H in (3, 4):
                 q, k, v = qkv((2, H, 200, D), dtype)
                 lens = lens_of([137, 0])
@@ -651,11 +770,13 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
                             "kv_lens": [137, 0],
                             "max_abs_err": (got.float() - ref).abs().max().item(),
                             "tol": fwd_tol[dtype]})
+            report(nosm_row(q, k, v))
 
-    # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero; D =
-    # 80 and 128 repaired (R1), 40 padded to 48 (R4)
+    # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero: every
+    # template width of the backward body (16 to 128), 40 padded to 48 (R4),
+    # 20 and 12 (F3)
     for dtype in (f32, bf16):
-        for D in (32, 40, 48, 64, 80, 128):
+        for D in (16, 32, 48, 64, 80, 96, 112, 128, 40, 20, 12):
             q, k, v, do = qkv((2, 4, 200, D), dtype, 4)
             lens = lens_of([137, 0])
             out = flash_attention(q, k, v, kv_lens=lens)
@@ -673,18 +794,6 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
             if not empty_row > 0:
                 raise AssertionError("flash_attention_bwd: the kv_len = 0 row has a zero gradient")
 
-    def nosm_row(q, k, v) -> dict:
-        """Kernel 12's error. Its output is not an average (no softmax): in
-        bf16 it reaches ~3, where one output rounding is 2^-8 of the value,
-        so the error beyond that rounding is what is held to 5e-3."""
-        ref = flash_nosm_plain(q.float(), k.float(), v.float())
-        diff = (flash_nosm(q, k, v).float() - ref).abs()
-        half_step = 2.0 ** -8 if q.dtype == bf16 else 0.0
-        return {"name": "flash_nosm", "dtype": str(q.dtype), "shape": list(q.shape),
-                "max_abs_err": diff.max().item(), "ref_max": ref.abs().max().item(),
-                "max_excess": (diff - half_step * ref.abs()).max().item(),
-                "tol": fwd_tol[q.dtype], "tol_on": "max_excess"}
-
     # kernel 12 small, f32 and bf16
     for dtype in (f32, bf16):
         report(nosm_row(*qkv((2, 4, 200, 64), dtype)))
@@ -696,8 +805,7 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     kept = kept_keys(lens, T)
     nb = q.numel() * 2
     mask = sdpa_mask(lens, T)
-    sdpa = sdpa_by_backend(torch, F, q, k, v, mask)
-    best, best_ms = fastest(sdpa)
+    yardstick = sdpa_yardstick(torch, F, q, k, v, mask)
     ref = flash_attention_plain(q.float(), k.float(), v.float(), kv_lens=lens)
     for name, fn, line in (
         ("flash_attention", lambda: flash_attention(q, k, v, kv_lens=lens), 32),
@@ -706,9 +814,9 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
         b_ms, b_by = bound_ms(4.0 * T * D * H * kept, H100_BF16_FLOPS, 4 * nb + lens.numel() * 4)
         row = {"name": name, "dtype": str(bf16), "shape": [B, H, T, D], "kv_lens": lens.tolist(),
                "max_abs_err": (fn().float() - ref).abs().max().item(), "tol": 5e-3,
-               "ms": cuda_ms(fn),
+               **forward_times(fn),
                "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens=lens), iters=5),
-               "library_ms": best_ms, "library": "SDPA " + best, "sdpa_ms_by_backend": sdpa,
+               **yardstick,
                "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": CLASSIC_SRC,
                "replaces": f"oron_tts_tpu/ops/flash_attention.py:{line}"}
         rows.append(row)
@@ -718,9 +826,11 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
           "ms": flash_exp_ms, "shape": [B, H, T, D]})
     b_ms, b_by = bound_ms(4.0 * T * D * H * B * T, H100_BF16_FLOPS, 4 * nb)
     row = {**nosm_row(q, k, v),
-           "ms": cuda_ms(lambda: flash_nosm(q, k, v)),
+           **forward_times(lambda: flash_nosm(q, k, v)),
            "plain_ms": cuda_ms(lambda: flash_nosm_plain(q, k, v), iters=5),
            "library_ms": cuda_ms(lambda: torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)),
+           "library_graph_ms": cuda_graph_ms(
+               lambda: torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)),
            "library": "torch.matmul(torch.matmul(q, k^T), v), two calls, 1/T left out",
            "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": CLASSIC_SRC,
            "replaces": "scripts/bench_attention.py:128"}
@@ -769,13 +879,36 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     del q, k, v, do, out
     torch.cuda.empty_cache()
 
+    # kernels 1 and 4 at every template width of the forward body and at 20
+    # and 12 (padded to 24 and 16, F3), f32 and bf16; a kv_len = 0 row
+    for dtype in (f32, bf16):
+        for D in FWD_WIDTHS:
+            Hl = 5 if D == 20 else 2
+            q, k, v = qkv((2, 200, Hl * D), dtype)
+            lens = lens_of([137, 0])
+            out, lse = flash_lanes_fwd_stats(q, k, v, lens, Hl)
+            ref_out, ref_lse = flash_lanes_fwd_stats_plain(q.float(), k.float(), v.float(), lens,
+                                                           Hl)
+            same = torch.equal(out, flash_lanes_fwd(q, k, v, lens, Hl))
+            report({"name": "flash_lanes_fwd_stats", "dtype": str(dtype), "shape": [2, 200, Hl * D],
+                    "head_dim": D, "out_bit_equal_to_fwd": same,
+                    "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                    "max_abs_err": (out.float() - ref_out).abs().max().item(),
+                    "tol": fwd_tol[dtype]})
+            if not same or not (lse - ref_lse).abs().max().item() <= 1e-4:
+                raise AssertionError(f"lanes forward at D = {D}: stats output equal {same}, "
+                                     f"lse off by {(lse - ref_lse).abs().max().item()}")
+
     # repairs: lanes forward, stats and backward at D = 32 (PR 4), 16 and 128
-    # (R2), 3 heads of 40 (R4, padded to 48); a kv_len = 0 row gets zeros
+    # (R2), 3 heads of 40 (R4, padded to 48), 5 heads of 20 and 2 of 12 (F3,
+    # padded to 24 and 16); a kv_len = 0 row gets zeros
     for dtype, (Bl, Tl, Hl, D) in ((f32, (2, 200, 2, 32)), (bf16, (2, 200, 2, 32)),
                                    (bf16, (2, 832, 16, 32)), (f32, (2, 200, 8, 16)),
                                    (bf16, (2, 200, 8, 16)), (f32, (2, 200, 2, 128)),
                                    (bf16, (2, 200, 2, 128)), (f32, (2, 200, 3, 40)),
-                                   (bf16, (2, 200, 3, 40))):
+                                   (bf16, (2, 200, 3, 40)), (f32, (2, 200, 5, 20)),
+                                   (bf16, (2, 200, 5, 20)), (f32, (2, 200, 2, 12)),
+                                   (bf16, (2, 200, 2, 12))):
         q, k, v, do = qkv((Bl, Tl, Hl * D), dtype, 4)
         lens = lens_of([Tl - 63, 0] if Tl == 200 else [Tl, Tl - 63])
         out, lse = flash_lanes_fwd_stats(q, k, v, lens, Hl)
@@ -797,23 +930,24 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
             raise AssertionError(f"lanes kernels at D = {D}: stats output {same}, two backward "
                                  f"calls equal {same_bits}, kv_len = 0 row zero {empty_zero}")
 
-    # a bf16 head width that is not a multiple of 8 raises before any launch
-    counts = (flash_lanes_fwd.launches, flash_lanes_bwd.launches, flash_attention.launches)
+    # F4's open half: a backward wider than 128 raises before any launch
+    counts = (flash_lanes_bwd.launches, flash_attention_bwd.launches)
     refused = []
     for name, call in (
-        ("flash_lanes_fwd", lambda: flash_lanes_fwd(*qkv((1, 64, 100), bf16), lens_of([64]), 5)),
-        ("flash_attention", lambda: flash_attention(*qkv((1, 5, 64, 20), bf16))),
+        ("flash_lanes_bwd", lambda: flash_lanes_bwd(
+            *qkv((1, 64, 192), bf16), lens_of([64]), *qkv((1, 64, 192), bf16, 2),
+            torch.zeros(1, 1, 64, device=dev), 1)),
         ("flash_attention_bwd", lambda: flash_attention_bwd(
-            *qkv((1, 5, 64, 20), bf16), lens_of([64]), *qkv((1, 5, 64, 20), bf16, 2))),
+            *qkv((1, 2, 64, 192), bf16), lens_of([64]), *qkv((1, 2, 64, 192), bf16, 2))),
     ):
         try:
             call()
         except ValueError as exc:
             refused.append(f"{name}: {exc}"[:120])
-    emit({"phase": "kernel_refusals", "head_dim": 20, "refused": refused})
-    if len(refused) != 3 or counts != (flash_lanes_fwd.launches, flash_lanes_bwd.launches,
-                                       flash_attention.launches):
-        raise AssertionError(f"head width 20 in bf16 was not refused before launch: {refused}")
+    emit({"phase": "kernel_refusals", "head_dim": 192, "refused": refused})
+    if len(refused) != 2 or counts != (flash_lanes_bwd.launches, flash_attention_bwd.launches):
+        raise AssertionError(f"a backward at head width 192 was not refused before launch: "
+                             f"{refused}")
 
     # repairs: the grouped conv at group widths 16, 32 (the Small config) and
     # 128 (PR 4), 8 and 4 (R3, the SIMT kernel in bf16)
@@ -941,6 +1075,7 @@ def profile_once(torch, synthesize) -> dict:
         synthesize()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_stop = time.perf_counter()
     by_kind: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for ev in prof.events():
@@ -961,6 +1096,7 @@ def profile_once(torch, synthesize) -> dict:
         "device_s_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "device_kernels": sum(c for _, c in by_name.values()),
         "top_kernels": [{"name": n, "s": t, "launches": c} for n, (t, c) in top],
+        "trace_s": time.perf_counter() - t_stop,  # the profiler's own stop and event walk
     }
 
 
@@ -1390,9 +1526,10 @@ def run_batch_knee(torch, smi: str) -> None:
     points = []
     try:
         model.synthesize_batch([letters(64)], n_steps=2, seed=0, max_chars_per_chunk=0)
-        # the 16-row point and the 1,600-frame rows are left out to keep the
-        # script under ten minutes (PERF.md keeps their earlier readings)
-        for n_letters, bucket, row_counts in ((64, 832, (1, 2, 4, 8)),):
+        # the 16-row point, the 1,600-frame rows and the 2- and 4-row points
+        # are left out for the script's length (PERF.md keeps their earlier
+        # readings)
+        for n_letters, bucket, row_counts in ((64, 832, (1, 8)),):
             for rows in row_counts:
                 texts = [letters(n_letters, salt=r) for r in range(rows)]
                 best = None
@@ -1748,6 +1885,7 @@ def run_serve(torch, smi: str) -> dict[str, int]:
                 raise AssertionError(f"{mode}: the drain dropped the request in flight")
             report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
             report["requests"] = service.health()["requests"]
+            report["mode_s"] = time.perf_counter() - t0
             emit(report)
             del server, service, model
     return totals
@@ -2021,6 +2159,42 @@ def run_widths(torch, smi: str) -> dict[str, int]:
     del model
     torch.cuda.empty_cache()
 
+    # F3: 5 heads of width 20 (H·D = 100, which the JAX lanes rule admits),
+    # configs/test.yaml's model with dim 128 and a DiT of 5 heads of 20
+    # overridden in memory, seeded weights; the wrapper pads each head to 24
+    from oron_tts_tpu_torch.models.cfm import CFM
+    from oron_tts_tpu_torch.models.dit import DiT
+
+    config = load_config(repo / "configs" / "test.yaml")
+    config["model"] = {**config["model"], "dim": 128, "heads": 8}
+    model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+    model.init_params(0)
+    model.load_vocoder()
+    m, a = model.config.model, model.config.audio
+    torch.manual_seed(0)
+    with torch.device(model.device):
+        dit = DiT(dim=m.dim, depth=m.depth, heads=5, dim_head=20, ff_mult=m.ff_mult,
+                  mel_dim=a.n_mels, vocab_size=m.vocab_size, text_dim=m.text_dim,
+                  conv_layers=m.conv_layers, dropout=0.0)
+    model.backbone = dit.to(torch.bfloat16).eval()
+    model.cfm = CFM(model.backbone, n_mels=a.n_mels)
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    wav = model.synthesize(MN_TEXT, lang="mn", n_steps=8, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d20_counts = read_counts(wrappers)
+    emit({"phase": "widths_synthesis_d20", "config": "configs/test.yaml + dim 128, 5 heads of 20",
+          "heads": 5, "head_dim": 20, "attn_impl": model.backbone.attn_impl, "steps": 8,
+          "wall_s": wall, "samples": len(wav), "launches": d20_counts, "card": smi})
+    if (d20_counts["flash_lanes_fwd"] != 8 * m.depth or model.backbone.attn_impl != "lanes"
+            or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
+        raise AssertionError(f"5 heads of 20: launches {d20_counts}, "
+                             f"impl {model.backbone.attn_impl}, finite sound "
+                             f"{bool(np.isfinite(wav).all())}")
+    del model, dit
+    torch.cuda.empty_cache()
+
     # two epochs of the train CLI on configs/test.yaml (dim 64, heads 2: D = 32, f32)
     with tempfile.TemporaryDirectory() as tmp:
         records = []
@@ -2079,7 +2253,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
             and d128_counts["flash_lanes_fwd_stats"] == 4 and d128_counts["flash_lanes_bwd"] == 4
             and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"):
         raise AssertionError(f"dim-128 bf16 training: launches {d128_counts}, steps {losses}")
-    return {n: synth_counts[n] + train_counts[n] + d128_counts[n] for n in wrappers}
+    return {n: synth_counts[n] + d20_counts[n] + train_counts[n] + d128_counts[n]
+            for n in wrappers}
 
 
 def main() -> int:
@@ -2104,10 +2279,13 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    libs = _build.build_all(verbose=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    logs: dict[str, str] = {}
+    build_s: dict[str, float] = {}
+    libs = _build.build_all(verbose=True, logs=logs, seconds=build_s)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "seconds_by_library": build_s,
           "libraries": [str(p.relative_to(_build.BUILD_DIR.parents[1])) for p in libs.values()]})
     emit({"phase": "sass", "hgmma": hgmma_counts(libs)})
+    emit({"phase": "forward_build", "by_width": forward_build(logs.get("flash_classic", ""))})
 
     seconds = {}
 
@@ -2135,7 +2313,8 @@ def main() -> int:
         | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}
         | {"library": row.get("library"), "shape": row.get("shape")}
-        | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms") if k in row}
+        | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms", "graph_ms", "library_graph_ms")
+           if k in row}
         for row in rows
     ], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

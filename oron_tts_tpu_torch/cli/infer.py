@@ -5,10 +5,11 @@
 
 Counterpart of the JAX package's ``cli/infer.py`` for native ``.npz``
 checkpoints (either package's) and the bundled or a given ``.npz`` Vocos
-vocoder. It runs on the card unless ``--device cpu`` is given. Torch
-``.pt``/``.safetensors`` checkpoints, a calibrated ``duration_stats`` table
-and ``--mesh`` are not ported yet (``ROADMAP.md``): they raise an error that
-says so.
+vocoder. It runs on the card unless ``--device cpu`` is given. A calibrated
+``duration_stats`` table in ``config.json`` sets the length of every
+ref-free solve, as in the JAX package. Torch ``.pt``/``.safetensors``
+checkpoints and ``--mesh`` are not ported yet (``ROADMAP.md``): they raise an
+error that says so.
 """
 
 from __future__ import annotations
@@ -46,12 +47,12 @@ def load_model(checkpoint_path: str, use_ema: bool = True, precision: str | None
         )
     cm = CheckpointManager(path if path.is_dir() else path.parent)
     config = cm.load_config() or {}
-    if config.get("duration_stats"):
-        raise NotImplementedError(NOT_PORTED.format(
-            flag="A calibrated duration_stats table in config.json"))
     model = F5TTS.from_config(
         F5Config.from_dict(config), device=device,
         dtype=torch.float32 if precision == "float32" else None)
+    # per-token duration calibration fitted at training time
+    # (data/duration_stats.py); absent → chars·13
+    model.set_duration_stats(config.get("duration_stats"))
 
     if path.is_dir():
         found = cm.latest_checkpoint() or (cm.best_path() if cm.best_path().exists() else None)

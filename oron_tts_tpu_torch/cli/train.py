@@ -175,6 +175,19 @@ def main(argv: list[str] | None = None) -> None:
 
     dataset = build_dataset(args.data_dir, config, args.lang)
     print(f"Dataset size: {len(dataset)}")
+    # calibrate the ref-free duration from the corpus; the table rides the
+    # config into config.json beside every checkpoint (data/duration_stats.py)
+    if dataset.durations and dataset.texts:
+        from oron_tts_tpu_torch.data.duration_stats import stats_from_texts
+
+        stats = stats_from_texts(
+            dataset.texts, dataset.langs, dataset.durations,
+            config.get("sample_rate", 24000), config.get("hop_length", 256),
+        )
+        if stats is not None:
+            config["duration_stats"] = stats
+            print(f"Duration calibration: global "
+                  f"{stats['global']:.2f} frames/token over {stats['n']} clips")
     train_loader, val_loader = build_loaders(dataset, config)
 
     bf16 = config.get("mixed_precision", "bfloat16") == "bfloat16" and device.type == "cuda"

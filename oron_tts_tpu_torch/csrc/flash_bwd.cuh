@@ -58,7 +58,6 @@
 #pragma once
 
 #include "flash_fwd.cuh"
-#include "wgmma.cuh"
 
 namespace oron {
 namespace attn {
@@ -76,17 +75,8 @@ __device__ __forceinline__ void bwd_limit(int kv, int T, float scale_log2,
 
 // ------------------------------------------------------- bf16 (wgmma)
 
-// exp2 on the special-function unit (ex2.approx, relative error ~2^-22, far
-// below the bf16 rounding of p); exp2f's range handling costs ~9% here
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr int BWD_ROWS = 128;     // rows a block owns: two warpgroups x 64
-constexpr int BWD_THREADS = 256;
-constexpr int KV_TILE = 64;       // keys of one pass-A stage
+constexpr int BWD_ROWS = BLOCK_ROWS;     // rows a block owns: two warpgroups x 64
+constexpr int BWD_THREADS = BLOCK_THREADS;
 
 // Pass B's queries a stage, and the blocks an SM holds. Up to DP = 64 two
 // blocks share an SM (128 registers a thread), which hides one block's
@@ -98,74 +88,12 @@ struct BwdTile {
   static constexpr int MIN_BLOCKS = DP > 64 ? 1 : 2;
 };
 
-// rows [row0, row0 + R) x columns [0, DP) of one head into a core-matrix
-// tile (wgmma.cuh), asynchronously; rows at or past T and columns at or past
-// dh land as zeros. Eight consecutive threads copy the eight rows of one
-// core matrix; a warp reads 8 rows x 64 bytes.
-template <int R, int DP>
-__device__ __forceinline__ void load_core_tile(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* __restrict__ src,
-                                               size_t base, int row0, int T, int dh, int rs,
-                                               int tid) {
-  constexpr int CB = DP / 8;
-  for (int idx = tid; idx < R * CB; idx += BWD_THREADS) {
-    const int r = (idx & 7) | ((idx / (8 * CB)) << 3);
-    const int c = ((idx >> 3) % CB) * 8;
-    const bool ok = row0 + r < T && c < dh;
-    const __nv_bfloat16* from = ok ? src + base + (size_t)(row0 + r) * rs + c : src;
-    wg::cp_async16(dst + wg::core_offset<R>(r, c), from, ok ? 16 : 0);
-  }
-}
-
 // n values of a [B, H, T] f32 row from t0 into smem; past T, zeros
 __device__ __forceinline__ void load_stat_row(float* dst, const float* __restrict__ src,
                                               int t0, int n, int T, int tid) {
   if (tid < n) {
     const bool ok = t0 + tid < T;
     wg::cp_async4(dst + tid, ok ? src + t0 + tid : src, ok ? 4 : 0);
-  }
-}
-
-// K-major operand: the tile's rows along M or N (from row0, a multiple of
-// 8), its columns along K; k-step kk
-template <int R>
-__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile, int row0, int kk) {
-  constexpr uint32_t COL = wg::Core<R>::COL_GROUP;
-  return wg::desc(wg::smem_addr(tile) + (row0 >> 3) * wg::Core<R>::ROW_GROUP + kk * 2 * COL,
-                  COL, wg::Core<R>::ROW_GROUP);
-}
-
-// MN-major operand (transpose bit): the tile's rows along K, its columns
-// along N; k-step kk takes rows 16kk .. 16kk + 15
-template <int R>
-__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile, int kk) {
-  return wg::desc(wg::smem_addr(tile) + kk * 2 * wg::Core<R>::ROW_GROUP,
-                  wg::Core<R>::ROW_GROUP, wg::Core<R>::COL_GROUP);
-}
-
-// k-step kk of an accumulator as a bf16 A fragment (columns 16kk .. 16kk+15)
-__device__ __forceinline__ void acc_to_a(const float* x, int kk, uint32_t* a) {
-  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-}
-
-// this thread's rows (row, row + 8) of an m64nDP accumulator, columns < dh
-template <int DP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, size_t base,
-                                           int row, int T, int dh, int rs, const float* acc,
-                                           int t4) {
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (col >= dh) continue;
-    if (row < T)
-      *reinterpret_cast<uint32_t*>(dst + base + (size_t)row * rs + col) =
-          pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    if (row + 8 < T)
-      *reinterpret_cast<uint32_t*>(dst + base + (size_t)(row + 8) * rs + col) =
-          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -710,10 +638,9 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <int DP, bool CLASSIC>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, void* lse, const void* kv_lens, void* delta, void* dq,
-               void* dk, void* dv, int B, int Tn, int H, int dh, Layout lay, int is_bf16,
-               int passes, cudaStream_t st) {
-  const float sm_scale = 1.f / sqrtf((float)dh);
-  const float scale_log2 = 1.4426950408889634f * sm_scale;
+               void* dk, void* dv, int B, int Tn, int H, int dh, Layout lay, float sm_scale,
+               int is_bf16, int passes, cudaStream_t st) {
+  const float scale_log2 = LOG2E * sm_scale;
   float* lse_f = static_cast<float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
@@ -748,8 +675,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   const size_t smem = f32_bwd_smem<DP>();
   if (passes & 1) {
     if (CLASSIC) {
-      const int rc = launch_fwd<DP, STATS, 1>(q, k, nullptr, kv_lens, nullptr, lse_f, B, Tn, H,
-                                              dh, lay, scale_log2, 1, 0, st);
+      const int rc = launch_fwd<DP, STATS>(q, k, nullptr, kv_lens, nullptr, lse_f, B, Tn, H, dh,
+                                           lay, sm_scale, 1, 0, st);
       if (rc != 0) return rc;
     }
     const size_t n_warps = (size_t)B * Tn * H;

@@ -4,7 +4,8 @@
 // (_flash_bwd_kernel, called by _flash_bwd :831, the VJP of
 // flash_attention_trainable :874): dq, dk, dv of [B, H, T, D] q, k, v from
 // the forward's output and its gradient. Head widths: multiples of 8 from 8
-// to 128, every width the classic forward takes.
+// to 128 (the wrapper zero-pads any narrower width to the next multiple of
+// 8 and passes the scale of the true one); the forward goes to 256.
 //
 // Like the TPU kernel it receives no saved statistics: pass A of
 // flash_bwd.cuh (CLASSIC) first sweeps S over the keys below kv_len and
@@ -27,17 +28,18 @@
 
 using namespace oron::attn;
 
-// lse and delta are [B, H, T] f32 scratch the wrapper allocates. passes: 3
-// for the gradients (1 and 2 run pass A or B alone, for timing).
+// lse and delta are [B, H, T] f32 scratch the wrapper allocates; scale is
+// 1/sqrt(D) of the true head width. passes: 3 for the gradients (1 and 2 run
+// pass A or B alone, for timing).
 extern "C" int flash_classic_bwd(const void* q, const void* k, const void* v,
                                  const void* out, const void* dout, const void* kv_lens,
                                  void* lse, void* delta, void* dq, void* dk, void* dv,
-                                 int B, int H, int T, int Dh, int is_bf16, int passes,
-                                 void* stream) {
+                                 int B, int H, int T, int Dh, float scale, int is_bf16,
+                                 int passes, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return with_padded_dim(Dh, [&](auto d) {
     constexpr int DP = decltype(d)::value;
     return launch_bwd<DP, true>(q, k, v, out, dout, lse, kv_lens, delta, dq, dk, dv, B, T, H,
-                                Dh, classic_layout(T, H, Dh), is_bf16, passes, st);
+                                Dh, classic_layout(T, H, Dh), scale, is_bf16, passes, st);
   });
 }

@@ -14,41 +14,72 @@
 // weighs 0 either way, and kv_len <= 0 gives every one of the T keys the same
 // weight, as exp(-1e30 - (-1e30)) = 1 does there), scores in f32, P cast to
 // the input type before the PV product, f32 accumulation, out / max(l, 1e-30).
-// exp2 of s * scale * log2(e), or exp of s * scale (the TPU kernel's
-// use_exp2=False); the softmax value is the same.
+// The caller passes the score scale of the true head width (1/sqrt(D) before
+// any zero padding of D) and whether the softmax is exp2 of s*scale*log2(e)
+// or exp of s*scale (the TPU kernel's use_exp2=False): the value is the same,
+// and the bf16 body computes both as exp2.
 //
 // Modes: SOFTMAX writes the output (and lse2 = m + log2(max(l, 1e-30)) when
-// given a pointer); STATS writes only lse2 (the classic backward's recomputed
-// statistics, no PV product); NOSM is the bench's split, (q.k in f32) / T cast
-// to the input type, times V, no mask, no max, no sum.
+// given a pointer); STATS writes only lse2 (the f32 classic backward's
+// recomputed statistics; the bf16 backward sweeps them inside its own pass A,
+// flash_bwd.cuh); NOSM is the bench's split, (q.k in f32) / T cast to the
+// input type, times V, no mask, no max, no sum.
 //
-// Design: a group of 128 threads (4 warps x 16 query rows) owns a tile of 64
-// query rows of one head; K/V tiles of 64 keys stream through shared memory
-// with an online softmax (running max m, running sum l, rescaled
-// accumulator); tiles past kv_len are skipped. The TPU kernels hold a whole
-// key row in VMEM and run a two-pass softmax; a thread block cannot hold
-// that. The Q tile is staged through the K buffer and kept in registers as
-// mma A fragments. A block holds HPB such groups: the packed kernel runs the
-// even and odd head of a pair side by side (HPB = 2), each with its own
-// online softmax, where the TPU packed both heads into one block-diagonal
-// [2T, 2D] product with zero halves (twice the MACs, for its 128-lane unit).
+// Design (bf16). A block is two warpgroups; each owns 64 of the block's 128
+// query rows of one head, so every K/V tile in shared memory feeds 128 rows
+// (one warpgroup a block on 64 rows, or a head pair's two warpgroups each
+// with its own tiles, the packed kernel's former design, measured 1.7x
+// slower on this body).
+// Both products are wgmma (wgmma.cuh): S = Q K^T is m64n64k16 with Q and K
+// from shared memory, K-major; O += P V takes P from registers (the S
+// accumulator, exponentiated and rounded to bf16 in place) and V as an
+// MN-major operand through the transpose bit, so no transposed copy of V is
+// ever written. Tiles of 64 keys arrive through a ring of cp.async copies:
+// two K stages and three V stages, since tile j's V is read one iteration
+// after its K. One barrier a tile; past it the copy of tile j + 1 is issued
+// before tile j's products, so it lands while they run. Within a warpgroup the
+// products are pipelined as in FlashAttention-3: iteration j issues S_j and
+// then O += P_{j-1} V_{j-1}, waits for S_j alone (wgmma.wait_group 1) and runs
+// tile j's softmax (ex2.approx) while the PV product is still on the tensor
+// cores; O is rescaled once that product is done. Tiles past kv_len are not
+// loaded at all; only the last one masks keys.
 //
-// bf16 uses mma.sync m16n8k16 with f32 accumulators; f32 inputs take a SIMT
-// path in true f32, one query row per thread.
+// cp.async and not TMA: no tensor maps to build on the host per call (the
+// lanes layout would need one per head width and stride), no mbarriers, and a
+// copy that lands zeros past T or past D (src-size 0) is one instruction.
+// With one block's two warpgroups issuing their own copies between products
+// a producer warp would have little to hide; it is the next step for speed.
+//
+// Widths: columns from dh (a multiple of 8) to DP (the next multiple of 16,
+// the wgmma depth) land as zeros and are never stored. DP runs to 256: S is
+// one m64n64 accumulator (32 registers a thread) and O one m64nDP (DP / 2),
+// 128 at DP = 256; beyond 128 columns the PV product is two wgmma of N <= 128.
+// Shared memory is 2 * (128 + 5 * 64) * DP bytes: 229,376 at DP = 256 (the
+// limit is 232,448). Up to DP = 64 two blocks share an SM (128 registers a
+// thread), so the synthesis shape's 224 blocks fit in one wave of 264.
+//
+// The TPU kernels hold a whole key row in VMEM and run a two-pass softmax; a
+// thread block cannot hold that, so keys stream with the online softmax
+// (running max m, running sum l, rescaled accumulator). The TPU packed kernel
+// packs a head pair into one [2T, 2D] block-diagonal product with zero halves
+// to fill its 128-lane matrix unit; here one head's K/V tile is shared by 128
+// query rows instead, and the packed launch covers both heads of every pair.
+//
+// f32 inputs take a SIMT path in true f32, one query row per thread (the
+// reference path of the checks; not tuned).
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace oron {
 namespace attn {
 
-constexpr int BM = 64;   // query rows per group: 4 warps x 16
-constexpr int BN = 64;   // keys per shared-memory tile
-constexpr int NT = 128;  // threads per group (bf16)
-
 enum Mode { SOFTMAX = 0, STATS = 1, NOSM = 2 };
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Layout {
   long long batch_stride, head_stride;
@@ -63,17 +94,6 @@ __host__ __device__ inline Layout classic_layout(int T, int H, int D) {
   return Layout{(long long)H * T * D, (long long)T * D, D};
 }
 
-// shared memory of one group, bf16 elements: the K tile (Q staged there
-// first) [64][D + 8] and V transposed [D][64 + 8]
-template <int D>
-struct FwdSmem {
-  static constexpr int LDS = D + 8;
-  static constexpr int LDV = BN + 8;
-  static constexpr int K_ELEMS = BN * LDS;
-  static constexpr int ELEMS = K_ELEMS + D * LDV;
-  static constexpr int BYTES = ELEMS * 2;
-};
-
 // Keys that count for a row of batch b, and the score scale. kv <= 0: all T
 // keys with scale 0 (equal weights).
 __device__ __forceinline__ void key_limit(int kv, int T, float scale, int& limit,
@@ -86,218 +106,281 @@ __device__ __forceinline__ void key_limit(int kv, int T, float scale, int& limit
   }
 }
 
-__device__ __forceinline__ float softmax_exp(float x, bool use_exp2) {
-  return use_exp2 ? exp2f(x) : expf(x);
+// ------------------------------------------- helpers shared with the backward
+
+constexpr int BLOCK_ROWS = 128;     // rows a block owns: two warpgroups x 64
+constexpr int BLOCK_THREADS = 256;
+constexpr int KV_TILE = 64;         // keys (or queries) of one streamed tile
+
+// exp2 on the special-function unit (ex2.approx, relative error ~2^-22, far
+// below the bf16 rounding of p); exp2f's range handling costs ~9% here
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One group's 64 query rows [q0, q0 + 64) of one head, bf16.
-template <int D, int MODE>
-__device__ __forceinline__ void fwd_group_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse_row, size_t base, int rs, int T, int dh, int kv, int q0,
-    float scale, bool use_exp2, __nv_bfloat16* Ks, int tid) {
-  using S = FwdSmem<D>;
-  constexpr int LDS = S::LDS, LDV = S::LDV, KD = D / 16, ND = D / 8;
-  __nv_bfloat16* Vt = Ks + S::K_ELEMS;  // [d][key]
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+// rows [row0, row0 + R) x columns [0, DP) of one head into a core-matrix
+// tile (wgmma.cuh), asynchronously; rows at or past T and columns at or past
+// dh land as zeros. Eight consecutive threads copy the eight rows of one
+// core matrix; a warp reads 8 rows x 64 bytes.
+template <int R, int DP>
+__device__ __forceinline__ void load_core_tile(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* __restrict__ src,
+                                               size_t base, int row0, int T, int dh, int rs,
+                                               int tid) {
+  constexpr int CB = DP / 8;
+  for (int idx = tid; idx < R * CB; idx += BLOCK_THREADS) {
+    const int r = (idx & 7) | ((idx / (8 * CB)) << 3);
+    const int c = ((idx >> 3) % CB) * 8;
+    const bool ok = row0 + r < T && c < dh;
+    const __nv_bfloat16* from = ok ? src + base + (size_t)(row0 + r) * rs + c : src;
+    wg::cp_async16(dst + wg::core_offset<R>(r, c), from, ok ? 16 : 0);
+  }
+}
 
+// K-major operand: the tile's rows along M or N (from row0, a multiple of
+// 8), its columns along K; k-step kk
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile, int row0, int kk) {
+  constexpr uint32_t COL = wg::Core<R>::COL_GROUP;
+  return wg::desc(wg::smem_addr(tile) + (row0 >> 3) * wg::Core<R>::ROW_GROUP + kk * 2 * COL,
+                  COL, wg::Core<R>::ROW_GROUP);
+}
+
+// MN-major operand (transpose bit): the tile's rows along K, its columns
+// along N; k-step kk takes rows 16kk .. 16kk + 15
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile, int kk) {
+  return wg::desc(wg::smem_addr(tile) + kk * 2 * wg::Core<R>::ROW_GROUP,
+                  wg::Core<R>::ROW_GROUP, wg::Core<R>::COL_GROUP);
+}
+
+// k-step kk of an accumulator as a bf16 A fragment (columns 16kk .. 16kk+15)
+__device__ __forceinline__ void acc_to_a(const float* x, int kk, uint32_t* a) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// D[64 x DP] += A[64 x 16] B[16 x DP], A from registers, B the rows 16kk ..
+// 16kk + 15 of an MN-major tile of R rows; DP > 128 as two products
+template <int R, int DP>
+__device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t* a,
+                                              const __nv_bfloat16* tile, int kk) {
+  if constexpr (DP <= 128) {
+    wg::wgmma_rs_t<DP>(d, a, desc_mn<R>(tile, kk));
+  } else {
+    wg::wgmma_rs_t<128>(d, a, desc_mn<R>(tile, kk));
+    wg::wgmma_rs_t<DP - 128>(d + 64, a, desc_mn<R>(tile + 16 * R * 8, kk));
+  }
+}
+
+// this thread's rows (row, row + 8) of an m64nDP accumulator, columns < dh,
+// each row divided by its own denominator
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, size_t base,
+                                           int row, int T, int dh, int rs, const float* acc,
+                                           int t4, float den0 = 1.f, float den1 = 1.f) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (col >= dh) continue;
+    if (row < T)
+      *reinterpret_cast<uint32_t*>(dst + base + (size_t)row * rs + col) =
+          pack_bf16(acc[4 * j] / den0, acc[4 * j + 1] / den0);
+    if (row + 8 < T)
+      *reinterpret_cast<uint32_t*>(dst + base + (size_t)(row + 8) * rs + col) =
+          pack_bf16(acc[4 * j + 2] / den1, acc[4 * j + 3] / den1);
+  }
+}
+
+// ------------------------------------------------------- bf16 (wgmma)
+
+template <int DP>
+struct FwdSmem {  // Q: two tiles [64][DP]; K_STAGES x K, V_STAGES x V [64][DP]
+  static constexpr int KV = KV_TILE * DP;
+  // tile j's K is read in iteration j, its V in j + 1, tile j + 1 lands
+  static constexpr int K_STAGES = 2, V_STAGES = 3;
+  static constexpr size_t BYTES = (size_t)(BLOCK_ROWS * DP + (K_STAGES + V_STAGES) * KV) * 2;
+  static constexpr int MIN_BLOCKS = DP > 64 ? 1 : 2;  // blocks an SM: registers
+};
+
+// Grid (ceil(T / 128), H, B); lse is [B, H, T] f32 or null.
+// scale_log2 is the score scale in base-2 units (1/T for NOSM).
+template <int DP, int MODE>
+__global__ void __launch_bounds__(BLOCK_THREADS, FwdSmem<DP>::MIN_BLOCKS)
+attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int dh,
+               Layout lay, float scale_log2) {
+  static_assert(MODE == SOFTMAX || MODE == NOSM, "bf16 STATS is not built");
+  using S = FwdSmem<DP>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // warpgroup w's at w * 64 * DP
+  __nv_bfloat16* ring = Qs + BLOCK_ROWS * DP;  // K stages, then V stages
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BLOCK_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y, rs = lay.row_stride;
+  const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
   int limit;
   float s_scale;
   if (MODE == NOSM) {
     limit = T;
-    s_scale = scale;  // 1 / T
+    s_scale = scale_log2;  // 1 / T
   } else {
-    key_limit(kv, T, scale, limit, s_scale);
+    key_limit(kv_lens[b], T, scale_log2, limit, s_scale);
   }
-  const bool ex2 = MODE == STATS ? true : use_exp2;
+  const int r0 = 64 * wgi + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int n_tiles = (limit + KV_TILE - 1) / KV_TILE;
 
-  for (int idx = tid; idx < BM * (D / 8); idx += NT) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T && c < dh)
-      val = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) = val;
-  }
-  __syncthreads();
+  auto issue = [&](int j) {  // tile j's K and V, one cp.async group
+    load_core_tile<KV_TILE, DP>(ring + (j % S::K_STAGES) * S::KV, k, base, j * KV_TILE, T, dh,
+                                rs, tid);
+    load_core_tile<KV_TILE, DP>(ring + (S::K_STAGES + j % S::V_STAGES) * S::KV, v, base,
+                                j * KV_TILE, T, dh, rs, tid);
+    wg::cp_commit();
+  };
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+    load_core_tile<64, DP>(Qs + w * 64 * DP, q, base, q0 + 64 * w, T, dh, rs, tid);
+  issue(0);  // in Q's group
 
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KD][4];
+  float oacc[DP / 2], s[KV_TILE / 2];
+  uint32_t p[KV_TILE / 4];  // P of the previous tile as bf16 A fragments, 4 k-steps
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qa[kk][0] = ld32(&Ks[r0 * LDS + c]);
-    qa[kk][1] = ld32(&Ks[(r0 + 8) * LDS + c]);
-    qa[kk][2] = ld32(&Ks[r0 * LDS + c + 8]);
-    qa[kk][3] = ld32(&Ks[(r0 + 8) * LDS + c + 8]);
-  }
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
 
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};
-
-  const int n_tiles = (limit + BN - 1) / BN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile (or the staged Q) is no longer read
-    for (int idx = tid; idx < BN * (D / 8); idx += NT) {
-      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-      if (k0 + r < T && c < dh) {
-        const size_t off = base + (size_t)(k0 + r) * rs + c;
-        kval = *reinterpret_cast<const uint4*>(k + off);
-        if (MODE != STATS) vval = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) = kval;
-      if (MODE != STATS) {
-        const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&vval);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Vt[(c + j) * LDV + r] = vp[j];
-      }
-    }
+  // Ring step j: tile j (and Q) landed for every thread, which is also past
+  // its reads of tile j - 1's K and j - 2's V; then tile j + 1's copy starts,
+  // into those stages.
+  auto next_tile = [&](int j) {
+    wg::cp_wait<0>();
+    wg::fence_async_proxy();
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BN / 8][4];
+    if (j + 1 < n_tiles) issue(j + 1);
+  };
+  auto scores = [&](int j) {  // S_j = Q K_j^T, issued
+    const __nv_bfloat16* Kt = ring + (j % S::K_STAGES) * S::KV;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wg::wgmma_ss<KV_TILE>(s, desc_k<64>(Qs + wgi * 64 * DP, 0, kk), desc_k<KV_TILE>(Kt, 0, kk),
+                            kk > 0);
+    wg::commit();
+  };
+  auto pv = [&](int j) {  // O += P_j V_j, issued
+    const __nv_bfloat16* Vt = ring + (S::K_STAGES + j % S::V_STAGES) * S::KV;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int n = j * 8 + g, c = kk * 16 + t4 * 2;
-        uint32_t bb[2] = {ld32(&Ks[n * LDS + c]), ld32(&Ks[n * LDS + c + 8])};
-        mma_bf16_16816(s[j], qa[kk], bb);
-      }
-    }
-
+    for (int kk = 0; kk < KV_TILE / 16; ++kk) wgmma_rs_wide<KV_TILE, DP>(oacc, p + 4 * kk, Vt, kk);
+    wg::commit();
+  };
+  // S_j in place to its weights (or, NOSM, to S_j / T); alpha rescales O
+  auto softmax = [&](int j, float* a) {
     if (MODE == NOSM) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= s_scale;
-    } else {
-      float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-          const float val = col < limit ? s[j][e] * s_scale : -INFINITY;
-          s[j][e] = val;
-          mx[e >> 1] = fmaxf(mx[e >> 1], val);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = softmax_exp(m_i[r] - mx[r], ex2);  // 0 on the first tile
-        m_i[r] = mx[r];
-        l_i[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = softmax_exp(s[j][e] - m_i[e >> 1], ex2);
-          s[j][e] = p;
-          l_i[e >> 1] += p;
-        }
-      if (MODE != STATS) {
-#pragma unroll
-        for (int j = 0; j < ND; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-      }
+      for (int i = 0; i < KV_TILE / 2; ++i) s[i] *= s_scale;
+      return;
     }
+    const int k0 = j * KV_TILE;
+    const bool ragged = k0 + KV_TILE > limit;  // only the last tile masks keys
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < KV_TILE / 2; ++i) {
+      const bool keep = !ragged || k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) < limit;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], keep ? s[i] : -INFINITY);
+    }
+    float nm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // the tile holds a kept key, so the max is finite; the scale is >= 0
+      const float m_new = fmaxf(m_i[r], mx[r] * s_scale);
+      a[r] = exp2_approx(m_i[r] - m_new);  // 0 on the first tile
+      m_i[r] = m_new;
+      nm[r] = -m_new;
+      l_i[r] *= a[r];
+    }
+#pragma unroll
+    for (int i = 0; i < KV_TILE / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float e = exp2_approx(fmaf(s[i], s_scale, nm[r]));
+      // -inf * 0 would be NaN where the scale is 0 (kv_len <= 0 rows)
+      if (ragged && k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) >= limit) e = 0.f;
+      s[i] = e;
+      l_i[r] += e;
+    }
+  };
 
-    if (MODE != STATS) {
-      // O += P V: P from the S accumulators (cast to bf16), V^T from smem
+  float alpha[2] = {1.f, 1.f};
+  next_tile(0);  // tile 0: S and its weights; O is still 0
+  wg::fence();
+  scores(0);
+  wg::wait<0>();
+  wg::fence_regs<KV_TILE / 2>(s);
+  softmax(0, alpha);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+  for (int kk = 0; kk < KV_TILE / 16; ++kk) acc_to_a(s, kk, p + 4 * kk);
+  // no branch around a wgmma below: ptxas would serialise them all
+  for (int j = 1; j < n_tiles; ++j) {
+    next_tile(j);
+    wg::fence();
+    scores(j);
+    pv(j - 1);
+    wg::wait<1>();  // S_j alone: O += P_{j-1} V_{j-1} runs on under the softmax
+    wg::fence_regs<KV_TILE / 2>(s);
+    softmax(j, alpha);
+    wg::wait<0>();
+    wg::fence_regs<DP / 2>(oacc);
 #pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          const int n = j * 8 + g, c = kk * 16 + t4 * 2;
-          uint32_t bb[2] = {ld32(&Vt[n * LDV + c]), ld32(&Vt[n * LDV + c + 8])};
-          mma_bf16_16816(acc[j], pa, bb);
-        }
-      }
+    for (int kk = 0; kk < KV_TILE / 16; ++kk) acc_to_a(s, kk, p + 4 * kk);
+    if (MODE != NOSM) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
     }
   }
+  wg::fence();
+  pv(n_tiles - 1);
+  wg::wait<0>();
+  wg::fence_regs<DP / 2>(oacc);
 
-  const int row = q0 + r0;
-  float l[2] = {1.f, 1.f};
+  float den[2] = {1.f, 1.f};
   if (MODE != NOSM) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float x = l_i[r];
       x += __shfl_xor_sync(0xffffffffu, x, 1);
       x += __shfl_xor_sync(0xffffffffu, x, 2);
-      l[r] = fmaxf(x, 1e-30f);
+      den[r] = fmaxf(x, 1e-30f);
     }
-    if (lse_row != nullptr && t4 == 0) {
-      if (row < T) lse_row[row] = m_i[0] + log2f(l[0]);
-      if (row + 8 < T) lse_row[row + 8] = m_i[1] + log2f(l[1]);
+    if (lse != nullptr && t4 == 0) {
+      float* lse_row = lse + ((size_t)b * H + h) * T;
+      if (q0 + r0 < T) lse_row[q0 + r0] = m_i[0] + log2f(den[0]);
+      if (q0 + r0 + 8 < T) lse_row[q0 + r0 + 8] = m_i[1] + log2f(den[1]);
     }
   }
-  if (MODE == STATS) return;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (col >= dh) continue;
-    if (row < T)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)row * rs + col) =
-          pack_bf16(acc[j][0] / l[0], acc[j][1] / l[0]);
-    if (row + 8 < T)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)(row + 8) * rs + col) =
-          pack_bf16(acc[j][2] / l[1], acc[j][3] / l[1]);
-  }
-}
-
-// Grid (ceil(T / 64), H / HPB, B); HPB groups of 128 threads, head
-// blockIdx.y * HPB + group. lse is [B, H, T] f32 or null.
-template <int D, int MODE, int HPB>
-__global__ void __launch_bounds__(NT * HPB)
-attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
-              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int H,
-              int dh, Layout lay, float scale, int use_exp2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int grp = threadIdx.x / NT, tid = threadIdx.x % NT;
-  const int h = blockIdx.y * HPB + grp, b = blockIdx.z;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw) + grp * FwdSmem<D>::ELEMS;
-  const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
-  const int kv = MODE == NOSM ? T : kv_lens[b];
-  float* lse_row = lse == nullptr ? nullptr : lse + ((size_t)b * H + h) * T;
-  fwd_group_bf16<D, MODE>(q, k, v, o, lse_row, base, lay.row_stride, T, dh, kv,
-                          blockIdx.x * BM, scale, use_exp2 != 0, Ks, tid);
+  store_rows<DP>(o, base, q0 + r0, T, dh, rs, oacc, t4, den[0], den[1]);
 }
 
 // ------------------------------------------------------------ f32 (SIMT)
 
-constexpr int F32_ROWS = 64;  // query rows (threads) per group
+constexpr int F32_ROWS = 64;  // query rows (threads) per block
 constexpr int F32_KEYS = 32;  // keys per shared-memory tile
 
-template <int D, int MODE, int HPB>
-__global__ void __launch_bounds__(F32_ROWS * HPB)
+template <int D, int MODE>
+__global__ void __launch_bounds__(F32_ROWS)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ kv_lens,
-             float* __restrict__ o, float* __restrict__ lse, int T, int H, int dh,
+             float* __restrict__ o, float* __restrict__ lse, int T, int dh,
              Layout lay, float scale, int use_exp2) {
   extern __shared__ float fsm[];
-  const int grp = threadIdx.x / F32_ROWS, tid = threadIdx.x % F32_ROWS;
-  const int h = blockIdx.y * HPB + grp, b = blockIdx.z;
-  float* Ks = fsm + (size_t)grp * 2 * F32_KEYS * D;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  float* Ks = fsm;
   float* Vs = Ks + F32_KEYS * D;
   const int row = blockIdx.x * F32_ROWS + tid;
   const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
@@ -342,8 +425,8 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       const float sv = dot * s_scale;
       const float mn = fmaxf(m, sv);
-      const float corr = softmax_exp(m - mn, ex2);
-      const float p = softmax_exp(sv - mn, ex2);
+      const float corr = ex2 ? exp2f(m - mn) : expf(m - mn);
+      const float p = ex2 ? exp2f(sv - mn) : expf(sv - mn);
       l = l * corr + p;
       if (MODE != STATS) {
 #pragma unroll
@@ -373,41 +456,62 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// One launch of the forward; q/k/v/o are bf16 (is_bf16) or f32.
-template <int D, int MODE, int HPB>
+// One launch of the forward; q/k/v/o are bf16 (is_bf16) or f32. scale is the
+// score scale of the true head width (1/T for NOSM); use_exp2 picks exp2 of
+// s * scale * log2(e) or exp of s * scale, the same softmax. STATS is f32 only.
+template <int D, int MODE>
 inline int launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
                       void* o, float* lse, int B, int T, int H, int dh, Layout lay,
                       float scale, int use_exp2, int is_bf16, cudaStream_t st) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  const float scale_exp2 = MODE == NOSM ? scale : LOG2E * scale;
   cudaError_t err;
-  if (is_bf16) {
-    auto kern = attn_fwd_bf16<D, MODE, HPB>;
-    const size_t smem = (size_t)HPB * FwdSmem<D>::BYTES;
-    if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
-    dim3 grid((T + BM - 1) / BM, H / HPB, B);
-    kern<<<grid, NT * HPB, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
-        static_cast<__nv_bfloat16*>(o), lse, T, H, dh, lay, scale, use_exp2);
-  } else {
-    auto kern = attn_fwd_f32<D, MODE, HPB>;
-    const size_t smem = (size_t)HPB * 2 * F32_KEYS * D * sizeof(float);
-    if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
-    dim3 grid((T + F32_ROWS - 1) / F32_ROWS, H / HPB, B);
-    kern<<<grid, F32_ROWS * HPB, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(kv_lens),
-        static_cast<float*>(o), lse, T, H, dh, lay, scale, use_exp2);
+  if constexpr (MODE != STATS) {
+    if (is_bf16) {
+      auto kern = attn_fwd_wgmma<D, MODE>;
+      const size_t smem = FwdSmem<D>::BYTES;
+      if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
+      dim3 grid((T + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
+      kern<<<grid, BLOCK_THREADS, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
+          static_cast<__nv_bfloat16*>(o), lse, T, dh, lay, scale_exp2);
+      return (int)cudaGetLastError();
+    }
+  } else if (is_bf16) {
+    return (int)cudaErrorInvalidValue;
   }
+  auto kern = attn_fwd_f32<D, MODE>;
+  const size_t smem = 2 * F32_KEYS * D * sizeof(float);
+  if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
+  dim3 grid((T + F32_ROWS - 1) / F32_ROWS, H, B);
+  kern<<<grid, F32_ROWS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kv_lens), static_cast<float*>(o), lse, T, dh, lay,
+      use_exp2 || MODE == STATS ? scale_exp2 : scale, use_exp2);
   return (int)cudaGetLastError();
 }
 
+// Blocks of the bf16 SOFTMAX forward an SM holds at padded width DP
+template <int DP>
+inline int fwd_blocks_per_sm() {
+  auto kern = attn_fwd_wgmma<DP, SOFTMAX>;
+  cudaError_t err = allow_smem(kern, FwdSmem<DP>::BYTES);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, BLOCK_THREADS,
+                                                      FwdSmem<DP>::BYTES);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // Calls fn(std::integral_constant<int, DP>) with DP the head width dh
-// rounded up to a multiple of 16 (the mma depth); dh must be a multiple of 8
-// (16-byte rows) from 8 to 128. Columns from dh to DP are zeros in shared
-// memory and are never stored.
-template <typename Fn>
+// rounded up to a multiple of 16 (the wgmma depth); dh must be a multiple of
+// 8 (16-byte rows, which the wrappers pad to) from 8 to MAX_DP (128, or 256
+// for the forwards). Columns from dh to DP are zeros in shared memory and are
+// never stored.
+template <int MAX_DP = 128, typename Fn>
 inline int with_padded_dim(int dh, Fn fn) {
-  if (dh < 8 || dh > 128 || dh % 8) return (int)cudaErrorInvalidValue;
+  if (dh < 8 || dh > MAX_DP || dh % 8) return (int)cudaErrorInvalidValue;
   switch ((dh + 15) / 16) {
     case 1: return fn(std::integral_constant<int, 16>{});
     case 2: return fn(std::integral_constant<int, 32>{});
@@ -416,9 +520,26 @@ inline int with_padded_dim(int dh, Fn fn) {
     case 5: return fn(std::integral_constant<int, 80>{});
     case 6: return fn(std::integral_constant<int, 96>{});
     case 7: return fn(std::integral_constant<int, 112>{});
-    default: return fn(std::integral_constant<int, 128>{});
+    case 8: return fn(std::integral_constant<int, 128>{});
+    default: break;
   }
+  if constexpr (MAX_DP > 128) {
+    switch ((dh + 15) / 16) {
+      case 9: return fn(std::integral_constant<int, 144>{});
+      case 10: return fn(std::integral_constant<int, 160>{});
+      case 11: return fn(std::integral_constant<int, 176>{});
+      case 12: return fn(std::integral_constant<int, 192>{});
+      case 13: return fn(std::integral_constant<int, 208>{});
+      case 14: return fn(std::integral_constant<int, 224>{});
+      case 15: return fn(std::integral_constant<int, 240>{});
+      default: return fn(std::integral_constant<int, 256>{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
+
+// the forwards' widest head
+constexpr int FWD_MAX_DH = 256;
 
 }  // namespace attn
 }  // namespace oron

@@ -7,14 +7,15 @@
 // columns with strided rows, so no head transpose is ever materialised. The
 // device body is flash_fwd.cuh's (semantics, design and the online softmax
 // are described there), with the lanes Layout. Head widths: multiples of 8
-// from 8 to 128 (every width the JAX lanes rule admits whose rows are 16-byte
-// aligned); a width that is not a multiple of 16 runs padded to the next one.
+// from 8 to 256 (the wrapper zero-pads any other width to the next multiple
+// of 8 and passes the scale of the true one); a width that is not a multiple
+// of 16 runs padded to the next one.
 //
 // Bound on the H100: at the slice's shapes (T ~ 832, H*D = 1024) the work
 // is ~4*T*kv*H*D flops over ~8*T*H*D bytes, some 400 flops per byte, so
-// the bound is the tensor cores. bf16 uses mma.sync m16n8k16 with f32
-// accumulators (not yet wgmma/TMA); f32 inputs take a plain SIMT kernel
-// in true f32, one query row per thread.
+// the bound is the tensor cores. bf16 runs wgmma on two warpgroups of 64
+// query rows with a cp.async ring of K/V tiles (flash_fwd.cuh); f32 inputs
+// take a plain SIMT kernel in true f32, one query row per thread.
 //
 // Stats: the online softmax ends with the row's running max m and sum l in
 // registers, so flash_lanes_fwd_stats writes lse2 = m + log2(max(l, 1e-30)),
@@ -31,31 +32,31 @@ namespace {
 using namespace oron::attn;
 
 int launch_lanes(const void* q, const void* k, const void* v, const void* kv_lens,
-                 void* out, float* lse, int B, int T, int H, int Dh, int is_bf16,
+                 void* out, float* lse, int B, int T, int H, int Dh, float scale, int is_bf16,
                  void* stream) {
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)Dh);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_padded_dim(Dh, [&](auto d) {
+  return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
     constexpr int DP = decltype(d)::value;
-    return launch_fwd<DP, SOFTMAX, 1>(q, k, v, kv_lens, out, lse, B, T, H, Dh,
-                                      lanes_layout(T, H, Dh), scale_log2, 1, is_bf16, st);
+    return launch_fwd<DP, SOFTMAX>(q, k, v, kv_lens, out, lse, B, T, H, Dh,
+                                   lanes_layout(T, H, Dh), scale, 1, is_bf16, st);
   });
 }
 
 }  // namespace
 
+// scale: 1/sqrt(D) of the true head width (Dh may be a zero-padded one)
 extern "C" int flash_lanes_fwd(const void* q, const void* k, const void* v,
                                const void* kv_lens, void* out, int B, int T,
-                               int H, int Dh, int is_bf16, void* stream) {
-  return launch_lanes(q, k, v, kv_lens, out, nullptr, B, T, H, Dh, is_bf16, stream);
+                               int H, int Dh, float scale, int is_bf16, void* stream) {
+  return launch_lanes(q, k, v, kv_lens, out, nullptr, B, T, H, Dh, scale, is_bf16, stream);
 }
 
 // Same output, plus lse2 [B, H, T] f32 for the backward.
 extern "C" int flash_lanes_fwd_stats(const void* q, const void* k, const void* v,
                                      const void* kv_lens, void* out, void* lse,
-                                     int B, int T, int H, int Dh, int is_bf16,
-                                     void* stream) {
+                                     int B, int T, int H, int Dh, float scale,
+                                     int is_bf16, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_lanes(q, k, v, kv_lens, out, static_cast<float*>(lse), B, T, H, Dh,
+  return launch_lanes(q, k, v, kv_lens, out, static_cast<float*>(lse), B, T, H, Dh, scale,
                       is_bf16, stream);
 }

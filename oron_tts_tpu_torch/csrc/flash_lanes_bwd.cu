@@ -7,8 +7,9 @@
 // The math, the two passes (dQ with the delta prologue per query tile, then
 // dK/dV per key tile; wgmma, cp.async, no atomics) and the f32 SIMT path are
 // flash_bwd.cuh's, with the lanes Layout. Head widths: multiples of 8 from 8
-// to 128 (every width the JAX lanes rule admits whose rows are 16-byte
-// aligned). A row with kv_len <= 0 gets zero gradients.
+// to 128 (the wrapper zero-pads any narrower width to the next multiple of
+// 8 and passes the scale of the true one). A row with kv_len <= 0 gets zero
+// gradients.
 //
 // Bound on the H100: 10*T*kv*H*D flops (five products) over ~16*T*H*D bytes,
 // far above 295 flops per byte, so the tensor cores bound it.
@@ -16,18 +17,19 @@
 
 using namespace oron::attn;
 
-// delta is [B, H, T] f32 scratch the wrapper allocates; lse is the forward's.
-// passes: 3 for the gradients (1 and 2 run pass A or B alone, for timing).
+// delta is [B, H, T] f32 scratch the wrapper allocates; lse is the forward's;
+// scale is 1/sqrt(D) of the true head width. passes: 3 for the gradients (1
+// and 2 run pass A or B alone, for timing).
 extern "C" int flash_lanes_bwd(const void* q, const void* k, const void* v,
                                const void* out, const void* dout, const void* lse,
                                const void* kv_lens, void* delta, void* dq, void* dk,
-                               void* dv, int B, int T, int H, int Dh, int is_bf16,
-                               int passes, void* stream) {
+                               void* dv, int B, int T, int H, int Dh, float scale,
+                               int is_bf16, int passes, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return with_padded_dim(Dh, [&](auto d) {
     constexpr int DP = decltype(d)::value;
     return launch_bwd<DP, false>(q, k, v, out, dout, const_cast<void*>(lse), kv_lens, delta,
-                                 dq, dk, dv, B, T, H, Dh, lanes_layout(T, H, Dh), is_bf16,
-                                 passes, st);
+                                 dq, dk, dv, B, T, H, Dh, lanes_layout(T, H, Dh), scale,
+                                 is_bf16, passes, st);
   });
 }

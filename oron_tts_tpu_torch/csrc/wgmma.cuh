@@ -1,4 +1,4 @@
-// Hopper primitives for the attention backward (sm_90a): warpgroup matrix
+// Hopper primitives for the attention kernels (sm_90a): warpgroup matrix
 // multiply (wgmma), its shared-memory descriptors, and asynchronous copies.
 //
 // Shared-memory tiles use wgmma's canonical layout without swizzle: a tile

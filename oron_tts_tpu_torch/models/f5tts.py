@@ -159,6 +159,15 @@ class F5TTS:
         self.params_loaded = False
         self.quant_mode: str | None = None
         self.vocoder: VocosDecoder | None = None
+        # per-token duration calibration (data/duration_stats.py), fitted on
+        # the training corpus and carried in config.json; None keeps chars·13
+        self.duration_stats: dict[str, Any] | None = None
+
+    def set_duration_stats(self, stats: dict[str, Any] | None) -> None:
+        """Install (or clear) the calibrated ref-free duration table."""
+        if stats is not None and not stats.get("fpc"):
+            stats = None
+        self.duration_stats = stats
 
     @classmethod
     def from_config(cls, config: dict[str, Any] | F5Config, **kwargs: Any) -> "F5TTS":
@@ -582,11 +591,17 @@ class F5TTS:
         return ref_mel, ref_mel.shape[-1], ref_ids
 
     def _target_len(self, text, target_ids, target_duration_s, ref_len, ref_ids, speed) -> int:
-        """Duration cascade: explicit → ref-ratio → chars·13/speed, min 50."""
+        """Duration cascade: explicit → ref-ratio → calibrated table → chars·13/speed, min 50."""
         if target_duration_s is not None:
             return max(1, int(target_duration_s * self.sample_rate / self.hop_length))
         if ref_len > 0 and ref_ids:
             return max(50, int(ref_len * len(target_ids) / len(ref_ids) / speed))
+        if self.duration_stats is not None:
+            from oron_tts_tpu_torch.data.duration_stats import estimate_frames
+
+            est = estimate_frames(target_ids, self.duration_stats, speed)
+            if est is not None:
+                return est
         chars = max(1, len(text.replace(" ", "")))
         return max(50, int(chars * 13 / speed))
 

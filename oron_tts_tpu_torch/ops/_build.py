@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
 ``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
-``flash_bwd.cuh``, the backwards also ``wgmma.cuh``) exposes a plain C
+``flash_bwd.cuh``, and with them ``wgmma.cuh``) exposes a plain C
 interface and becomes its own shared library,
 ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
 root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
@@ -26,12 +26,16 @@ import os
 import shutil
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# -split-compile=0 optimises a source's kernels on every core: the attention
+# libraries hold dozens of template instances each, and build in half the time
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-split-compile=0",
     "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("flash_lanes", "flash_lanes_bwd", "flash_classic", "flash_classic_bwd",
@@ -42,28 +46,31 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _L = ctypes.c_uint32, ctypes.c_longlong
 SIGNATURES = {
     "flash_lanes": {
-        # q, k, v, kv_lens, out, B, T, H, D, is_bf16, stream
-        "flash_lanes_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        # q, k, v, kv_lens, out, lse2 [B, H, T] f32, B, T, H, D, is_bf16, stream
-        "flash_lanes_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, k, v, kv_lens, out, B, T, H, D (a multiple of 8), scale (1/sqrt of
+        # the true width), is_bf16, stream
+        "flash_lanes_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, kv_lens, out, lse2 [B, H, T] f32, B, T, H, D, scale, is_bf16, stream
+        "flash_lanes_fwd_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     },
     "flash_lanes_bwd": {
         # q, k, v, out, dout, lse2, kv_lens, delta (scratch [B, H, T] f32),
-        # dq, dk, dv, B, T, H, D, is_bf16, passes (3; 1 or 2 for one), stream
-        "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _I, _P),
+        # dq, dk, dv, B, T, H, D, scale, is_bf16, passes (3; 1 or 2 for one), stream
+        "flash_lanes_bwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _I, _P),
     },
     "flash_classic": {
-        # q, k, v, kv_lens, out, B, H, T, D, use_exp2, is_bf16, stream
-        "flash_classic_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # q, k, v, kv_lens, out, B, H, T, D, is_bf16, stream
-        "flash_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, k, v, kv_lens, out, B, H, T, D, scale, use_exp2, is_bf16, stream
+        "flash_classic_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+        # q, k, v, kv_lens, out, B, H, T, D, scale, is_bf16, stream
+        "flash_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
         # q, k, v, out, B, H, T, D, is_bf16, stream
         "flash_nosm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # D: blocks of the bf16 forward an SM holds
+        "flash_fwd_blocks_per_sm": (_I,),
     },
     "flash_classic_bwd": {
         # q, k, v, out, dout, kv_lens, lse2 and delta (scratch [B, H, T] f32),
-        # dq, dk, dv, B, H, T, D, is_bf16, passes (3; 1 or 2 for one), stream
-        "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _I, _I, _P),
+        # dq, dk, dv, B, H, T, D, scale, is_bf16, passes (3; 1 or 2 for one), stream
+        "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _I, _P),
     },
     "gelu_dropout": {
         # x, out, n, seed, threshold, inv_keep, is_bf16, stream
@@ -108,9 +115,17 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False) -> dict[str, Path]:
-    """Compile every missing library, all ``nvcc`` processes at once."""
+def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False,
+              logs: dict[str, str] | None = None,
+              seconds: dict[str, float] | None = None) -> dict[str, Path]:
+    """Compile every missing library, all ``nvcc`` processes at once.
+
+    ``verbose`` adds ``-Xptxas=-v`` and prints each compiler log to stderr;
+    ``logs`` and ``seconds``, when given, receive each compiled library's
+    log and the wall seconds its ``nvcc`` took, by name.
+    """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
     todo = {n: _lib_path(n) for n in names}
     procs = {}
     for name, out in todo.items():
@@ -124,12 +139,23 @@ def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False) -> dict[s
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
+
+    def finish(proc):
+        log, _ = proc.communicate()
+        return log, time.perf_counter() - start
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        done = dict(zip(procs, pool.map(finish, (proc for proc, _, _ in procs.values()))))
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        log, took = done[name]
+        if seconds is not None:
+            seconds[name] = took
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        if logs is not None:
+            logs[name] = log
         if verbose and log.strip():
             print(log.strip(), file=sys.stderr)
         os.replace(tmp, out)

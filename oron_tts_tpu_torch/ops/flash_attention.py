@@ -4,12 +4,16 @@
 attention on ``[B, T, H·D]`` tensors, keys at or beyond ``kv_lens[b]``
 masked, exactly as the JAX package's ``flash_attention_lanes`` forward.
 Every kernel of this module takes the head widths :func:`kernel_head_dim_ok`
-admits: multiples of 8 from 8 to 128, run padded to the next multiple of 16
-where they are not one. A width that is not a multiple of 8 raises on CUDA
-tensors: a head's rows would not start on 16-byte boundaries.
+admits: any width from 1 to 128, and up to 256 in the forwards. The kernels
+themselves take multiples of 8 (16-byte rows), so the wrappers zero-pad any
+other width to the next multiple of 8 (per head, inside ``[B, T, H·D]`` for
+the lanes layout), pass the score scale 1/√D of the true width, and slice
+the outputs and gradients back; inside, a width that is not a multiple of 16
+runs padded to the next one. A backward above 128 raises before any launch.
 
-- CUDA tensors launch ``csrc/flash_lanes.cu`` (bf16: ``mma.sync`` tensor
-  cores; f32: true-f32 SIMT), or raise.
+- CUDA tensors launch ``csrc/flash_lanes.cu`` (bf16: ``wgmma`` tensor cores
+  fed by a ``cp.async`` ring, ``csrc/flash_fwd.cuh``; f32: true-f32 SIMT), or
+  raise.
 - CPU tensors take :func:`flash_lanes_plain`.
 
 The kernel replaces ``oron_tts_tpu/ops/flash_attention.py:387``
@@ -50,15 +54,52 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # the TPU kernel's key mask value
 LOG2_E = 1.4426950408889634
-KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
+FWD_MAX_HEAD_DIM = 256  # the forwards' widest head (csrc/flash_fwd.cuh)
+BWD_MAX_HEAD_DIM = 128  # the backwards' (csrc/flash_bwd.cuh)
 
 
-def kernel_head_dim_ok(dim_head: int) -> bool:
-    """Whether the attention kernels take this head width (either dtype)."""
-    return dim_head in KERNEL_HEAD_DIMS
+def kernel_head_dim_ok(dim_head: int, forward_only: bool = False) -> bool:
+    """Whether the attention kernels take this head width (either dtype).
+
+    Every kernel takes 1 to 128; with ``forward_only`` the forwards' 1 to 256.
+    """
+    return 1 <= dim_head <= (FWD_MAX_HEAD_DIM if forward_only else BWD_MAX_HEAD_DIM)
+
+
+def _width(name: str, dim_head: int, forward_only: bool) -> int:
+    """The kernel width for ``dim_head``: the next multiple of 8, or raise."""
+    if not kernel_head_dim_ok(dim_head, forward_only):
+        top = FWD_MAX_HEAD_DIM if forward_only else BWD_MAX_HEAD_DIM
+        raise ValueError(f"{name} takes head widths from 1 to {top}, got {dim_head}")
+    return -(-dim_head // 8) * 8
+
+
+def _pad_lanes(x: torch.Tensor, heads: int, dp: int) -> torch.Tensor:
+    """``[B, T, H·D]`` → ``[B, T, H·dp]``, each head's columns zero-padded to dp."""
+    B, T, HD = x.shape
+    d = HD // heads
+    if d == dp:
+        return x
+    return F.pad(x.reshape(B, T, heads, d), (0, dp - d)).reshape(B, T, heads * dp)
+
+
+def _unpad_lanes(x: torch.Tensor, heads: int, d: int) -> torch.Tensor:
+    B, T, HDp = x.shape
+    if HDp == heads * d:
+        return x
+    return x.reshape(B, T, heads, HDp // heads)[..., :d].reshape(B, T, heads * d)
+
+
+def _pad_last(x: torch.Tensor, dp: int) -> torch.Tensor:
+    return x if x.shape[-1] == dp else F.pad(x, (0, dp - x.shape[-1]))
+
+
+def _unpad_last(x: torch.Tensor, d: int) -> torch.Tensor:
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def flash_lanes_plain(
@@ -141,8 +182,12 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _checked(name, q, k, v, kv_lens, heads):
-    """Validate a CUDA call's arguments; contiguous q, k, v and int32 lens."""
+def _checked(name, q, k, v, kv_lens, heads, forward_only=True):
+    """Validate a CUDA call's arguments.
+
+    Returns q, k, v contiguous and padded to the kernel width dp, int32 lens,
+    the true head width d and dp.
+    """
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, T, HD = q.shape
@@ -150,13 +195,15 @@ def _checked(name, q, k, v, kv_lens, heads):
         raise ValueError("q, k and v must share one [B, T, H·D] shape")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v, got {q.dtype}")
-    if HD % heads or not kernel_head_dim_ok(HD // heads):
-        raise ValueError(f"{name} takes head widths that are multiples of 8 up to 128 "
-                         f"(16-byte rows), got {HD}/{heads}")
+    if HD % heads:
+        raise ValueError(f"{name}: H·D = {HD} is not a multiple of heads = {heads}")
+    d = HD // heads
+    dp = _width(name, d, forward_only)
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (B,):
         raise ValueError(f"kv_lens must be [B]={B}, got {tuple(lens.shape)}")
-    return _dense(q), _dense(k), _dense(v), lens
+    q, k, v = (_dense(_pad_lanes(x, heads, dp)) for x in (q, k, v))
+    return q, k, v, lens, d, dp
 
 
 def flash_lanes_fwd(
@@ -168,18 +215,18 @@ def flash_lanes_fwd(
         return flash_lanes_plain(q, k, v, kv_lens, heads)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked("flash_lanes_fwd", q, k, v, kv_lens, heads)
-    B, T, HD = q.shape
+    q, k, v, lens, d, dp = _checked("flash_lanes_fwd", q, k, v, kv_lens, heads)
+    B, T, _ = q.shape
     out = torch.empty_like(q)
     lib = _build.load("flash_lanes")
     err = lib.flash_lanes_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, T, heads, HD // heads,
+        out.data_ptr(), B, T, heads, dp, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_lanes_fwd")
     flash_lanes_fwd.launches += 1
-    return out
+    return _unpad_lanes(out, heads, d)
 
 
 flash_lanes_fwd.launches = 0
@@ -191,19 +238,19 @@ def flash_lanes_fwd_stats(q, k, v, kv_lens, heads):
         return flash_lanes_fwd_stats_plain(q, k, v, kv_lens, heads)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked("flash_lanes_fwd_stats", q, k, v, kv_lens, heads)
-    B, T, HD = q.shape
+    q, k, v, lens, d, dp = _checked("flash_lanes_fwd_stats", q, k, v, kv_lens, heads)
+    B, T, _ = q.shape
     out = torch.empty_like(q)
     lse2 = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_lanes")
     err = lib.flash_lanes_fwd_stats(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), lse2.data_ptr(), B, T, heads, HD // heads,
+        out.data_ptr(), lse2.data_ptr(), B, T, heads, dp, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_lanes_fwd_stats")
     flash_lanes_fwd_stats.launches += 1
-    return out, lse2
+    return _unpad_lanes(out, heads, d), lse2
 
 
 flash_lanes_fwd_stats.launches = 0
@@ -215,25 +262,28 @@ def flash_lanes_bwd(q, k, v, kv_lens, out, dout, lse2, heads):
         return flash_lanes_bwd_plain(q, k, v, kv_lens, out, dout, lse2, heads)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked("flash_lanes_bwd", q, k, v, kv_lens, heads)
-    B, T, HD = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
+    shape = q.shape
+    q, k, v, lens, d, dp = _checked("flash_lanes_bwd", q, k, v, kv_lens, heads,
+                                    forward_only=False)
+    B, T, _ = q.shape
+    if out.shape != shape or dout.shape != shape or out.dtype != q.dtype:
         raise ValueError("out and dout must match q's shape and dtype")
     if lse2.shape != (B, heads, T) or lse2.dtype != torch.float32:
         raise ValueError(f"lse2 must be f32 [B, H, T], got {tuple(lse2.shape)} {lse2.dtype}")
-    out, dout, lse2 = _dense(out), _dense(dout.to(q.dtype)), lse2.contiguous()
+    out, dout = (_dense(_pad_lanes(x, heads, dp)) for x in (out, dout.to(q.dtype)))
+    lse2 = lse2.contiguous()
     delta = torch.empty_like(lse2)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     lib = _build.load("flash_lanes_bwd")
     err = lib.flash_lanes_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse2.data_ptr(), lens.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, heads, HD // heads,
+        dk.data_ptr(), dv.data_ptr(), B, T, heads, dp, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), 3, _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_lanes_bwd")
     flash_lanes_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(_unpad_lanes(x, heads, d) for x in (dq, dk, dv))
 
 
 flash_lanes_bwd.launches = 0
@@ -300,25 +350,28 @@ def flash_attention_plain(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
     return (acc / l).to(q.dtype)
 
 
-def _checked_classic(name, q, k, v, kv_lens):
-    """Validate a classic CUDA call; contiguous q, k, v and int32 lens (T if None)."""
+def _checked_classic(name, q, k, v, kv_lens, forward_only=True):
+    """Validate a classic CUDA call.
+
+    Returns q, k, v contiguous and padded to the kernel width dp, int32 lens
+    (T if None), the true head width d and dp.
+    """
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must share one [B, H, T, D] shape")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v, got {q.dtype}")
-    B, H, T, D = q.shape
-    if not kernel_head_dim_ok(D):
-        raise ValueError(f"{name} takes head widths that are multiples of 8 up to 128 "
-                         f"(16-byte rows), got {D}")
+    B, H, T, d = q.shape
+    dp = _width(name, d, forward_only)
     if kv_lens is None:
         lens = torch.full((B,), T, dtype=torch.int32, device=q.device)
     else:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (B,):
         raise ValueError(f"kv_lens must be [B]={B}, got {tuple(lens.shape)}")
-    return _dense(q), _dense(k), _dense(v), lens
+    q, k, v = (_dense(_pad_last(x, dp)) for x in (q, k, v))
+    return q, k, v, lens, d, dp
 
 
 def flash_attention(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
@@ -333,16 +386,17 @@ def flash_attention(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
         return flash_attention_plain(q, k, v, kv_lens=kv_lens, use_exp2=use_exp2)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention", q, k, v, kv_lens)
-    B, H, T, D = q.shape
+    q, k, v, lens, d, dp = _checked_classic("flash_attention", q, k, v, kv_lens)
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_classic_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, T, D, int(use_exp2), int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        B, H, T, dp, 1.0 / math.sqrt(d), int(use_exp2), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_classic_fwd")
     flash_attention.launches += 1
-    return out
+    return _unpad_last(out, d)
 
 
 flash_attention.launches = 0
@@ -379,23 +433,25 @@ def flash_attention_bwd(q, k, v, kv_lens, out, dout):
         return flash_attention_bwd_plain(q, k, v, kv_lens, out, dout)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention_bwd", q, k, v, kv_lens)
-    B, H, T, D = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
+    shape = q.shape
+    q, k, v, lens, d, dp = _checked_classic("flash_attention_bwd", q, k, v, kv_lens,
+                                            forward_only=False)
+    B, H, T, _ = q.shape
+    if out.shape != shape or dout.shape != shape or out.dtype != q.dtype:
         raise ValueError("out and dout must match q's shape and dtype")
-    out, dout = _dense(out), _dense(dout.to(q.dtype))
+    out, dout = (_dense(_pad_last(x, dp)) for x in (out, dout.to(q.dtype)))
     lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     err = _build.load("flash_classic_bwd").flash_classic_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lens.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, T, D, int(q.dtype == torch.bfloat16), 3,
+        dv.data_ptr(), B, H, T, dp, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), 3,
         _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_classic_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(_unpad_last(x, d) for x in (dq, dk, dv))
 
 
 flash_attention_bwd.launches = 0
@@ -447,16 +503,17 @@ def flash_attention_packed(q, k, v, kv_lens=None):
         return flash_attention_plain(q, k, v, kv_lens=kv_lens)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, lens = _checked_classic("flash_attention_packed", q, k, v, kv_lens)
-    B, H, T, D = q.shape
+    q, k, v, lens, d, dp = _checked_classic("flash_attention_packed", q, k, v, kv_lens)
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_packed_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, T, D, int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        B, H, T, dp, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_packed_fwd")
     flash_attention_packed.launches += 1
-    return out
+    return _unpad_last(out, d)
 
 
 flash_attention_packed.launches = 0
@@ -476,16 +533,16 @@ def flash_nosm(q, k, v):
         return flash_nosm_plain(q, k, v)
     from oron_tts_tpu_torch.ops import _build
 
-    q, k, v, _ = _checked_classic("flash_nosm", q, k, v, None)
-    B, H, T, D = q.shape
+    q, k, v, _, d, dp = _checked_classic("flash_nosm", q, k, v, None)
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
     err = _build.load("flash_classic").flash_nosm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, dp,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_nosm")
     flash_nosm.launches += 1
-    return out
+    return _unpad_last(out, d)
 
 
 flash_nosm.launches = 0

@@ -66,6 +66,27 @@ def make_lr_schedule(
     return schedule
 
 
+def _optax_adam_state(opt: Any) -> list | None:
+    """``[count, mu, nu]`` of the ``ScaleByAdamState`` in a JAX checkpoint's opt tree.
+
+    The JAX trainer's ``optax.chain(clip_by_global_norm, adamw)`` state is
+    nested tuples of NamedTuples, which ``checkpoint.flatten_tree`` writes
+    under positional ``#i`` keys and ``unflatten_tree`` reads back as lists
+    (empty states leave no entry). The Adam state is the one list of a
+    scalar count and two parameter trees; None when there is none.
+    """
+    if not isinstance(opt, list):
+        return None
+    if (len(opt) == 3 and np.ndim(opt[0]) == 0 and isinstance(opt[1], dict)
+            and isinstance(opt[2], dict)):
+        return opt
+    for node in opt:
+        found = _optax_adam_state(node)
+        if found is not None:
+            return found
+    return None
+
+
 class TrainState:
     """Masters, moments, EMA and counters; lists run parallel to ``names``."""
 
@@ -79,6 +100,11 @@ class TrainState:
         self.count = 0        # optimizer updates applied (drives the schedule)
         self.step = 0
         self.ema_updates = 0
+        # moments just read from a checkpoint: the next update scales mu by b1
+        # in f32, as the JAX trainer's first step after a resume does (its
+        # restored moments are numpy arrays, whose product with b1 is not
+        # rounded to bf16)
+        self.resumed = False
 
 
 @torch.no_grad()
@@ -105,6 +131,7 @@ def guarded_update(
         grad_norm = float(torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads))))
     ok = math.isfinite(grad_norm) and bool(extra_ok)
+    exact_b1, state.resumed = state.resumed, False
     if not ok:
         return grad_norm, False
 
@@ -125,8 +152,8 @@ def guarded_update(
         if clip:
             g = (g / grad_norm) * max_grad_norm
         mu = g * (1.0 - b1)
-        if m.dtype == torch.float32:
-            mu.add_(m * b1)
+        if m.dtype == torch.float32 or exact_b1:
+            mu.add_(m.float() * b1)
         else:
             mu.add_((m * b1_lp).float())
         v.mul_(b2).add_((g * g).mul_(1.0 - b2))
@@ -574,15 +601,24 @@ class F5Trainer:
         fill(st.params, info["params"])
         fill(st.ema, info["ema"] if info.get("ema") is not None else info["params"])
         opt = info.get("opt")
+        adam = _optax_adam_state(opt)
         if isinstance(opt, dict) and "mu" in opt and "nu" in opt:
             fill(st.mu, opt["mu"])
             fill(st.nu, opt["nu"])
             st.count = int(opt.get("count", step))
+            st.resumed = True
+        elif adam is not None:  # the JAX package's optax tree
+            count, mu, nu = adam
+            fill(st.mu, mu)
+            fill(st.nu, nu)
+            st.count = int(count)
+            st.resumed = True
         else:
             if opt is not None:
                 self.logger.warning(
-                    "The checkpoint's optimizer state is not in this package's "
-                    "layout (opt/mu, opt/nu, opt/count); the moments start at zero")
+                    "The checkpoint's optimizer state is in neither this package's "
+                    "layout (opt/mu, opt/nu, opt/count) nor optax's; the moments "
+                    "start at zero")
             for t in st.mu + st.nu:
                 t.zero_()
             st.count = step

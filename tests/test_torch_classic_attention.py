@@ -59,6 +59,9 @@ def _j(a):
     (384, 128, 64, "masked", True),     # the JAX streaming (online softmax) path
     (384, 128, 64, "empty_row", True),
     (384, 128, 32, "unmasked", False),
+    (128, None, 20, "masked", True),    # widths the wrappers zero-pad to 24 and 16
+    (128, None, 12, "empty_row", False),
+    (384, 128, 20, "unmasked", True),
 ])
 def test_flash_attention_plain_matches_jax_kernel(T, block_k, D, kind, use_exp2):
     B, H = 2, 2
@@ -114,7 +117,7 @@ def test_flash_attention_packed_refuses_a_gradient():
 # ── kernel 7: the classic backward ──────────────────────────────────────
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 20, 12])
 def test_flash_attention_gradients_match_jax_grad(D):
     B, H, T = 2, 2, 128
     q, k, v, probe = _qkv((B, H, T, D), seed=10 + D, n=4)
@@ -252,10 +255,11 @@ def _jax_conv_kernel(dim, groups):
 @pytest.mark.parametrize("rule", ["lanes", "classic", "conv"])
 def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
     """Over a grid of (dim, heads) or (dim, groups), the shapes a JAX rule
-    sends to its Pallas kernel are the shapes the port's kernels take, except
-    a head width that is not a multiple of 8: its rows would not start on
-    16-byte boundaries, and the wrappers raise on it (ROADMAP §3). Decided from
-    the shapes alone, so no card is needed."""
+    sends to its Pallas kernel are the shapes the port's kernels take: every
+    head width to 128 in every kernel (one that is not a multiple of 8 is
+    zero-padded by the wrappers), to 256 in the forwards. Wider heads raise,
+    the backward's above 128 (ROADMAP §3, F4). Decided from the shapes alone,
+    so no card is needed."""
     from oron_tts_tpu_torch.ops import grouped_conv as tgc
 
     checked = 0
@@ -287,8 +291,34 @@ def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
             else:  # the JAX classic kernel takes any head width
                 assert tl.resolve_attn_impl(heads, d, attn_impl="flash") == "flash"
             checked += 1
-            assert tfa.kernel_head_dim_ok(d) == (d % 8 == 0 and d <= 128), (dim, heads)
+            assert tfa.kernel_head_dim_ok(d) == (d <= 128), (dim, heads)
+            assert tfa.kernel_head_dim_ok(d, forward_only=True) == (d <= 256), (dim, heads)
     assert checked > 20
+
+
+@pytest.mark.parametrize("D,heads", [(20, 5), (12, 2), (3, 4), (64, 2), (192, 1)])
+def test_padded_width_keeps_the_scores_and_slices_back(D, heads):
+    """What the wrappers hand a kernel at a width that is not a multiple of 8:
+    each head's columns zero-padded to the next multiple of 8 (lanes: inside
+    ``[B, T, H·D]``), so every score q·k is unchanged, and the slice back
+    returns the tensor it padded."""
+    q, k = (_t(x) for x in _qkv((2, 9, heads * D), seed=D, n=2))
+    dp = tfa._width("test", D, forward_only=True)
+    assert dp % 8 == 0 and D <= dp < D + 8
+    qp, kp = (tfa._pad_lanes(x, heads, dp) for x in (q, k))
+    assert qp.shape == (2, 9, heads * dp)
+    assert torch.equal(tfa._unpad_lanes(qp, heads, D), q)
+    per_head = qp.view(2, 9, heads, dp)
+    assert not per_head[..., D:].any()
+    s = torch.einsum("bthd,bshd->bhts", q.view(2, 9, heads, D), k.view(2, 9, heads, D))
+    sp = torch.einsum("bthd,bshd->bhts", per_head, kp.view(2, 9, heads, dp))
+    torch.testing.assert_close(sp, s, rtol=1e-6, atol=1e-6)
+    qc = q.view(2, 9, heads, D).transpose(1, 2)
+    assert torch.equal(tfa._unpad_last(tfa._pad_last(qc, dp), D), qc)
+    with pytest.raises(ValueError, match="from 1 to 128"):
+        tfa._width("flash_attention_bwd", 136, forward_only=False)
+    with pytest.raises(ValueError, match="from 1 to 256"):
+        tfa._width("flash_attention", 264, forward_only=True)
 
 
 # ── the bench entry point ───────────────────────────────────────────────

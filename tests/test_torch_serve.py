@@ -557,11 +557,15 @@ def test_serve_and_infer_refuse_what_is_not_ported(checkpoint_dir, tmp_path, mon
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             infer_main(["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--text", "x",
                         "--vocoder", vocoder])
+    # a calibrated duration table in config.json is read, no longer refused
     stats_dir = tmp_path / "stats"
     stats_dir.mkdir()
-    (stats_dir / "config.json").write_text(json.dumps({"duration_stats": {"mn": [1.0]}}))
-    with pytest.raises(NotImplementedError, match="duration_stats"):
-        load_model(str(stats_dir), device="cpu")
+    table = {"fpc": [9.5] * 65, "global": 9.5, "n": 8}
+    config = json.loads((checkpoint_dir / "config.json").read_text())
+    (stats_dir / "config.json").write_text(json.dumps({**config, "duration_stats": table}))
+    name = "f5tts_step_00000007.npz"
+    (stats_dir / name).write_bytes((checkpoint_dir / name).read_bytes())
+    assert load_model(str(stats_dir), device="cpu").duration_stats == table
     # without a card and without --device cpu both CLIs raise before any work
     import torch
 

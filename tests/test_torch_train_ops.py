@@ -58,14 +58,16 @@ def _lse_to_port_layout(lse, heads):
 
 
 # the other head widths the JAX lanes rule admits (layers.py:489-492): D = 16
-# and 128 with H·D a multiple of 128, and 3 heads of 40 (H·D <= 128); the
-# first two cases are the D = 64 ones
+# and 128 with H·D a multiple of 128, and 3 heads of 40, 5 of 20 and 2 of 12
+# (H·D <= 128); the first two cases are the D = 64 ones
 WIDTH_CASES = [
     pytest.param(128, 2, [128, 91], 64, id="128-2-lens0"),
     pytest.param(256, 4, [256, 1], 64, id="256-4-lens1"),
     pytest.param(128, 8, [128, 77], 16, id="d16-h8"),
     pytest.param(128, 2, [128, 77], 128, id="d128-h2"),
     pytest.param(128, 3, [128, 77], 40, id="d40-h3"),
+    pytest.param(128, 5, [128, 77], 20, id="d20-h5"),   # zero-padded to 24 on the card
+    pytest.param(128, 2, [128, 77], 12, id="d12-h2"),   # ... and to 16
 ]
 
 

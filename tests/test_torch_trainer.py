@@ -528,10 +528,83 @@ def test_jax_checkpoint_is_read_by_the_port(tmp_path):
     assert (trainer.global_step, trainer.epoch, trainer._best_val) == (7, 3, 0.5)
     _assert_trees_equal(trainer._flax_tree(trainer.state.params), params)
     _assert_trees_equal(trainer._flax_tree(trainer.state.ema), ema)
-    # optax's opt tree is not read: the moments start at zero, the schedule at the step
-    assert not any(m.any() for m in trainer.state.mu) and trainer.state.count == 7
+    # optax's opt tree is read: its initial moments are zero and its count 0
+    assert not any(m.any() for m in trainer.state.mu) and trainer.state.count == 0
     for w, p in zip(trainer.work, trainer.state.params):
         assert torch.equal(w.detach(), p)
+
+
+def test_jax_trainer_checkpoint_resumes_with_its_optimizer_state(tmp_path):
+    """The JAX trainer writes a checkpoint after two steps; both packages resume
+    it and take one step on the same batch and noise (the deterministic loss,
+    ``x0`` injected). Both losses agree; the JAX gradients go into both
+    optimizers, so what is compared is the resumed state and the update. The
+    port reads optax's Adam moments and count from the checkpoint's positional
+    ``opt/#i`` tree, so moments, count and parameters agree with the JAX
+    trainer's to 1e-5 of each tensor's largest value, bf16 first moments also
+    within one bf16 rounding of the value."""
+    from oron_tts_tpu.config import F5Config as JF5Config
+    from oron_tts_tpu.models.f5tts import F5TTS as JF5TTS
+
+    rng = np.random.default_rng(3)
+    B, T = 2, 64
+    batch = {"mel": rng.standard_normal((B, 100, T)).astype(np.float32),
+             "text_ids": rng.integers(0, 60, (B, T)).astype(np.int32),
+             "mel_lengths": np.asarray([T, T - 21], np.int32)}
+    batch["text_ids"][1, T - 21:] = -1
+    x0 = rng.standard_normal((B, T, 100)).astype(np.float32)
+
+    def jax_trainer(tag):
+        model = JF5TTS(JF5Config.from_dict(TINY_CFG))
+        model.variables = {"params": jax.tree_util.tree_map(jnp.asarray, tiny_trainer_params())}
+        return jtrainer.F5Trainer(config=dict(TINY_CFG), model=model, train_loader=[batch, batch],
+                                  log_dir=str(tmp_path / f"jlogs{tag}"),
+                                  checkpoint_dir=str(tmp_path / "ckpt"))
+
+    writer = jax_trainer("w")
+    for i in range(2):
+        key = jax.random.PRNGKey(i)
+        writer.state, _ = writer._get_train_step(batch, key)(writer.state, batch, key)
+    writer.global_step = 2
+    writer.save_checkpoint()
+
+    reader = jax_trainer("r")
+    reader.load_checkpoint()
+
+    def j_loss(params):
+        return reader.model.cfm.loss(
+            {"params": params}, jnp.asarray(batch["mel"]), jnp.asarray(batch["text_ids"]),
+            jnp.asarray(batch["mel_lengths"]), jax.random.PRNGKey(0), train=False,
+            x0=jnp.asarray(x0))
+
+    j_val, j_grads = jax.value_and_grad(j_loss)(reader.state.params)
+    jstate, _, j_ok = jtrainer._guarded_update(reader.state, j_grads, reader.tx,
+                                               reader.ema_decay)
+
+    trainer = _trainer(tmp_path, tag="p")
+    trainer.load_checkpoint()
+    st = trainer.state
+    assert st.count == 2 and any(m.any() for m in st.mu)
+    b = trainer._to_device(batch)
+    with torch.no_grad():
+        loss = trainer.model.cfm.loss(b["mel"], b["text_ids"], b["mel_lengths"], train=False,
+                                      x0=torch.from_numpy(x0))
+    np.testing.assert_allclose(loss.item(), float(j_val), rtol=1e-5)
+    g = from_flax_params(jax.device_get(j_grads))
+    assert trainer._apply([g[n].clone() for n in st.names], loss)["ok"] and bool(j_ok)
+
+    adam = jstate.opt_state[1][0]
+    assert st.count == int(adam.count) == 3
+    for got, ref, what in ((st.params, jstate.params, "params"), (st.nu, adam.nu, "nu"),
+                           (st.mu, adam.mu, "mu")):
+        ref = from_flax_params(jax.device_get(ref))
+        for name, a in zip(st.names, got):
+            r = ref[name].float()
+            err = (a.float() - r).abs()
+            tol = 1e-5 * float(r.abs().max())
+            if what == "mu":
+                tol = tol + torch.from_numpy(_bf16_ulp(r.numpy()))
+            assert bool((err <= tol).all()), (what, name, float(err.max()))
 
 
 @pytest.mark.parametrize("source", ["tiny_jax_init", "seeded_port"])
