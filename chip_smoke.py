@@ -11,10 +11,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build: ``nvcc`` builds every kernel of ``oron_tts_tpu_torch/csrc`` into
    ``build/torch_kernels/`` (one process per source, in parallel, each
    timed); where ``cuobjdump`` is found, the count of HGMMA (wgmma)
-   instructions in each attention library's SASS (the two forward and the
-   two backward ones, each must hold some); the bf16 forward body's
+   instructions in the SASS of each attention library and of the w8a16 one
+   (each must hold some, and the w8a16 one no HMMA); the bf16 forward body's
    registers, spills and blocks an SM at each template width, with the
-   shared memory a block asks for.
+   shared memory a block asks for; the w8a16 kernel's registers, spills,
+   wgmma serialisation and blocks an SM at each tile.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
    library call's where one computes the same function, and its bound
@@ -28,15 +29,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and lanes) also at small shapes at every template width of the forward
    body, 16 to 256, and at head widths 20, 12 and 40, which the wrappers
    zero-pad (f32 and bf16, a ``kv_len = 0`` row, odd H); the classic
-   backward at every width of its body, 16 to 128, and at 40, 20 and 12,
-   the lanes one at 12 to 128 (with 2, 3, 5, 8 and 16 heads, a
-   ``kv_len = 0`` row's gradients exactly zero), and a backward at head width
-   192 refused before any launch; the grouped conv at group widths 4, 8, 16,
-   32 and 128.
+   backward at every width of its body to 128, at 40, 20 and 12, and in its
+   wide variant at 136, 192 and 256 (also timed at 2,048 frames, heads of 192
+   and 256), the lanes one at 12 to 128 (with 2, 3, 5, 8 and 16 heads, a
+   ``kv_len = 0`` row's gradients exactly zero), and a classic backward at
+   head width 264 and a lanes one at 136 refused before any launch; the
+   w8a16 kernel at ragged shapes and at the Base and Small projections for
+   M = 1,664 to 13,312, timed one call at a time and from a CUDA graph
+   beside bf16 ``F.linear``, its bias in the epilogue bit-equal to a
+   separate add and two calls bit-equal, and ``QDense`` (int8) launching it
+   alone; the grouped conv at group widths 4, 8, 16, 32 and 128.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
-   weights, batch and generator seed: loss, gradient norm and update agree.
+   weights, batch and generator seed, with heads of 64 and of 192: loss,
+   gradient norm and update agree.
 5. slice: ``F5TTS.synthesize`` at the Base width in bf16 with seeded DiT
    weights and the bundled vocoder, ref-free and voice-cloned, 32 steps,
    CFG 2; launch counts are zeroed just before each and read just after.
@@ -63,7 +70,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     /synthesize_stream of three chunks (held against /synthesize; time to
     first audio), a 429 from a full queue and a drain. The int8 server's
     launch counts are zeroed before its requests and read after them, and
-    one merged solve of each server is traced by ``torch.profiler``.
+    one merged solve of each server is traced by ``torch.profiler``; then
+    int8 against bf16 on that solve (per-row time, kernel 9's device time).
 11. classic: the Base DiT rebuilt with ``attn_impl`` "flash" and "packed"
     from the seeded tree: ``CFM.sample`` + the vocoder under ``bench.py``'s
     protocol (120 letters, 1,560 frames, bucket 1,600, 32 steps, CFG 2) with
@@ -79,10 +87,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``cli.train`` epochs on ``configs/test.yaml`` (head width 32 through the
     lanes kernels, the conv through ``F.conv1d``), and two ``F5Trainer``
     steps in bf16 on that config with dim 128 and one head (head width 128
-    through the lanes kernels, the conv kernel at group width 8), and one
-    synthesis of that config with dim 128 and a DiT of 5 heads of width 20
-    (seeded weights; the lanes kernels with each head padded to 24), all on
-    the card.
+    through the lanes kernels, the conv kernel at group width 8), two more
+    with dim 384 and two heads of 192 (the classic "flash" kernels, the
+    backward's wide variant), and one synthesis of that config with dim 128
+    and a DiT of 5 heads of width 20 (seeded weights; the lanes kernels with
+    each head padded to 24), all on the card.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -247,11 +256,13 @@ def bit_identical(first, second) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-ATTN_LIBS = ("flash_lanes", "flash_classic", "flash_lanes_bwd", "flash_classic_bwd")
+WGMMA_LIBS = ("flash_lanes", "flash_classic", "flash_lanes_bwd", "flash_classic_bwd", "qmm")
 
 
 def hgmma_counts(libs: dict) -> dict:
-    """HGMMA (wgmma) instructions in each attention library's SASS, by kernel."""
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
+    library built on wgmma, by kernel. Each must hold some HGMMA; the w8a16
+    library must hold no HMMA (its bf16 path is wgmma alone)."""
     import os
     import shutil
 
@@ -259,7 +270,7 @@ def hgmma_counts(libs: dict) -> dict:
     if not os.path.exists(tool):
         return {"cuobjdump": "not found"}
     counts = {}
-    for name in ATTN_LIBS:
+    for name in WGMMA_LIBS:
         run = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True)
         if run.returncode != 0:
             counts[name] = "cuobjdump failed: " + run.stderr.strip()[:200]
@@ -269,10 +280,48 @@ def hgmma_counts(libs: dict) -> dict:
             n = chunk.count("HGMMA")
             if n:
                 per_fn[chunk.split("\n", 1)[0].strip()[:70]] = n
-        counts[name] = {"total": sum(per_fn.values()), "by_kernel": per_fn}
+        hmma = sum(1 for line in sass.splitlines() if "HMMA." in line)
+        counts[name] = {"total": sum(per_fn.values()), "hmma": hmma, "by_kernel": per_fn}
         if not per_fn:
             raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
+        if name == "qmm" and hmma:
+            raise AssertionError(f"qmm: {hmma} HMMA (mma.sync) instructions remain in its SASS")
     return counts
+
+
+def qmm_build(log: str) -> dict:
+    """Registers, spills and ptxas's wgmma serialisation notes of the w8a16
+    kernel at each tile (``-Xptxas -v`` of ``qmm``), and the blocks an SM holds
+    (the occupancy API)."""
+    import re
+
+    from oron_tts_tpu_torch.ops import _build
+    from oron_tts_tpu_torch.ops.quantized_matmul import QMM_TILES
+
+    tiles, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"qmm_wgmmaILi(\d+)E", line)
+        if m:
+            current = tiles.setdefault(int(m.group(1)), {"wgmma_serialised": False})
+            if "C7512" in line or "serialized" in line:
+                current["wgmma_serialised"] = True
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    lib = _build.load("qmm")
+    for bm in QMM_TILES:
+        row = tiles.setdefault(bm, {})
+        row["blocks_per_sm"] = lib.qmm_blocks_per_sm(bm)
+        if row["blocks_per_sm"] < 1:
+            raise AssertionError(f"the w8a16 kernel at tile {bm} fits no SM: {row}")
+    return {str(k): tiles[k] for k in sorted(tiles)}
 
 
 def forward_build(log: str) -> dict:
@@ -773,10 +822,10 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
             report(nosm_row(q, k, v))
 
     # kernel 7 at small shapes, the kv_len = 0 row's gradients non-zero: every
-    # template width of the backward body (16 to 128), 40 padded to 48 (R4),
-    # 20 and 12 (F3)
+    # template width of the backward body to 128, 40 padded to 48 (R4), 20 and
+    # 12 (F3), and the wide variant at 136, 192 and 256 (F4)
     for dtype in (f32, bf16):
-        for D in (16, 32, 48, 64, 80, 96, 112, 128, 40, 20, 12):
+        for D in (16, 32, 48, 64, 80, 96, 112, 128, 40, 20, 12, 136, 192, 256):
             q, k, v, do = qkv((2, 4, 200, D), dtype, 4)
             lens = lens_of([137, 0])
             out = flash_attention(q, k, v, kv_lens=lens)
@@ -879,6 +928,43 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     del q, k, v, do, out
     torch.cuda.empty_cache()
 
+    # F4: the wide variant at the training shape's 2,048 frames, heads of 192
+    # and 256 (5 and 4 heads: the Base width's 1,024 columns or just under)
+    for D, Hw in ((192, 5), (256, 4)):
+        q, k, v, do = qkv((B, Hw, T, D), bf16, 4)
+        out = flash_attention(q, k, v, kv_lens=lens)
+        got = flash_attention_bwd(q, k, v, lens, out, do)
+        same_bits = bit_identical(got, flash_attention_bwd(q, k, v, lens, out, do))
+        refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), lens, out.float(),
+                                         do.float())
+        errs = grad_errors(got, refs, 1e-2)
+        del got, refs
+        b_ms, b_by = bound_ms(10.0 * T * D * Hw * kept, H100_BF16_FLOPS,
+                              8 * q.numel() * 2 + lens.numel() * 4)
+        row = {"phase": "kernel_wide", "name": "flash_attention_bwd", "dtype": str(bf16),
+               "shape": [B, Hw, T, D], "kept_keys": kept, **errs,
+               "bit_identical_twice": same_bits,
+               "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, lens, out, do), iters=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               **backward_passes(torch, "classic", q, k, v, lens, out, do)}
+        qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+        try:
+            with sdpa_kernel([getattr(SDPBackend, best)]):
+                lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (qs, ks, vs), do, retain_graph=True), iters=5)
+            row["library"] = "autograd backward of SDPA " + best
+            del lib_out
+        except RuntimeError as exc:  # a yardstick only: the port never calls SDPA
+            row["library_ms"], row["library"] = None, f"SDPA {best} refused: {exc}"[:120]
+        del qs, ks, vs
+        emit(row)
+        if not (errs["max_rel_err"] <= 1e-2 and same_bits):
+            raise AssertionError(f"flash_attention_bwd at D = {D}: {errs}, two calls equal "
+                                 f"{same_bits}")
+        del q, k, v, do, out
+        torch.cuda.empty_cache()
+
     # kernels 1 and 4 at every template width of the forward body and at 20
     # and 12 (padded to 24 and 16, F3), f32 and bf16; a kv_len = 0 row
     for dtype in (f32, bf16):
@@ -930,23 +1016,26 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
             raise AssertionError(f"lanes kernels at D = {D}: stats output {same}, two backward "
                                  f"calls equal {same_bits}, kv_len = 0 row zero {empty_zero}")
 
-    # F4's open half: a backward wider than 128 raises before any launch
+    # the widest heads: a classic backward at 264 and a lanes backward at 136
+    # (the lanes rule admits no head over 128) raise before any launch
     counts = (flash_lanes_bwd.launches, flash_attention_bwd.launches)
     refused = []
     for name, call in (
         ("flash_lanes_bwd", lambda: flash_lanes_bwd(
-            *qkv((1, 64, 192), bf16), lens_of([64]), *qkv((1, 64, 192), bf16, 2),
+            *qkv((1, 64, 136), bf16), lens_of([64]), *qkv((1, 64, 136), bf16, 2),
             torch.zeros(1, 1, 64, device=dev), 1)),
         ("flash_attention_bwd", lambda: flash_attention_bwd(
-            *qkv((1, 2, 64, 192), bf16), lens_of([64]), *qkv((1, 2, 64, 192), bf16, 2))),
+            *qkv((1, 2, 64, 264), bf16), lens_of([64]), *qkv((1, 2, 64, 264), bf16, 2))),
     ):
         try:
             call()
         except ValueError as exc:
             refused.append(f"{name}: {exc}"[:120])
-    emit({"phase": "kernel_refusals", "head_dim": 192, "refused": refused})
+    emit({"phase": "kernel_refusals", "head_dims": {"flash_lanes_bwd": 136,
+                                                    "flash_attention_bwd": 264},
+          "refused": refused})
     if len(refused) != 2 or counts != (flash_lanes_bwd.launches, flash_attention_bwd.launches):
-        raise AssertionError(f"a backward at head width 192 was not refused before launch: "
+        raise AssertionError(f"a backward wider than its kernel was not refused before launch: "
                              f"{refused}")
 
     # repairs: the grouped conv at group widths 16, 32 (the Small config) and
@@ -1003,53 +1092,69 @@ def check_reference(torch) -> None:
 def check_train_reference(torch) -> None:
     """One training step of a small f32 model: card (kernels) vs CPU (plain).
 
-    Same seeded weights, batch and generator seed, so the same spans, times,
-    noise and dropout masks. Tolerances: loss 1e-4 and gradient norm 1e-3
-    relative (f32 sums in another order); the update (new − old parameters)
-    1e-2 in relative L2 norm. Adam's first step is g/(|g| + 1e-8), which
-    amplifies a difference of 1e-7 in a gradient near zero to the size of
-    the step, so single elements may differ while the update as a whole
-    agrees.
+    Twice: heads of 64 (the lanes kernels) and two heads of 192 (dim 384:
+    the lanes rule sends them to the classic "flash" kernels, and on the card
+    the classic backward runs its wide variant, F4). Same seeded weights,
+    batch and generator seed, so the same spans, times, noise and dropout
+    masks. Tolerances: loss 1e-4 and gradient norm 1e-3 relative (f32 sums in
+    another order); the update (new − old parameters) 1e-2 in relative L2
+    norm. Adam's first step is g/(|g| + 1e-8), which amplifies a difference
+    of 1e-7 in a gradient near zero to the size of the step, so single
+    elements may differ while the update as a whole agrees.
     """
     import numpy as np
 
     from oron_tts_tpu_torch.config import F5Config, ModelConfig
     from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_lanes_bwd
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
-    mcfg = ModelConfig(dim=256, depth=2, heads=4, text_dim=64, conv_layers=1, p_dropout=0.1)
-    params = seeded_dit_params(mcfg, seed=3)
-    rng = np.random.default_rng(4)
-    batch = {
-        "mel": rng.standard_normal((2, 100, 192)).astype(np.float32),
-        "text_ids": rng.integers(0, 60, (2, 192)).astype(np.int32),
-        "mel_lengths": np.asarray([192, 150], np.int32),
-    }
-    cfg = {"learning_rate": 1e-3, "warmup_steps": 0, "num_epochs": 1, "use_tqdm": False}
-    results = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for device in ("cuda", "cpu"):
-            model = F5TTS(F5Config(model=mcfg), device=device, dtype=torch.float32)
-            model.load_params(params)
-            trainer = F5Trainer(cfg, model, [batch], log_dir=f"{tmp}/{device}/logs",
-                                checkpoint_dir=f"{tmp}/{device}/ckpt")
-            before = [p.cpu().clone() for p in trainer.state.params]
-            m = trainer.train_step(batch, torch.Generator().manual_seed(11))
-            update = torch.cat([(p.cpu() - b).flatten()
-                                for p, b in zip(trainer.state.params, before)])
-            results.append((m, update))
-    (m_gpu, u_gpu), (m_cpu, u_cpu) = results
-    loss_err = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
-    norm_err = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
-    upd_err = ((u_gpu - u_cpu).norm() / u_cpu.norm()).item()
-    emit({"phase": "reference_train", "loss": m_gpu["loss"], "loss_rel_err": loss_err,
-          "loss_tol": 1e-4, "grad_norm": m_gpu["grad_norm"], "grad_norm_rel_err": norm_err,
-          "grad_norm_tol": 1e-3, "update_rel_l2_err": upd_err, "update_tol": 1e-2,
-          "update_l2": u_cpu.norm().item(), "ok": [m_gpu["ok"], m_cpu["ok"]]})
-    if not (m_gpu["ok"] and m_cpu["ok"] and loss_err <= 1e-4 and norm_err <= 1e-3
-            and upd_err <= 1e-2 and u_cpu.norm().item() > 0):
-        raise AssertionError("card and CPU disagree on one training step of the small model")
+    for dim, heads in ((256, 4), (384, 2)):
+        mcfg = ModelConfig(dim=dim, depth=2, heads=heads, text_dim=64, conv_layers=1,
+                           p_dropout=0.1)
+        params = seeded_dit_params(mcfg, seed=3)
+        rng = np.random.default_rng(4)
+        batch = {
+            "mel": rng.standard_normal((2, 100, 192)).astype(np.float32),
+            "text_ids": rng.integers(0, 60, (2, 192)).astype(np.int32),
+            "mel_lengths": np.asarray([192, 150], np.int32),
+        }
+        cfg = {"learning_rate": 1e-3, "warmup_steps": 0, "num_epochs": 1, "use_tqdm": False}
+        results = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for device in ("cuda", "cpu"):
+                model = F5TTS(F5Config(model=mcfg), device=device, dtype=torch.float32)
+                model.load_params(params)
+                impl = model.backbone.attn_impl
+                trainer = F5Trainer(cfg, model, [batch], log_dir=f"{tmp}/{device}/logs",
+                                    checkpoint_dir=f"{tmp}/{device}/ckpt")
+                before = [p.cpu().clone() for p in trainer.state.params]
+                bwd = (flash_lanes_bwd.launches, flash_attention_bwd.launches)
+                m = trainer.train_step(batch, torch.Generator().manual_seed(11))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    bwd = (flash_lanes_bwd.launches - bwd[0], flash_attention_bwd.launches - bwd[1])
+                    card_bwd = dict(zip(("flash_lanes_bwd", "flash_attention_bwd"), bwd))
+                update = torch.cat([(p.cpu() - b).flatten()
+                                    for p, b in zip(trainer.state.params, before)])
+                results.append((m, update))
+        (m_gpu, u_gpu), (m_cpu, u_cpu) = results
+        loss_err = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+        norm_err = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
+        upd_err = ((u_gpu - u_cpu).norm() / u_cpu.norm()).item()
+        emit({"phase": "reference_train", "dim": dim, "head_dim": dim // heads,
+              "attn_impl": impl, "backward_launches_on_card": card_bwd,
+              "loss": m_gpu["loss"], "loss_rel_err": loss_err,
+              "loss_tol": 1e-4, "grad_norm": m_gpu["grad_norm"], "grad_norm_rel_err": norm_err,
+              "grad_norm_tol": 1e-3, "update_rel_l2_err": upd_err, "update_tol": 1e-2,
+              "update_l2": u_cpu.norm().item(), "ok": [m_gpu["ok"], m_cpu["ok"]]})
+        want = "flash_attention_bwd" if dim // heads > 128 else "flash_lanes_bwd"
+        if not (m_gpu["ok"] and m_cpu["ok"] and loss_err <= 1e-4 and norm_err <= 1e-3
+                and upd_err <= 1e-2 and u_cpu.norm().item() > 0 and card_bwd[want] == 2):
+            raise AssertionError(f"card and CPU disagree on one training step of the small "
+                                 f"model at head width {dim // heads} (backward launches "
+                                 f"{card_bwd})")
 
 
 # the lanes and classic attention kernels share their device bodies
@@ -1297,7 +1402,10 @@ def run_train(torch, smi: str) -> dict[str, int]:
 
 
 QMM_SRC = "oron_tts_tpu_torch/csrc/qmm.cu"
-BASE_PROJECTIONS = ((1024, 1024, 4), (1024, 4096, 1), (4096, 1024, 1))  # (K, N, per block)
+# (K, N, per block) of a DiT block's six int8 projections: q, k, v, out, ff1, ff2
+BASE_PROJECTIONS = ((1024, 1024, 4), (1024, 4096, 1), (4096, 1024, 1))
+SMALL_PROJECTIONS = ((512, 512, 4), (512, 2048, 1), (2048, 512, 1))  # configs/local.yaml
+QMM_M = (1664, 6144, 13312)  # one request's 2 x 832 rows; a middle batch; eight merged
 
 
 def check_qmm(torch, F, report) -> list[dict]:
@@ -1307,11 +1415,18 @@ def check_qmm(torch, F, report) -> list[dict]:
     rounded. f32: 1e-5 of the largest output (sums of up to 4,096 products in
     another order). bf16: the kernel also sums in f32 and rounds once, at its
     output, so it may be off by that rounding, half a bf16 step (2^-8 of
-    the value), beyond the f32 bound.
+    the value), beyond the f32 bound. Every case also runs with a bias in the
+    epilogue, which must equal the product without it plus a separate add in
+    x's type, bit for bit, and twice, which must give identical bits.
     """
+    from torch.profiler import ProfilerActivity, profile
+
+    from oron_tts_tpu_torch.models.layers import QDense
     from oron_tts_tpu_torch.ops.quantized_matmul import (
+        QMM_TILES,
         dequantize_weight,
         int8_product,
+        qmm_plan,
         quantize_activations,
         quantize_weight,
         quantized_matmul,
@@ -1329,7 +1444,11 @@ def check_qmm(torch, F, report) -> list[dict]:
         if zero_col:
             w[n // 2] = 0.0  # an all-zero output channel: its scale is 1
         w_q, scale = quantize_weight(w)
+        bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
         out = quantized_matmul(x, w_q, scale)
+        fused = quantized_matmul(x, w_q, scale, bias)
+        same_bias = torch.equal(fused, out + bias)
+        twice = torch.equal(quantized_matmul(x, w_q, scale, bias), fused)
         ref = quantized_matmul_plain(x.float(), w_q, scale)
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
@@ -1339,57 +1458,122 @@ def check_qmm(torch, F, report) -> list[dict]:
         else:
             excess = diff.max().item()
         row = {"name": "quantized_matmul", "dtype": str(dtype), "shape": [m, k, n],
+               "plan": list(qmm_plan(m, k, n)) if dtype == torch.bfloat16 else None,
                "max_abs_err": diff.max().item(), "max_excess": excess, "tol": 1e-5 * top,
-               "tol_on": "max_excess", "ref_max": top}
+               "tol_on": "max_excess", "ref_max": top, "bias_bit_equal": same_bias,
+               "bit_identical_twice": twice}
         if zero_col and not (scale[n // 2].item() == 1.0
                              and out[:, n // 2].abs().max().item() == 0.0):
             raise AssertionError("quantized_matmul: a zero channel must stay exactly zero")
         if timed:
             w_bf = w.to(dtype)
-            deq = dequantize_weight(w_q, scale, dtype)
             b_ms, b_by = bound_ms(2.0 * m * k * n, H100_BF16_FLOPS,
-                                  m * k * 2 + n * k + n * 4 + m * n * 2)
+                                  m * k * 2 + n * k + n * 4 + n * 2 + m * n * 2)
             row.update(
-                ms=cuda_ms(lambda: quantized_matmul(x, w_q, scale)),
-                plain_ms=cuda_ms(lambda: quantized_matmul_plain(x, w_q, scale), iters=5),
-                library_ms=cuda_ms(lambda: torch.matmul(
-                    x, dequantize_weight(w_q, scale, dtype).t())),
-                library="dequantize to bf16 + torch.matmul",
-                library_matmul_only_ms=cuda_ms(lambda: torch.matmul(x, deq.t())),
-                linear_bf16_ms=cuda_ms(lambda: F.linear(x, w_bf)),
+                ms=cuda_ms(lambda: quantized_matmul(x, w_q, scale, bias)),
+                graph_ms=cuda_graph_ms(lambda: quantized_matmul(x, w_q, scale, bias)),
+                plain_ms=cuda_ms(lambda: quantized_matmul_plain(x, w_q, scale, bias), iters=5),
+                library_ms=cuda_ms(lambda: F.linear(x, dequantize_weight(w_q, scale, dtype),
+                                                    bias)),
+                library="dequantize to bf16 + F.linear",
+                library_graph_ms=cuda_graph_ms(
+                    lambda: F.linear(x, dequantize_weight(w_q, scale, dtype), bias)),
+                linear_bf16_ms=cuda_ms(lambda: F.linear(x, w_bf, bias)),
+                linear_bf16_graph_ms=cuda_graph_ms(lambda: F.linear(x, w_bf, bias)),
                 bound_ms=b_ms, bound_by=b_by)
-            row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
+            row["tflops_graph"] = 2.0 * m * k * n / row["graph_ms"] / 1e9
         emit({"phase": "kernel", **row})
-        if not excess <= row["tol"]:
-            raise AssertionError(f"quantized_matmul {dtype} [{m},{k},{n}] off by {excess} "
-                                 f"beyond its tolerance {row['tol']}")
+        if not (excess <= row["tol"] and same_bias and twice):
+            raise AssertionError(f"quantized_matmul {dtype} [{m},{k},{n}]: off by {excess} "
+                                 f"beyond its tolerance {row['tol']}, fused bias equal "
+                                 f"{same_bias}, two calls equal {twice}")
         return row
 
-    # ragged edges: M = 1 and 13, N = 40, K = 96, a zero channel
+    # ragged edges: M = 1 and 13, N = 40 and 136 (element stores), K = 96;
+    # grids of a few blocks (M = 13 and 200); odd counts of k tiles (K = 1,088:
+    # 17); a zero channel in each
     for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n in ((1, 96, 40), (13, 96, 40), (13, 1024, 1024), (200, 4096, 136)):
+        for m, k, n in ((1, 96, 40), (13, 96, 40), (13, 1024, 1024), (200, 4096, 136),
+                        (300, 1024, 200), (1664, 1088, 1024)):
             case(m, k, n, dtype, zero_col=True)
-    timed = {}
     for k, n, _ in BASE_PROJECTIONS:
-        for m in (1664, 6144):
-            case(m, k, n, torch.float32)
-            timed[m, k, n] = case(m, k, n, torch.bfloat16, timed=True)
+        case(1664, k, n, torch.float32)
+    timed = {}
+    for widths, projections, ms in (("base", BASE_PROJECTIONS, QMM_M),
+                                    ("small", SMALL_PROJECTIONS, (1664, 13312))):
+        for k, n, _ in projections:
+            for m in ms:
+                timed[widths, m, k, n] = case(m, k, n, torch.bfloat16, timed=True)
 
-    # the row of the kernel table: the six projections of one block at
-    # M = 1,664 (2 CFG rows x bucket 832), times and bounds summed
-    block = [(timed[1664, k, n], count) for k, n, count in BASE_PROJECTIONS]
-    row = {"name": "quantized_matmul", "dtype": "torch.bfloat16",
-           "shape": "one block's six projections, M=1664",
-           "max_abs_err": max(r["max_abs_err"] for r, _ in block),
-           "bound_by": "operations", "route": "cuda", "source": QMM_SRC,
-           "replaces": "oron_tts_tpu/ops/quantized_matmul.py:55",
-           "library": "dequantize to bf16 + torch.matmul"}
-    for key in ("ms", "plain_ms", "library_ms", "library_matmul_only_ms", "linear_bf16_ms",
-                "bound_ms"):
-        row[key] = sum(r[key] * count for r, count in block)
-    if any(r["bound_by"] != "operations" for r, _ in block):
-        raise AssertionError("a Base projection at M=1664 is not bound by operations")
-    emit({"phase": "kernel_block", **row})
+    # the rows of the kernel table: the six projections of one block, times
+    # and bounds summed, at M = 1,664 (one request; this is the table's row)
+    # and at 13,312 (a merged solve of eight), Base widths
+    rows = []
+    for m in (1664, 13312):
+        block = [(timed["base", m, k, n], count) for k, n, count in BASE_PROJECTIONS]
+        row = {"name": "quantized_matmul", "dtype": "torch.bfloat16",
+               "shape": f"one block's six projections, M={m}",
+               "max_abs_err": max(r["max_abs_err"] for r, _ in block),
+               "bound_by": "operations", "route": "cuda", "source": QMM_SRC,
+               "replaces": "oron_tts_tpu/ops/quantized_matmul.py:55",
+               "library": "dequantize to bf16 + F.linear", "plans": [r["plan"] for r, _ in block]}
+        for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                    "linear_bf16_ms", "linear_bf16_graph_ms", "bound_ms"):
+            row[key] = sum(r[key] * count for r, count in block)
+        row["bound_share_graph"] = row["bound_ms"] / row["graph_ms"]
+        row["vs_linear_bf16_graph"] = row["graph_ms"] / row["linear_bf16_graph_ms"]
+        if any(r["bound_by"] != "operations" for r, _ in block):
+            raise AssertionError(f"a Base projection at M={m} is not bound by operations")
+        emit({"phase": "kernel_block", **row})
+        if m == 1664:
+            rows.append(row)
+
+    # the grid, through the C entry (the wrapper's count does not move): the
+    # plan's tile against every other tile the kernel is built for, at one
+    # request's q/k/v/out shape (the plan: 104 blocks of 128 rows in one
+    # partial wave) and at a short request's (two CFG rows of a 64-frame
+    # bucket: 16 blocks of 64 rows)
+    from oron_tts_tpu_torch.ops import _build
+
+    lib = _build.load("qmm")
+    grids = {}
+    for m, k, n in ((1664, 1024, 1024), (128, 1024, 1024)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w_q, scale = quantize_weight(torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k))
+        bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+        want = quantized_matmul(x, w_q, scale, bias)
+
+        def direct(bm):
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            _build.check(lib.qmm_w8a16(
+                x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                m, k, n, bm, 1, _build.stream_ptr(dev)), "qmm_w8a16")
+            return out
+
+        by_tile = {}
+        for bm in QMM_TILES:
+            got = direct(bm)
+            by_tile[f"bm{bm}"] = {
+                "graph_ms": cuda_graph_ms(lambda: direct(bm)),
+                "max_abs_diff_vs_plan": (got.float() - want.float()).abs().max().item()}
+        grids[f"{m}x{k}x{n}"] = {"plan": list(qmm_plan(m, k, n)), "by_tile": by_tile}
+    emit({"phase": "qmm_grid", "shapes": grids})
+
+    # QDense (int8) launches the kernel alone: the bias is in its epilogue
+    lin = torch.nn.Linear(1024, 1024).to(dev, torch.bfloat16)
+    layer = QDense.from_linear(lin, "int8")
+    x = torch.randn(2, 832, 1024, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        layer(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            layer(x)
+            torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    emit({"phase": "qdense_launches", "input": [2, 832, 1024], "device_kernels": names})
+    if len(names) != 1 or "qmm_" not in names[0]:
+        raise AssertionError(f"QDense (int8) launched {names}, not the w8a16 kernel alone")
 
     # what torch._int_mm takes on this card (reported, not relied on: the port
     # asks int8_product, which falls back to an exact float64 product)
@@ -1427,9 +1611,9 @@ def check_qmm(torch, F, report) -> list[dict]:
         times[f"{k}x{n}"] = {
             "w8a8_matmul_ms": cuda_ms(lambda: w8a8_matmul(x, w_q, scale)),
             "int8_product_only_ms": cuda_ms(lambda: int8_product(x_q, w_q)),
-            "linear_bf16_ms": timed[1664, k, n]["linear_bf16_ms"]}
+            "linear_bf16_ms": timed["base", 1664, k, n]["linear_bf16_ms"]}
     emit({"phase": "w8a8_time", "m": 1664, "dtype": "torch.bfloat16", "by_shape": times})
-    return [row]
+    return rows
 
 
 def check_reference_serve(torch) -> None:
@@ -1647,6 +1831,7 @@ def run_serve(torch, smi: str) -> dict[str, int]:
     ref_b64 = base64.b64encode(wav_bytes(wav_ref, rate, subtype="float32")).decode()
     totals = {k.__name__: 0 for k in kernels}
     bf16_mels: dict[str, np.ndarray] = {}
+    merged: dict[str, dict] = {}  # per mode: the merged solve's per-row time and its trace
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1860,9 +2045,11 @@ def run_serve(torch, smi: str) -> dict[str, int]:
             elif counts["quantized_matmul"] != 0:
                 raise AssertionError(f"{mode}: the w8a16 kernel ran without --quantize int8")
             # after the counts were read: one traced merged solve
+            traced = profile_once(torch, lambda: model.synthesize_batch(
+                eight, seeds=seeds, n_steps=SERVE_STEPS, **service.profile_defaults))
             emit({"phase": "profile", "mode": f"serve_{mode}_merged_8x832", "card": smi,
-                  **profile_once(torch, lambda: model.synthesize_batch(
-                      eight, seeds=seeds, n_steps=SERVE_STEPS, **service.profile_defaults))})
+                  **traced})
+            merged[mode] = {"per_row_s": timing["per_row_s"], "traced": traced}
 
             # drain: a request in flight is answered, then the server is gone
             inflight: dict = {}
@@ -1888,6 +2075,19 @@ def run_serve(torch, smi: str) -> dict[str, int]:
             report["mode_s"] = time.perf_counter() - t0
             emit(report)
             del server, service, model
+
+    # int8 against bf16 on the merged 8 x 832 solve: per-row time, and the
+    # device time of kernel 9 against bf16's cuBLAS products
+    kinds = {mode: r["traced"]["device_s_by_kind"] for mode, r in merged.items()}
+    emit({"phase": "serve_int8_vs_bf16", "card": smi,
+          "per_row_s": {mode: r["per_row_s"] for mode, r in merged.items()},
+          "int8_over_bf16_per_row": merged["int8"]["per_row_s"] / merged["bf16"]["per_row_s"],
+          "wall_s_traced": {mode: r["traced"]["wall_s"] for mode, r in merged.items()},
+          "device_busy_s": {mode: r["traced"]["device_busy_s"] for mode, r in merged.items()},
+          "device_kernels": {mode: r["traced"]["device_kernels"] for mode, r in merged.items()},
+          "quantized_matmul_device_s": kinds["int8"].get("quantized_matmul", 0.0),
+          "matmul_device_s": {mode: k.get("matmul", 0.0) for mode, k in kinds.items()},
+          "other_device_s": {mode: k.get("other", 0.0) for mode, k in kinds.items()}})
     return totals
 
 
@@ -2120,6 +2320,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.data.wav import write_wav
     from oron_tts_tpu_torch.models.f5tts import F5TTS
     from oron_tts_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
         flash_lanes_bwd,
         flash_lanes_fwd,
         flash_lanes_fwd_stats,
@@ -2130,7 +2332,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
 
     repo = Path(__file__).resolve().parent
     wrappers = {f.__name__: f for f in (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd,
-                                        grouped_conv1d_mish)}
+                                        grouped_conv1d_mish, flash_attention,
+                                        flash_attention_bwd)}
     cfg = F5Config.from_file(repo / "configs" / "local.yaml")
     model = F5TTS(cfg)  # the card, bf16
     model.load_params(seeded_dit_params(cfg.model, seed=0))
@@ -2150,7 +2353,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
           "conv_group_width": m.dim // conv.groups, "attn_impl": model.backbone.attn_impl,
           "steps": 8, "wall_s": wall, "samples": len(wav), "launches": synth_counts, "card": smi})
     want = {"flash_lanes_fwd": 8 * m.depth, "flash_lanes_fwd_stats": 0, "flash_lanes_bwd": 0,
-            "grouped_conv1d_mish": 8 * 2}
+            "grouped_conv1d_mish": 8 * 2, "flash_attention": 0, "flash_attention_bwd": 0}
     if synth_counts != want or conv.route != "kernel" or m.dim // conv.groups != 32:
         raise AssertionError(f"Small synthesis: launches {synth_counts}, expected {want}, "
                              f"conv route {conv.route}")
@@ -2245,16 +2448,44 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         wall = time.perf_counter() - t0
         d128_counts = read_counts(wrappers)
         del trainer, model
-    emit({"phase": "widths_train_d128", "config": "configs/test.yaml + dim 128, heads 1, bf16",
-          "head_dim": 128, "conv_route": conv.route, "conv_group_width": 128 // conv.groups,
-          "steps": 2, "loss": [m["loss"] for m in losses], "ok": [m["ok"] for m in losses],
-          "wall_s": wall, "launches": d128_counts, "card": smi})
-    if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses)
-            and d128_counts["flash_lanes_fwd_stats"] == 4 and d128_counts["flash_lanes_bwd"] == 4
-            and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"):
-        raise AssertionError(f"dim-128 bf16 training: launches {d128_counts}, steps {losses}")
+        emit({"phase": "widths_train_d128",
+              "config": "configs/test.yaml + dim 128, heads 1, bf16", "head_dim": 128,
+              "conv_route": conv.route, "conv_group_width": 128 // conv.groups, "steps": 2,
+              "loss": [m["loss"] for m in losses], "ok": [m["ok"] for m in losses],
+              "wall_s": wall, "launches": d128_counts, "card": smi})
+        if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses)
+                and d128_counts["flash_lanes_fwd_stats"] == 4
+                and d128_counts["flash_lanes_bwd"] == 4
+                and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"):
+            raise AssertionError(f"dim-128 bf16 training: launches {d128_counts}, steps {losses}")
+
+        # F4: two bf16 F5Trainer steps with two heads of 192 (dim 384, depth 2):
+        # the lanes rule sends them to "flash", whose backward runs the wide
+        # variant of csrc/flash_bwd.cuh
+        config["model"] = {**config["model"], "dim": 384, "heads": 2, "depth": 2}
+        model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+        model.init_params(0)
+        trainer = F5Trainer(config, model, loader, log_dir=f"{tmp}/logs192",
+                            checkpoint_dir=f"{tmp}/ckpt192")
+        impl = model.backbone.attn_impl
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch, torch.Generator().manual_seed(step))
+                  for step in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d192_counts = read_counts(wrappers)
+        del trainer, model
+    emit({"phase": "widths_train_d192", "config": "configs/test.yaml + dim 384, heads 2, bf16",
+          "head_dim": 192, "attn_impl": impl, "steps": 2, "loss": [m["loss"] for m in losses],
+          "ok": [m["ok"] for m in losses], "wall_s": wall, "launches": d192_counts,
+          "card": smi})
+    if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses) and impl == "flash"
+            and d192_counts["flash_attention"] == 4 and d192_counts["flash_attention_bwd"] == 4):
+        raise AssertionError(f"head-192 bf16 training on flash: impl {impl}, launches "
+                             f"{d192_counts}, steps {losses}")
     return {n: synth_counts[n] + d20_counts[n] + train_counts[n] + d128_counts[n]
-            for n in wrappers}
+            + d192_counts[n] for n in wrappers}
 
 
 def main() -> int:
@@ -2286,6 +2517,7 @@ def main() -> int:
           "libraries": [str(p.relative_to(_build.BUILD_DIR.parents[1])) for p in libs.values()]})
     emit({"phase": "sass", "hgmma": hgmma_counts(libs)})
     emit({"phase": "forward_build", "by_width": forward_build(logs.get("flash_classic", ""))})
+    emit({"phase": "qmm_build", "by_tile": qmm_build(logs.get("qmm", ""))})
 
     seconds = {}
 
@@ -2313,8 +2545,8 @@ def main() -> int:
         | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}
         | {"library": row.get("library"), "shape": row.get("shape")}
-        | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms", "graph_ms", "library_graph_ms")
-           if k in row}
+        | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms", "graph_ms", "library_graph_ms",
+                               "linear_bf16_ms", "linear_bf16_graph_ms") if k in row}
         for row in rows
     ], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

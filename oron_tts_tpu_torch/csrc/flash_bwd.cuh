@@ -48,6 +48,10 @@
 // what a later PR would add. The swizzle-free layout takes every head width
 // that is a multiple of 8 with one code path: columns from D up to the next
 // multiple of 16 (the wgmma depth) are copied as zeros and never stored.
+// Widths: to 128 for both kernels; the classic one goes on to 256 with a wide
+// variant of the same code (BwdTile): pass A on 32-key tiles, pass B with
+// dK and dV cut into two column halves, one block each. The lanes kernel
+// stops at 128, the widest head the lanes rule (models/layers.py) admits.
 //
 // Bound: 10*T*kv*D flops per head (five products) over ~16*T*D bytes, far
 // above 295 flops per byte on the H100, so the tensor cores.
@@ -82,10 +86,21 @@ constexpr int BWD_THREADS = BLOCK_THREADS;
 // blocks share an SM (128 registers a thread), which hides one block's
 // softmax behind the other's products: pass B then takes 32 queries a stage
 // (its dK, dV, S^T and dP^T accumulators must fit), except at DP = 16 and 32.
+// Above DP = 128 (the wide variant, classic kernel only) two limits bind:
+//   pass A's Q and dO [128][DP] and two stages of K and V [64][DP] would ask
+//   for 2 * (2*128 + 4*64) * DP bytes, 262,144 at DP = 256 of the 232,448 a
+//   block may have, so its key tiles shrink to KT = 32 keys (197,632 bytes);
+//   pass B's dK and dV accumulators, m64nDP f32 each, would need DP
+//   registers a thread (256 at DP = 256, of 255), so each block owns one of
+//   SPLIT = 2 column halves of dK and dV: the grid's key dimension doubles,
+//   each half recomputes S^T and dP^T over the full width (six products'
+//   worth of pass B instead of four) and keeps two m64n(DP/2) accumulators.
 template <int DP>
 struct BwdTile {
   static constexpr int BQ = DP > 32 ? 32 : 64;
   static constexpr int MIN_BLOCKS = DP > 64 ? 1 : 2;
+  static constexpr int KT = DP > 128 ? 32 : KV_TILE;  // pass A's keys a tile
+  static constexpr int SPLIT = DP > 128 ? 2 : 1;       // pass B's column halves
 };
 
 // n values of a [B, H, T] f32 row from t0 into smem; past T, zeros
@@ -116,8 +131,8 @@ __device__ __forceinline__ void ring2(int n, Issue&& issue, Body&& body) {
 }
 
 template <int DP>
-struct BwdSmemA {  // pass A: Q, dO [128][DP]; two stages of K, V [64][DP]; delta, lse
-  static constexpr int KV = KV_TILE * DP;
+struct BwdSmemA {  // pass A: Q, dO [128][DP]; two stages of K, V [KT][DP]; delta, lse
+  static constexpr int KV = BwdTile<DP>::KT * DP;
   static constexpr size_t BYTES =
       (size_t)(2 * BWD_ROWS * DP + 4 * KV) * 2 + 2 * BWD_ROWS * sizeof(float);
 };
@@ -140,6 +155,7 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
              __nv_bfloat16* __restrict__ dq, int T, int dh, Layout lay, float sm_scale,
              float scale_log2) {
   using S = BwdSmemA<DP>;
+  constexpr int KT = BwdTile<DP>::KT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dOs = Qs + BWD_ROWS * DP;
@@ -184,10 +200,10 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     }
   }
 
-  const int n_tiles = (limit + KV_TILE - 1) / KV_TILE;
-  float s[KV_TILE / 2], dp[KV_TILE / 2];
+  const int n_tiles = (limit + KT - 1) / KT;
+  float s[KT / 2], dp[KT / 2];
 #pragma unroll
-  for (int i = 0; i < KV_TILE / 2; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
   auto stage = [&](int kt) { return ring + (kt & 1) * 2 * S::KV; };
 
   if (CLASSIC) {
@@ -197,11 +213,10 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     // the raw scores (the scale is >= 0), each key costs one FFMA and one ex2.
     float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
     ring2(
-        (limit + 2 * KV_TILE - 1) / (2 * KV_TILE),
+        (limit + 2 * KT - 1) / (2 * KT),
         [&](int it) {
-          load_core_tile<KV_TILE, DP>(stage(it), k, base, 2 * it * KV_TILE, T, dh, rs, tid);
-          load_core_tile<KV_TILE, DP>(stage(it) + S::KV, k, base, (2 * it + 1) * KV_TILE, T, dh,
-                                      rs, tid);
+          load_core_tile<KT, DP>(stage(it), k, base, 2 * it * KT, T, dh, rs, tid);
+          load_core_tile<KT, DP>(stage(it) + S::KV, k, base, (2 * it + 1) * KT, T, dh, rs, tid);
           wg::cp_commit();
         },
         [&](int it) {
@@ -209,25 +224,25 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
           wg::fence();
 #pragma unroll
           for (int kk = 0; kk < DP / 16; ++kk)
-            wg::wgmma_ss<KV_TILE>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
-                                  desc_k<KV_TILE>(K0, 0, kk), kk > 0);
+            wg::wgmma_ss<KT>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk), desc_k<KT>(K0, 0, kk),
+                             kk > 0);
 #pragma unroll
           for (int kk = 0; kk < DP / 16; ++kk)
-            wg::wgmma_ss<KV_TILE>(dp, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
-                                  desc_k<KV_TILE>(K0 + S::KV, 0, kk), kk > 0);
+            wg::wgmma_ss<KT>(dp, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
+                             desc_k<KT>(K0 + S::KV, 0, kk), kk > 0);
           wg::commit();
           wg::wait<0>();
-          wg::fence_regs<KV_TILE / 2>(s);
-          wg::fence_regs<KV_TILE / 2>(dp);
-          const int k0 = 2 * it * KV_TILE;
-          const bool ragged = k0 + 2 * KV_TILE > limit;
+          wg::fence_regs<KT / 2>(s);
+          wg::fence_regs<KT / 2>(dp);
+          const int k0 = 2 * it * KT;
+          const bool ragged = k0 + 2 * KT > limit;
           float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-          for (int i = 0; i < KV_TILE / 2; ++i) {
+          for (int i = 0; i < KT / 2; ++i) {
             if (ragged) {
               const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
               if (col >= limit) s[i] = -INFINITY;
-              if (col + KV_TILE >= limit) dp[i] = -INFINITY;
+              if (col + KT >= limit) dp[i] = -INFINITY;
             }
             mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fmaxf(s[i], dp[i]));
           }
@@ -242,14 +257,14 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
             nm[r] = -m_new;
           }
 #pragma unroll
-          for (int i = 0; i < KV_TILE / 2; ++i) {
+          for (int i = 0; i < KT / 2; ++i) {
             const int r = (i >> 1) & 1;
             float e0 = exp2_approx(fmaf(s[i], s_scale, nm[r]));
             float e1 = exp2_approx(fmaf(dp[i], s_scale, nm[r]));
             if (ragged) {  // -inf * 0 would be NaN where the scale is 0 (empty rows)
               const int col = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
               e0 = col < limit ? e0 : 0.f;
-              e1 = col + KV_TILE < limit ? e1 : 0.f;
+              e1 = col + KT < limit ? e1 : 0.f;
             }
             l_i[r] += e0 + e1;
           }
@@ -279,8 +294,8 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   ring2(
       n_tiles,
       [&](int kt) {
-        load_core_tile<KV_TILE, DP>(stage(kt), k, base, kt * KV_TILE, T, dh, rs, tid);
-        load_core_tile<KV_TILE, DP>(stage(kt) + S::KV, v, base, kt * KV_TILE, T, dh, rs, tid);
+        load_core_tile<KT, DP>(stage(kt), k, base, kt * KT, T, dh, rs, tid);
+        load_core_tile<KT, DP>(stage(kt) + S::KV, v, base, kt * KT, T, dh, rs, tid);
         wg::cp_commit();
       },
       [&](int kt) {
@@ -289,33 +304,33 @@ bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
         wg::fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)  // S = Q K^T
-          wg::wgmma_ss<KV_TILE>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk),
-                                desc_k<KV_TILE>(Ks, 0, kk), kk > 0);
+          wg::wgmma_ss<KT>(s, desc_k<BWD_ROWS>(Qs, wgi * 64, kk), desc_k<KT>(Ks, 0, kk),
+                           kk > 0);
         wg::commit();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)  // dP = dO V^T
-          wg::wgmma_ss<KV_TILE>(dp, desc_k<BWD_ROWS>(dOs, wgi * 64, kk),
-                                desc_k<KV_TILE>(Vs, 0, kk), kk > 0);
+          wg::wgmma_ss<KT>(dp, desc_k<BWD_ROWS>(dOs, wgi * 64, kk), desc_k<KT>(Vs, 0, kk),
+                           kk > 0);
         wg::commit();
         wg::wait<1>();  // P while dP is still on the tensor cores
-        wg::fence_regs<KV_TILE / 2>(s);
-        const int k0 = kt * KV_TILE;
-        const bool ragged = k0 + KV_TILE > limit;  // only the last tile masks keys
+        wg::fence_regs<KT / 2>(s);
+        const int k0 = kt * KT;
+        const bool ragged = k0 + KT > limit;  // only the last tile masks keys
 #pragma unroll
-        for (int i = 0; i < KV_TILE / 2; ++i) {
+        for (int i = 0; i < KT / 2; ++i) {
           s[i] = exp2_approx(fmaf(s[i], s_scale, nlse[(i >> 1) & 1]));
           if (ragged && k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) >= limit) s[i] = 0.f;
         }
         wg::wait<0>();
-        wg::fence_regs<KV_TILE / 2>(dp);
+        wg::fence_regs<KT / 2>(dp);
 #pragma unroll
-        for (int i = 0; i < KV_TILE / 2; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);
+        for (int i = 0; i < KT / 2; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);
         wg::fence();
 #pragma unroll
-        for (int kk = 0; kk < KV_TILE / 16; ++kk) {  // dQ += dS K
+        for (int kk = 0; kk < KT / 16; ++kk) {  // dQ += dS K; above 128 columns, two products
           uint32_t a[4];
           acc_to_a(dp, kk, a);
-          wg::wgmma_rs_t<DP>(dqa, a, desc_mn<KV_TILE>(Ks, kk));
+          wgmma_rs_wide<KT, DP>(dqa, a, Ks, kk);
         }
         wg::commit();
         wg::wait<0>();
@@ -336,13 +351,15 @@ bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                float scale_log2) {
   using S = BwdSmemB<DP>;
   constexpr int BQ = S::BQ;
+  constexpr int SPLIT = BwdTile<DP>::SPLIT, NC = DP / SPLIT;  // dK, dV columns a block owns
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + BWD_ROWS * DP;
   __nv_bfloat16* ring = Vs + BWD_ROWS * DP;  // stage s: Q at 2s, dO at 2s + 1
   float* stats = reinterpret_cast<float*>(ring + 4 * S::QD);  // stage s: lse, delta
 
-  const int k0 = blockIdx.x * BWD_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x / SPLIT * BWD_ROWS, col0 = blockIdx.x % SPLIT * NC;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int H = gridDim.y, rs = lay.row_stride;
   const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -353,9 +370,9 @@ bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   bwd_limit(kv_lens[b], T, scale_log2, CLASSIC, limit, s_scale);
   const int r0 = wgi * 64 + warp * 16 + g;  // this thread's keys k0 + r0 and + 8
 
-  float dka[DP / 2], dva[DP / 2];
+  float dka[NC / 2], dva[NC / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dka[i] = dva[i] = 0.f;
 
   // key tiles at or past the limit stream nothing and store zeros; no
   // branch around the products, which would make ptxas serialise them
@@ -416,10 +433,10 @@ bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           }
           wg::fence();
 #pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {  // dV += P^T dO
+          for (int kk = 0; kk < BQ / 16; ++kk) {  // dV += P^T dO, columns col0 .. + NC
             uint32_t a[4];
             acc_to_a(st, kk, a);
-            wg::wgmma_rs_t<DP>(dva, a, desc_mn<BQ>(dOs, kk));
+            wg::wgmma_rs_t<NC>(dva, a, desc_mn<BQ>(dOs + col0 * BQ, kk));
           }
           wg::commit();
           wg::wait<1>();  // dS^T while dV is on the tensor cores
@@ -429,20 +446,20 @@ bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
             dpt[i] = st[i] * fmaf(dpt[i], sm_scale, nd[i >> 2][i & 1]);
           wg::fence();
 #pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {  // dK += dS^T Q
+          for (int kk = 0; kk < BQ / 16; ++kk) {  // dK += dS^T Q, columns col0 .. + NC
             uint32_t a[4];
             acc_to_a(dpt, kk, a);
-            wg::wgmma_rs_t<DP>(dka, a, desc_mn<BQ>(Qs, kk));
+            wg::wgmma_rs_t<NC>(dka, a, desc_mn<BQ>(Qs + col0 * BQ, kk));
           }
           wg::commit();
           wg::wait<0>();
-          wg::fence_regs<DP / 2>(dva);
-          wg::fence_regs<DP / 2>(dka);
+          wg::fence_regs<NC / 2>(dva);
+          wg::fence_regs<NC / 2>(dka);
         });
     wg::cp_wait<0>();
   }
-  store_rows<DP>(dk, base, k0 + r0, T, dh, rs, dka, t4);
-  store_rows<DP>(dv, base, k0 + r0, T, dh, rs, dva, t4);
+  store_rows<NC>(dk, base + col0, k0 + r0, T, dh - col0, rs, dka, t4);
+  store_rows<NC>(dv, base + col0, k0 + r0, T, dh - col0, rs, dva, t4);
 }
 
 // ------------------------------------------------------------ f32 (SIMT)
@@ -660,7 +677,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
     if (passes & 2) {
       auto kern = bwd_dkdv_wgmma<DP, CLASSIC>;
       if ((err = allow_smem(kern, BwdSmemB<DP>::BYTES)) != cudaSuccess) return (int)err;
-      kern<<<grid, BWD_THREADS, BwdSmemB<DP>::BYTES, st>>>(
+      const dim3 grid_b(grid.x * BwdTile<DP>::SPLIT, H, B);
+      kern<<<grid_b, BWD_THREADS, BwdSmemB<DP>::BYTES, st>>>(
           static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
           static_cast<const bf*>(dout), lse_f, delta_f, lens, static_cast<bf*>(dk),
           static_cast<bf*>(dv), Tn, dh, lay, sm_scale, scale_log2);

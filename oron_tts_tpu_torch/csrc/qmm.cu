@@ -1,33 +1,63 @@
-// w8a16 matrix product for Hopper (sm_90a): out = (x @ dequant(Wq)) * scale.
+// w8a16 matrix product for Hopper (sm_90a): out = (x @ dequant(Wq)) * scale (+ bias).
 //
 // Replaces the TPU kernel oron_tts_tpu/ops/quantized_matmul.py:55 (_qmm_kernel),
 // the six int8 projections of every DiT block under mode="int8". It computes
 // what that kernel computes, in its order: int8 -> x's type (exact, |q| <= 127),
 // the product with f32 accumulation, times scale[n] in f32, one cast to x's
-// type. The bias is added by the module afterwards.
+// type. With a bias (QDense's), the epilogue then adds it in x's type and
+// rounds again: bf16(bf16(acc * scale) + bias), the JAX QDense's order
+// (layers.py:437-442, the kernel, then y + bias.astype(y.dtype)), bit for bit
+// the kernel followed by a separate bf16 add.
 //
 // Layout. x is [M, K] row-major, out [M, N]. The weight is stored [N, K] int8
-// with K contiguous -- nn.Linear's layout, and what an mma.sync B fragment
-// wants (two consecutive k of one output column in a 32-bit register). The JAX
-// package stores [K, N]; the weight loader transposes once at load.
+// with K contiguous (nn.Linear's layout). The JAX package stores [K, N]; the
+// weight loader transposes once at load.
 //
 // Bound on the H100: 2*M*K*N operations over M*K*2 + N*K + M*N*2 bytes. At the
-// serving shapes (M = 1,664 and up, K and N 1,024 or 4,096) that is hundreds of
-// operations per byte, so the tensor cores. The weight never exists in device
-// memory in x's type: a block reads an int8 tile (half the bytes of bf16),
-// converts it once while staging it into shared memory, and every warp's B
-// fragments are then plain 32-bit shared-memory loads. The TPU kernel's pad of
-// M to 8, its 512-blocks and its VMEM limit are the TPU's and are not carried
-// over; ragged M and N are masked here, and K must be a multiple of 16 (one
-// 16-byte load of int8).
+// serving shapes (M = 1,664 for one request's two CFG rows of 832 frames,
+// 13,312 for a merged solve of eight; K and N 1,024 or 4,096) that is 480 to
+// 2,900 operations a byte, far above the card's 295: the tensor cores bound
+// every one of them, and the design is about feeding them.
 //
-// bf16: 128 x 128 output tile per block of 8 warps (32 x 64 each), K in steps
-// of 64, mma.sync m16n8k16 with f32 accumulators; the next tile's global loads
-// are started into registers before the current tile's products. f32: a SIMT
-// kernel in true f32 (64 x 64 tile, 4 x 4 outputs per thread).
+// Design (bf16). A block computes a tile of BM x rows (64, 128, 192 or 256,
+// chosen by shape in ops/quantized_matmul.py qmm_plan) by 128 weight rows, as its
+// transpose: out^T = W x^T, so the converted weight is wgmma's A operand, in
+// registers, and x its B operand, from shared memory ("swap A/B"). Three
+// warpgroups: a producer whose one thread keeps a ring of STAGES (5 to 8)
+// k tiles of 64 in flight with TMA (x bf16 with 128-byte swizzle, the weight
+// as int8 with 64-byte swizzle: half the bytes of bf16), each stage guarded
+// by a full and an empty mbarrier; and two consumer warpgroups of 64 weight
+// rows each. A consumer waits for stage i, converts its own int8 rows of it
+// into bf16 A fragments in registers (s8_to_f32 below, exact; no shared-memory
+// round trip, so no generic-to-async proxy fence), issues the four wgmma
+// m64nBMk16 of tile i, then waits for tile i - 1's products only
+// (wgmma.wait_group 1) and frees that stage: the conversion of tile i runs
+// under the products of tile i - 1. No block-wide barrier in the loop.
+// The epilogue scales, rounds, adds the bias and, where N is a multiple of 8,
+// stages the tile in shared memory so that every global store is 16
+// contiguous bytes (else element stores).
+//   The grid. The ring fills most of an SM's shared memory, so one block runs
+// on an SM at a time and qmm_plan picks BM for the fewest waves of blocks
+// times their length. Each block runs the whole of K and writes its tile
+// once: no atomics, so two calls give the same bits.
+// With 384 threads ptxas gives a thread at most 168 registers; at BM = 256
+// (128 accumulators and two fragment sets) it serialises the wgmma (C7512),
+// and that tile still measured fastest where qmm_plan takes it.
+//   Against this design on the card (PERF.md §6): the same math on
+// cp.async rings filled by every thread, with the weight converted into a
+// bf16 shared-memory B operand (with and without swizzle) or into register
+// fragments; the producer warpgroup with TMA was the fastest of them.
+//
+// f32: a SIMT kernel in true f32 (64 x 64 tile, 4 x 4 outputs per thread),
+// the reference path of the checks.
+#include <cuda.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+using oron::wg::smem_addr;
 
 // byte i of `biased` (= word ^ 0x80808080, so u = q + 128) -> float(q), exactly:
 // 0x4B0000uu is the float 2^23 + u, and 2^23 + 128 is subtracted from it
@@ -36,121 +66,213 @@ __device__ __forceinline__ float s8_to_f32(uint32_t biased) {
   return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + I)) - 8388736.f;
 }
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LD = BK + 8;  // 144-byte shared rows: fragment loads hit 32 distinct banks
+// two floats that are small integers -> bf16x2 (lo in the low half), exactly:
+// their low 16 bits are 0, so the bf16 is the f32's high half
+__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
 
-__global__ void __launch_bounds__(256, 2)
-qmm_bf16(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-         const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-         int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[BM * LD];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BN * LD];
+// bf16(acc * scale), then bf16(that + bias) when there is a bias
+__device__ __forceinline__ __nv_bfloat16 finish(float acc, float s,
+                                                const __nv_bfloat16* __restrict__ bias,
+                                                int col) {
+  __nv_bfloat16 y = __float2bfloat16_rn(acc * s);
+  if (bias != nullptr) y = __float2bfloat16_rn(__bfloat162float(y) + __bfloat162float(bias[col]));
+  return y;
+}
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+constexpr int BK = 64;         // k a tile
+constexpr int BN = 128;        // weight rows (output columns) a block: two warpgroups x 64
+constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, 2 produces
+constexpr int OLD = BN + 8;    // staged output row, bf16: 272 bytes, no bank conflicts
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+template <int BM>
+struct QmmTile {
+  static constexpr int STAGES = BM == 256 ? 5 : BM == 192 ? 6 : 8;
+  static constexpr int X_BYTES = BM * BK * 2;  // x rows, 128-byte swizzle
+  static constexpr int W_BYTES = BN * BK;      // weight rows, int8, 64-byte swizzle
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  // the ring, its barriers, and slack to align the ring to 1,024 bytes:
+  // 205,904 bytes at BM = 256, 197,728 at 192, 197,760 at 128, 132,224 at 64;
+  // the staged output fits the ring
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(BM * OLD * 2 <= STAGES * STAGE, "the staged output must fit the ring");
+};
 
-  // staging: x tile 128 x 64 bf16 = 1024 16-byte vectors (4 a thread), w tile
-  // 128 x 64 int8 = 512 vectors (2 a thread); outside M, N or K they are zero
-  uint4 xr[4], wr[2];
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256, gm = m0 + (idx >> 3), gk = k0 + (idx & 7) * 8;
-      xr[i] = (gm < M && gk < K)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk)
-                  : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256, gn = n0 + (idx >> 2), gk = k0 + (idx & 3) * 16;
-      wr[i] = (gn < N && gk < K)
-                  ? *reinterpret_cast<const uint4*>(w + (size_t)gn * K + gk)
-                  : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256;
-      *reinterpret_cast<uint4*>(&Xs[(idx >> 3) * LD + (idx & 7) * 8]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256;
-      const uint32_t words[4] = {wr[i].x, wr[i].y, wr[i].z, wr[i].w};
-      uint32_t o[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t u = words[j] ^ 0x80808080u;
-        o[2 * j] = oron::pack_bf16(s8_to_f32<0>(u), s8_to_f32<1>(u));
-        o[2 * j + 1] = oron::pack_bf16(s8_to_f32<2>(u), s8_to_f32<3>(u));
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&Ws[(idx >> 2) * LD + (idx & 3) * 16]);
-      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
-      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
-    }
-  };
-
-  load_tile(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_tile();
-    __syncthreads();
-    if (k0 + BK < K) load_tile(k0 + BK);
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      const int c = ks * 16 + t4 * 2;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm + mt * 16 + g;
-        a[mt][0] = oron::ld32(&Xs[r * LD + c]);
-        a[mt][1] = oron::ld32(&Xs[(r + 8) * LD + c]);
-        a[mt][2] = oron::ld32(&Xs[r * LD + c + 8]);
-        a[mt][3] = oron::ld32(&Xs[(r + 8) * LD + c + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* wrow = &Ws[(wn + nt * 8 + g) * LD + c];
-        const uint32_t bb[2] = {oron::ld32(wrow), oron::ld32(wrow + 8)};
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) oron::mma_bf16_16816(acc[mt][nt], a[mt], bb);
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// spins on try_wait; a phase that never completes traps (a launch error)
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (long long tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1ll << 26)) __trap();
   }
+}
+// the box of `map` at (c0 along a row, c1 across rows) into dst; completes on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// a barrier of the 256 consumer threads only
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
-  const bool paired = (N & 1) == 0;  // a 32-bit store needs an even row stride
-  auto store2 = [&](int row, int col, float v0, float v1) {
-    if (row >= M || col >= N) return;
-    __nv_bfloat16* p = out + (size_t)row * N + col;
-    if (paired) {
-      *reinterpret_cast<uint32_t*>(p) = oron::pack_bf16(v0, v1);
-    } else {
-      p[0] = __float2bfloat16_rn(v0);
-      if (col + 1 < N) p[1] = __float2bfloat16_rn(v1);
+// Grid (ceil(N / 128), ceil(M / BM)). xmap: x [M, K] bf16, box 64 x BM;
+// wmap: the weight [N, K] int8, box 64 x 128.
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+          const float* __restrict__ scale, const __nv_bfloat16* __restrict__ bias,
+          __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  using Tl = QmmTile<BM>;
+  constexpr int S = Tl::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * Tl::STAGE);
+  uint64_t* empty = full + S;
+  auto x_tile = [&](int s) { return ring + s * Tl::STAGE; };
+  auto w_tile = [&](int s) { return ring + s * Tl::STAGE + Tl::X_BYTES; };
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // the k tiles; an odd count runs one more tile, of zeros (loaded from past K)
+  const int nk = (K + BK - 1) / BK, nk2 = (nk + 1) & ~1;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int i = 0; i < nk2; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(empty + s, (i / S - 1) & 1);
+        mbar_expect(full + s, Tl::STAGE);
+        const int k0 = (i < nk ? i : nk) * BK;
+        tma_load(x_tile(s), &xmap, full + s, k0, m0);
+        tma_load(w_tile(s), &wmap, full + s, k0, n0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = wgi * 64 + warp * 16 + g;  // this thread's weight rows wr and wr + 8
+  const uint32_t sel = (t4 & 1) ? 0x7632u : 0x5410u;
+  // stage s's A fragments (wgmma.cuh) for rows wr, wr + 8: k = 2t, 2t + 1 and
+  // 2t + 8, 2t + 9 of each 16; eight rows read eight distinct 16-byte bank groups
+  auto convert = [&](int s, uint32_t* a) {
+    const unsigned char* wd = w_tile(s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 8 * h;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // 64-byte swizzle: 16-byte chunk kk of row r lies at kk ^ ((r >> 1) & 3)
+        const uint4 v = *reinterpret_cast<const uint4*>(wd + r * BK + ((kk ^ (r >> 1)) & 3) * 16);
+        const uint32_t lo = t4 < 2 ? v.x : v.y;  // k = 2t, 2t + 1: word t / 2
+        const uint32_t hi = t4 < 2 ? v.z : v.w;  // k = 2t + 8, 2t + 9: word 2 + t / 2
+        const uint32_t u = __byte_perm(lo, hi, sel) ^ 0x80808080u;
+        a[4 * kk + h] = pack_exact(s8_to_f32<0>(u), s8_to_f32<1>(u));
+        a[4 * kk + 2 + h] = pack_exact(s8_to_f32<2>(u), s8_to_f32<3>(u));
+      }
     }
   };
+
+  float acc[BM / 2];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = n0 + wn + nt * 8 + t4 * 2;
-    const float s0 = col < N ? scale[col] : 0.f;
-    const float s1 = col + 1 < N ? scale[col + 1] : 0.f;
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  uint32_t a0[16], a1[16];  // the fragments of two tiles in flight, by name
+  auto step = [&](int i, uint32_t* a) {
+    const int s = i % S;
+    mbar_wait(full + s, (i / S) & 1);
+    convert(s, a);  // under the products of tile i - 1
+    const uint32_t xt = smem_addr(x_tile(s));
+    oron::wg::fence();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int row = m0 + wm + mt * 16 + g;
-      store2(row, col, acc[mt][nt][0] * s0, acc[mt][nt][1] * s1);
-      store2(row + 8, col, acc[mt][nt][2] * s0, acc[mt][nt][3] * s1);
+    for (int kk = 0; kk < BK / 16; ++kk)  // 128-byte swizzle: SBO 1,024, a k step 32 bytes
+      oron::wg::wgmma_rs<BM>(acc, a + 4 * kk,
+                             oron::wg::desc(xt + kk * 32, 16, 1024) | (1ull << 62));
+    oron::wg::commit();
+    oron::wg::wait<1>();  // tile i - 1's products: its stage and fragments are free
+    if (i > 0 && (tid & 127) == 0) mbar_arrive(empty + (i + S - 1) % S);
+  };
+  // no branch around a wgmma: ptxas would serialise them all
+  for (int i = 0; i < nk2; i += 2) {
+    step(i, a0);
+    step(i + 1, a1);
+  }
+  oron::wg::wait<0>();
+  oron::wg::fence_regs<BM / 2>(acc);
+
+  // acc[4j + 2h + e] is out[m0 + 8j + 2t + e][n0 + wr + 8h]
+  if ((N & 7) == 0) {
+    // stage the finished tile in the ring (every load has landed, and been
+    // read once both warpgroups pass the barrier), then 16-byte stores
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+    consumers_sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = wr + 8 * h, col = n0 + n;
+      const float sc = col < N ? scale[col] : 0.f;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          tile[(j * 8 + t4 * 2 + e) * OLD + n] =
+              col < N ? finish(acc[4 * j + 2 * h + e], sc, bias, col) : __float2bfloat16_rn(0.f);
     }
+    consumers_sync();
+    for (int idx = tid; idx < BM * BN / 8; idx += 256) {
+      const int m = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
+      const int row = m0 + m, col = n0 + c;
+      if (row < M && col < N)
+        *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+            *reinterpret_cast<const uint4*>(tile + m * OLD + c);
+    }
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = n0 + wr + 8 * h;
+    if (col >= N) continue;
+    const float sc = scale[col];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m0 + j * 8 + t4 * 2 + e;
+        if (row >= M) continue;
+        out[(size_t)row * N + col] = finish(acc[4 * j + 2 * h + e], sc, bias, col);
+      }
   }
 }
 
@@ -159,7 +281,8 @@ constexpr int FLD = FM + 4;
 
 __global__ void __launch_bounds__(256)
 qmm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
-        const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N) {
+        const float* __restrict__ scale, const float* __restrict__ bias,
+        float* __restrict__ out, int M, int K, int N) {
   __shared__ float Xs[FK][FLD];  // k-major: the inner loop reads along m and n
   __shared__ float Ws[FK][FLD];
 
@@ -214,27 +337,109 @@ qmm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = m0 + ty * 4 + i;
-      if (row < M) out[(size_t)row * N + col] = acc[i][j] * s;
+      if (row >= M) continue;
+      const float y = __fmul_rn(acc[i][j], s);  // rounded before the bias, as the plain version
+      out[(size_t)row * N + col] = bias != nullptr ? y + bias[col] : y;
     }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A 2D tensor map over `rows` rows of `inner` elements, `pitch` bytes apart;
+// boxes land zero-filled past either edge. The driver's encoder is found once
+// through the runtime, so the library links no driver library.
+int tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int inner, int rows,
+               size_t pitch, int box_inner, int box_rows, CUtensorMapSwizzle swizzle) {
+  static const EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM>
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      qmm_wgmma<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)QmmTile<BM>::SMEM);
+  return err;
+}
+
+template <int BM>
+int launch_wgmma(const void* x, const void* w, const void* scale, const void* bias, void* out,
+                 int M, int K, int N, cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  int rc = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (size_t)K * 2, BK, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, (size_t)K, BK, BN,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+  if (rc != 0) return rc;
+  cudaError_t err = allow_smem<BM>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  qmm_wgmma<BM><<<grid, THREADS, QmmTile<BM>::SMEM, st>>>(
+      xmap, wmap, static_cast<const float*>(scale), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), M, K, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int qmm_w8a16(const void* x, const void* w, const void* scale, void* out,
-                         int M, int K, int N, int is_bf16, void* stream) {
+// bias: null or [N] in x's type. bf16: bm (x rows a block: 64, 128, 192, 256)
+// is qmm_plan's. f32 ignores bm.
+extern "C" int qmm_w8a16(const void* x, const void* w, const void* scale, const void* bias,
+                         void* out, int M, int K, int N, int bm, int is_bf16, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    qmm_bf16<<<grid, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K, N);
-  } else {
-    dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
-    qmm_f32<<<grid, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
+    if (bm == 64) return launch_wgmma<64>(x, w, scale, bias, out, M, K, N, st);
+    if (bm == 128) return launch_wgmma<128>(x, w, scale, bias, out, M, K, N, st);
+    if (bm == 192) return launch_wgmma<192>(x, w, scale, bias, out, M, K, N, st);
+    if (bm == 256) return launch_wgmma<256>(x, w, scale, bias, out, M, K, N, st);
+    return (int)cudaErrorInvalidValue;
   }
+  dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
+  qmm_f32<<<grid, 256, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<float*>(out), M, K, N);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the bf16 kernel an SM holds at bm (the occupancy API)
+template <int BM>
+int blocks_per_sm() {
+  int n = 0;
+  cudaError_t err = allow_smem<BM>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, qmm_wgmma<BM>, THREADS,
+                                                        QmmTile<BM>::SMEM);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+extern "C" int qmm_blocks_per_sm(int bm) {
+  switch (bm) {
+    case 64: return blocks_per_sm<64>();
+    case 128: return blocks_per_sm<128>();
+    case 192: return blocks_per_sm<192>();
+    case 256: return blocks_per_sm<256>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }

@@ -299,9 +299,10 @@ class QDense(nn.Module):
     Stands in for ``nn.Linear`` once ``dit.quantize_dit_params`` has converted
     it: ``weight`` becomes ``weight_q`` int8 ``[out, in]`` and ``scale`` f32
     ``[out]`` (per output channel, symmetric); ``bias`` is unchanged and is
-    added after the product in the output's type. ``mode="int8"`` is w8a16
-    through the kernel, ``mode="int8_dynamic"`` is w8a8 with dynamic per-token
-    activation scales. Inference only: the integer weights carry no gradient.
+    added to the product rounded to the output's type, in that type (the JAX
+    ``QDense``'s two roundings). ``mode="int8"`` is w8a16 through the kernel,
+    which adds the bias in its epilogue; ``mode="int8_dynamic"`` is w8a8 with
+    dynamic per-token activation scales, the bias added after it. Inference only: the integer weights carry no gradient.
     ``scale`` must stay f32, so move a quantized model with ``.to(device)``
     and never with ``.to(dtype)``.
     """
@@ -327,9 +328,8 @@ class QDense(nn.Module):
         x = x.to(self.bias.dtype)
         if self.mode == "int8_dynamic":
             y = w8a8_matmul(x, self.weight_q, self.scale)
-        else:
-            y = quantized_matmul(x, self.weight_q, self.scale)
-        return y + self.bias.to(y.dtype)
+            return y + self.bias.to(y.dtype)
+        return quantized_matmul(x, self.weight_q, self.scale, bias=self.bias)
 
 
 def make_dense(in_features: int, out_features: int, quant: str | None = None) -> nn.Module:

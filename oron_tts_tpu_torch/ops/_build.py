@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
 ``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
-``flash_bwd.cuh``, and with them ``wgmma.cuh``) exposes a plain C
+``flash_bwd.cuh``, and they and ``qmm`` share ``wgmma.cuh``) exposes a plain C
 interface and becomes its own shared library,
 ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
 root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
@@ -88,8 +88,11 @@ SIGNATURES = {
         "log_mel_fused": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "qmm": {
-        # x [M, K], w_q int8 [N, K], scale f32 [N], out [M, N], M, K, N, is_bf16, stream
-        "qmm_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x [M, K], w_q int8 [N, K], scale f32 [N], bias [N] in x's type or null,
+        # out [M, N], M, K, N, bm (quantized_matmul.qmm_plan), is_bf16, stream
+        "qmm_w8a16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # bm: blocks of the bf16 kernel an SM holds
+        "qmm_blocks_per_sm": (_I,),
     },
 }
 

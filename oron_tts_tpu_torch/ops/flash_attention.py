@@ -4,12 +4,13 @@
 attention on ``[B, T, H·D]`` tensors, keys at or beyond ``kv_lens[b]``
 masked, exactly as the JAX package's ``flash_attention_lanes`` forward.
 Every kernel of this module takes the head widths :func:`kernel_head_dim_ok`
-admits: any width from 1 to 128, and up to 256 in the forwards. The kernels
+admits: any width from 1 to 256, the lanes backward to 128 (the widest head
+the lanes rule admits). The kernels
 themselves take multiples of 8 (16-byte rows), so the wrappers zero-pad any
 other width to the next multiple of 8 (per head, inside ``[B, T, H·D]`` for
 the lanes layout), pass the score scale 1/√D of the true width, and slice
 the outputs and gradients back; inside, a width that is not a multiple of 16
-runs padded to the next one. A backward above 128 raises before any launch.
+runs padded to the next one. A wider head raises before any launch.
 
 - CUDA tensors launch ``csrc/flash_lanes.cu`` (bf16: ``wgmma`` tensor cores
   fed by a ``cp.async`` ring, ``csrc/flash_fwd.cuh``; f32: true-f32 SIMT), or
@@ -58,23 +59,27 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30  # the TPU kernel's key mask value
 LOG2_E = 1.4426950408889634
-FWD_MAX_HEAD_DIM = 256  # the forwards' widest head (csrc/flash_fwd.cuh)
-BWD_MAX_HEAD_DIM = 128  # the backwards' (csrc/flash_bwd.cuh)
+MAX_HEAD_DIM = 256  # the widest head (csrc/flash_fwd.cuh; flash_bwd.cuh, its wide variant)
+# The lanes backward keeps 128: the lanes rule (models/layers.py
+# resolve_attn_impl, after the JAX layers.py:484-500) sends no wider head to
+# the lanes kernels, so flash_lanes_bwd.cu builds no wider variant.
+LANES_BWD_MAX_HEAD_DIM = 128
 
 
-def kernel_head_dim_ok(dim_head: int, forward_only: bool = False) -> bool:
+def kernel_head_dim_ok(dim_head: int) -> bool:
     """Whether the attention kernels take this head width (either dtype).
 
-    Every kernel takes 1 to 128; with ``forward_only`` the forwards' 1 to 256.
+    Every classic kernel and the lanes forwards take 1 to 256; the lanes
+    backward stops at ``LANES_BWD_MAX_HEAD_DIM``, which the lanes rule never
+    exceeds.
     """
-    return 1 <= dim_head <= (FWD_MAX_HEAD_DIM if forward_only else BWD_MAX_HEAD_DIM)
+    return 1 <= dim_head <= MAX_HEAD_DIM
 
 
-def _width(name: str, dim_head: int, forward_only: bool) -> int:
+def _width(name: str, dim_head: int) -> int:
     """The kernel width for ``dim_head``: the next multiple of 8, or raise."""
-    if not kernel_head_dim_ok(dim_head, forward_only):
-        top = FWD_MAX_HEAD_DIM if forward_only else BWD_MAX_HEAD_DIM
-        raise ValueError(f"{name} takes head widths from 1 to {top}, got {dim_head}")
+    if not kernel_head_dim_ok(dim_head):
+        raise ValueError(f"{name} takes head widths from 1 to {MAX_HEAD_DIM}, got {dim_head}")
     return -(-dim_head // 8) * 8
 
 
@@ -182,7 +187,7 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _checked(name, q, k, v, kv_lens, heads, forward_only=True):
+def _checked(name, q, k, v, kv_lens, heads):
     """Validate a CUDA call's arguments.
 
     Returns q, k, v contiguous and padded to the kernel width dp, int32 lens,
@@ -198,7 +203,7 @@ def _checked(name, q, k, v, kv_lens, heads, forward_only=True):
     if HD % heads:
         raise ValueError(f"{name}: H·D = {HD} is not a multiple of heads = {heads}")
     d = HD // heads
-    dp = _width(name, d, forward_only)
+    dp = _width(name, d)
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (B,):
         raise ValueError(f"kv_lens must be [B]={B}, got {tuple(lens.shape)}")
@@ -263,8 +268,10 @@ def flash_lanes_bwd(q, k, v, kv_lens, out, dout, lse2, heads):
     from oron_tts_tpu_torch.ops import _build
 
     shape = q.shape
-    q, k, v, lens, d, dp = _checked("flash_lanes_bwd", q, k, v, kv_lens, heads,
-                                    forward_only=False)
+    if shape[-1] // heads > LANES_BWD_MAX_HEAD_DIM:
+        raise ValueError(f"flash_lanes_bwd takes head widths from 1 to "
+                         f"{LANES_BWD_MAX_HEAD_DIM}, got {shape[-1] // heads}")
+    q, k, v, lens, d, dp = _checked("flash_lanes_bwd", q, k, v, kv_lens, heads)
     B, T, _ = q.shape
     if out.shape != shape or dout.shape != shape or out.dtype != q.dtype:
         raise ValueError("out and dout must match q's shape and dtype")
@@ -350,7 +357,7 @@ def flash_attention_plain(q, k, v, kv_mask=None, kv_lens=None, use_exp2=True):
     return (acc / l).to(q.dtype)
 
 
-def _checked_classic(name, q, k, v, kv_lens, forward_only=True):
+def _checked_classic(name, q, k, v, kv_lens):
     """Validate a classic CUDA call.
 
     Returns q, k, v contiguous and padded to the kernel width dp, int32 lens
@@ -363,7 +370,7 @@ def _checked_classic(name, q, k, v, kv_lens, forward_only=True):
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v, got {q.dtype}")
     B, H, T, d = q.shape
-    dp = _width(name, d, forward_only)
+    dp = _width(name, d)
     if kv_lens is None:
         lens = torch.full((B,), T, dtype=torch.int32, device=q.device)
     else:
@@ -434,8 +441,7 @@ def flash_attention_bwd(q, k, v, kv_lens, out, dout):
     from oron_tts_tpu_torch.ops import _build
 
     shape = q.shape
-    q, k, v, lens, d, dp = _checked_classic("flash_attention_bwd", q, k, v, kv_lens,
-                                            forward_only=False)
+    q, k, v, lens, d, dp = _checked_classic("flash_attention_bwd", q, k, v, kv_lens)
     B, H, T, _ = q.shape
     if out.shape != shape or dout.shape != shape or out.dtype != q.dtype:
         raise ValueError("out and dout must match q's shape and dtype")

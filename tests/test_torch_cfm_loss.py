@@ -152,3 +152,41 @@ def test_gradient_checkpointing_leaves_gradients_unchanged():
     assert torch.equal(grads[0][0], grads[1][0])
     for a, b in zip(grads[0][1], grads[1][1]):
         assert torch.equal(a, b)  # the recomputation redraws the same masks
+
+
+def test_flash_loss_and_gradients_at_head_width_192_match_jax():
+    """F4: a training loss and its gradients through ``attn_impl="flash"``
+    with heads of 192 (two heads, dim 384), as the JAX package computes them
+    with its classic Pallas kernels in interpret mode. On the card the port
+    runs the classic backward's wide variant here; on the CPU its plain
+    version. Same tolerance as the lanes comparison above."""
+    from oron_tts_tpu_torch.config import ModelConfig
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    kw = dict(dim=384, depth=1, heads=2, dim_head=192, text_dim=32, conv_layers=1)
+    params = seeded_dit_params(ModelConfig(dim=384, depth=1, heads=2, text_dim=32,
+                                           conv_layers=1), seed=5)
+    mel, ids, lens, x0 = _batch(2)
+    j = jcfm.CFM(JDiT(**kw, dropout=0.0, attn_impl="flash"))
+
+    def j_loss(p):
+        return j.loss({"params": p}, jnp.asarray(mel), jnp.asarray(ids), jnp.asarray(lens),
+                      jax.random.PRNGKey(0), train=False, x0=jnp.asarray(x0))
+
+    j_val, j_grads = jax.value_and_grad(j_loss)(params)
+    ref_grads = from_flax_params(jax.device_get(j_grads))
+
+    dit = DiT(**kw, dropout=0.0, attn_impl="flash")
+    dit.load_state_dict(from_flax_params(params), strict=True)
+    assert dit.attn_impl == "flash"
+    cfm = tcfm.CFM(dit)
+    loss = cfm.loss(_t(mel), _t(ids), _t(lens), train=False, x0=_t(x0))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_val), rtol=1e-5)
+    named = dict(dit.named_parameters())
+    assert set(named) == set(ref_grads)
+    for name, ref in ref_grads.items():
+        got = named[name].grad
+        assert got is not None, name
+        scale = max(float(ref.abs().max()), 1e-8)
+        assert float((got - ref).abs().max()) <= 2e-4 * scale, name

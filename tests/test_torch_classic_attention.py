@@ -117,7 +117,7 @@ def test_flash_attention_packed_refuses_a_gradient():
 # ── kernel 7: the classic backward ──────────────────────────────────────
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128, 20, 12])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 20, 12, 136, 192, 256])
 def test_flash_attention_gradients_match_jax_grad(D):
     B, H, T = 2, 2, 128
     q, k, v, probe = _qkv((B, H, T, D), seed=10 + D, n=4)
@@ -138,6 +138,19 @@ def test_flash_attention_gradients_match_jax_grad(D):
                                    err_msg=f"d{name}")
         # the kv_len = 0 row gets the JAX kernel's non-zero gradients
         assert np.abs(got.numpy()[1]).max() > 1e-3 and np.abs(ref[1]).max() > 1e-3
+
+
+def test_backward_head_widths_reach_the_forwards():
+    """F4: the classic backward takes every width the forwards take, 1 to
+    256 (the JAX ``_flash_bwd_kernel`` takes any); above 256 every kernel
+    refuses, and the lanes backward keeps 128, as wide as the lanes rule goes."""
+    for d in range(1, 257):
+        assert tfa.kernel_head_dim_ok(d), d
+        assert tfa._width("flash_attention_bwd", d) == -(-d // 8) * 8
+    assert not tfa.kernel_head_dim_ok(257) and not tfa.kernel_head_dim_ok(0)
+    assert tfa.LANES_BWD_MAX_HEAD_DIM == 128
+    with pytest.raises(ValueError, match="from 1 to 256"):
+        tfa._width("flash_attention_bwd", 257)
 
 
 def test_flash_attention_trainable_defaults_lengths_to_t():
@@ -256,10 +269,11 @@ def _jax_conv_kernel(dim, groups):
 def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
     """Over a grid of (dim, heads) or (dim, groups), the shapes a JAX rule
     sends to its Pallas kernel are the shapes the port's kernels take: every
-    head width to 128 in every kernel (one that is not a multiple of 8 is
-    zero-padded by the wrappers), to 256 in the forwards. Wider heads raise,
-    the backward's above 128 (ROADMAP §3, F4). Decided from the shapes alone,
-    so no card is needed."""
+    head width to 256 in every kernel, the classic backward's too since F4
+    (one that is not a multiple of 8 is zero-padded by the wrappers), and the
+    lanes rule admits no head the lanes backward's 128 would refuse. Wider
+    heads raise (ROADMAP §3, F5). Decided from the shapes alone, so no card is
+    needed."""
     from oron_tts_tpu_torch.ops import grouped_conv as tgc
 
     checked = 0
@@ -288,11 +302,11 @@ def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
                         tl.resolve_attn_impl(heads, d, attn_impl="lanes")
                     assert tl.resolve_attn_impl(heads, d, use_flash=True) == "flash"
                     continue
+                assert d <= tfa.LANES_BWD_MAX_HEAD_DIM
             else:  # the JAX classic kernel takes any head width
                 assert tl.resolve_attn_impl(heads, d, attn_impl="flash") == "flash"
             checked += 1
-            assert tfa.kernel_head_dim_ok(d) == (d <= 128), (dim, heads)
-            assert tfa.kernel_head_dim_ok(d, forward_only=True) == (d <= 256), (dim, heads)
+            assert tfa.kernel_head_dim_ok(d) == (d <= 256), (dim, heads)
     assert checked > 20
 
 
@@ -303,7 +317,7 @@ def test_padded_width_keeps_the_scores_and_slices_back(D, heads):
     ``[B, T, H·D]``), so every score q·k is unchanged, and the slice back
     returns the tensor it padded."""
     q, k = (_t(x) for x in _qkv((2, 9, heads * D), seed=D, n=2))
-    dp = tfa._width("test", D, forward_only=True)
+    dp = tfa._width("test", D)
     assert dp % 8 == 0 and D <= dp < D + 8
     qp, kp = (tfa._pad_lanes(x, heads, dp) for x in (q, k))
     assert qp.shape == (2, 9, heads * dp)
@@ -315,10 +329,10 @@ def test_padded_width_keeps_the_scores_and_slices_back(D, heads):
     torch.testing.assert_close(sp, s, rtol=1e-6, atol=1e-6)
     qc = q.view(2, 9, heads, D).transpose(1, 2)
     assert torch.equal(tfa._unpad_last(tfa._pad_last(qc, dp), D), qc)
-    with pytest.raises(ValueError, match="from 1 to 128"):
-        tfa._width("flash_attention_bwd", 136, forward_only=False)
     with pytest.raises(ValueError, match="from 1 to 256"):
-        tfa._width("flash_attention", 264, forward_only=True)
+        tfa._width("flash_attention_bwd", 264)
+    with pytest.raises(ValueError, match="from 1 to 256"):
+        tfa._width("flash_attention", 264)
 
 
 # ── the bench entry point ───────────────────────────────────────────────

@@ -21,6 +21,7 @@ from oron_tts_tpu.models.dit import quantize_dit_params as j_quantize_dit_params
 from oron_tts_tpu.models.f5tts import F5TTS as JF5TTS
 from oron_tts_tpu.config import F5Config as JF5Config
 from oron_tts_tpu.config import ModelConfig as JModelConfig
+from oron_tts_tpu.models.layers import QDense as jl_QDense
 from oron_tts_tpu_torch.models import layers as tl
 from oron_tts_tpu_torch.models.dit import QUANT_TARGETS, DiT, quantize_dit_params
 from oron_tts_tpu_torch.utils.weights import from_flax_params, to_flax_params
@@ -211,3 +212,69 @@ def test_make_dense_and_qdense_bias_in_output_type():
     np.testing.assert_array_equal(q(x).detach().numpy(), want.detach().numpy())
     with pytest.raises(ValueError, match="unknown quant mode"):
         tl.QDense(4, 4, "int4")
+
+
+# ── the bias in the w8a16 epilogue ──────────────────────────────────────
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_quantized_matmul_bias_is_the_jax_qdense_order(dtype, m, k, n):
+    """``bias=`` gives the product rounded to x's dtype plus the bias in that
+    dtype, bit for bit the unfused add, and the JAX ``QDense`` arithmetic
+    (``quantized_matmul_ref`` then ``y + bias.astype(y.dtype)``)."""
+    rng = np.random.default_rng(m + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal(n)).astype(np.float32)
+    q_ref, s_ref = jq.quantize_weight(jnp.asarray(_weight(k, n, zero_cols=2)))
+    q, s = torch.from_numpy(np.asarray(q_ref).T.copy()), torch.from_numpy(np.array(s_ref))
+    t_dtype, j_dtype = getattr(torch, dtype), getattr(jnp, dtype)
+    tx, tb = torch.from_numpy(x).to(t_dtype), torch.from_numpy(bias)
+    fused = tq.quantized_matmul(tx, q, s, bias=tb)
+    unfused = tq.quantized_matmul(tx, q, s) + tb.to(t_dtype)
+    assert fused.dtype == t_dtype and torch.equal(fused, unfused)
+    assert torch.equal(tq.quantized_matmul_plain(tx, q, s, tb), fused)
+    y_ref = jq.quantized_matmul_ref(jnp.asarray(x, j_dtype), q_ref, s_ref)
+    ref = np.asarray((y_ref + jnp.asarray(bias).astype(y_ref.dtype)).astype(jnp.float32))
+    # the zero channels are the bias exactly, rounded once to x's dtype
+    np.testing.assert_array_equal(fused[:, :2].float().numpy(), ref[:, :2])
+    got = fused.float().numpy()
+    if dtype == "float32":
+        assert float(np.abs(got - ref).max()) <= 1e-5 * float(np.abs(ref).max())
+    else:
+        # the product may land one bf16 step from JAX's (f32 sums in another
+        # order); the add rounds once more, half a step of the sum
+        y = np.abs(np.asarray(y_ref.astype(jnp.float32)))
+        step = lambda a: 2.0 ** (np.floor(np.log2(np.maximum(a, 1e-30))) - 7)  # noqa: E731
+        assert (np.abs(got - ref) <= step(y) + step(np.abs(ref))).all()
+    with pytest.raises(ValueError, match="do not fit"):
+        tq.quantized_matmul(tx, q, s, bias=tb[:-1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qdense_with_a_bias_matches_the_jax_module(dtype):
+    """The port's ``QDense`` (int8) against the JAX ``QDense`` on the same
+    integers, scale and bias: f32 within 1e-5 of the largest value, bf16
+    within one bf16 step of each value."""
+    rng = np.random.default_rng(11)
+    k, n = 96, 40
+    w = _weight(k, n, seed=5, zero_cols=1)
+    bias = (0.3 * rng.standard_normal(n)).astype(np.float32)
+    x = rng.standard_normal((3, 7, k)).astype(np.float32)
+    q_ref, s_ref = jq.quantize_weight(jnp.asarray(w))
+    j_dtype, t_dtype = getattr(jnp, dtype), getattr(torch, dtype)
+    jmod = jl_QDense(features=n, dtype=j_dtype, mode="int8")
+    ref = np.asarray(jmod.apply({"params": {"kernel_q": q_ref, "scale": s_ref,
+                                            "bias": jnp.asarray(bias)}},
+                                jnp.asarray(x, j_dtype)).astype(jnp.float32))
+    layer = tl.QDense(k, n, "int8")
+    layer.weight_q = torch.from_numpy(np.asarray(q_ref).T.copy())
+    layer.scale = torch.from_numpy(np.array(s_ref))
+    layer.bias = torch.nn.Parameter(torch.from_numpy(bias).to(t_dtype), requires_grad=False)
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x)).float().numpy()
+    if dtype == "float32":
+        assert float(np.abs(got - ref).max()) <= 1e-5 * float(np.abs(ref).max())
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (np.abs(got - ref) <= ulp).all()
