@@ -11,11 +11,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build: ``nvcc`` builds every kernel of ``oron_tts_tpu_torch/csrc`` into
    ``build/torch_kernels/`` (one process per source, in parallel, each
    timed); where ``cuobjdump`` is found, the count of HGMMA (wgmma)
-   instructions in the SASS of each attention library and of the w8a16 one
-   (each must hold some, and the w8a16 one no HMMA); the bf16 forward body's
-   registers, spills and blocks an SM at each template width, with the
-   shared memory a block asks for; the w8a16 kernel's registers, spills,
-   wgmma serialisation and blocks an SM at each tile.
+   instructions in the SASS of each attention library, of the w8a16 one and
+   of the grouped conv (each must hold some, and the w8a16 and conv ones no
+   HMMA); the bf16 forward body's registers, spills and blocks an SM at
+   each template width, with the shared memory a block asks for; the w8a16
+   kernel's registers, spills, wgmma serialisation and blocks an SM at each
+   tile; the conv kernel's at each group width and rows a block
+   (``conv_build``).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
    library call's where one computes the same function, and its bound
@@ -30,15 +32,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
    body, 16 to 256, and at head widths 20, 12 and 40, which the wrappers
    zero-pad (f32 and bf16, a ``kv_len = 0`` row, odd H); the classic
    backward at every width of its body to 128, at 40, 20 and 12, and in its
-   wide variant at 136, 192 and 256 (also timed at 2,048 frames, heads of 192
-   and 256), the lanes one at 12 to 128 (with 2, 3, 5, 8 and 16 heads, a
-   ``kv_len = 0`` row's gradients exactly zero), and a classic backward at
-   head width 264 and a lanes one at 136 refused before any launch; the
-   w8a16 kernel at ragged shapes and at the Base and Small projections for
-   M = 1,664 to 13,312, timed one call at a time and from a CUDA graph
+   wide variant at 136, 192 and 256 (also timed at 2,048 frames, heads of 192,
+   256 and 320), the lanes one at 12 to 128 (with 2, 3, 5, 8 and 16 heads, a
+   ``kv_len = 0`` row's gradients exactly zero); heads wider than 256 (264,
+   320, 512 and 1,000: the kernels' wide bodies) through every classic
+   kernel and the lanes forward, bf16 and f32, the backward twice for
+   identical bits, and a lanes backward at 136 refused before any launch;
+   the w8a16 kernel at ragged shapes and at the Base and Small projections
+   for M = 1,664 to 13,312, timed one call at a time and from a CUDA graph
    beside bf16 ``F.linear``, its bias in the epilogue bit-equal to a
    separate add and two calls bit-equal, and ``QDense`` (int8) launching it
-   alone; the grouped conv at group widths 4, 8, 16, 32 and 128.
+   alone; the grouped conv at group widths 4, 8, 16, 32, 64 and 128 and at
+   ragged lengths (200, 60 and 1 frames), timed one call at a time and from
+   a CUDA graph at the Base shape (its kernel row) and at the Small and
+   training shapes (``cli.bench_conv``, ``conv_shapes``).
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -89,9 +96,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
     steps in bf16 on that config with dim 128 and one head (head width 128
     through the lanes kernels, the conv kernel at group width 8), two more
     with dim 384 and two heads of 192 (the classic "flash" kernels, the
-    backward's wide variant), and one synthesis of that config with dim 128
-    and a DiT of 5 heads of width 20 (seeded weights; the lanes kernels with
-    each head padded to 24), all on the card.
+    backward's wide variant), two more and a synthesis with dim 640 and two
+    heads of 320 (the classic kernels' wide bodies), and one synthesis of
+    that config with dim 128 and a DiT of 5 heads of width 20 (seeded
+    weights; the lanes kernels with each head padded to 24), all on the
+    card.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -256,13 +265,15 @@ def bit_identical(first, second) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-WGMMA_LIBS = ("flash_lanes", "flash_classic", "flash_lanes_bwd", "flash_classic_bwd", "qmm")
+WGMMA_LIBS = ("flash_lanes", "flash_classic", "flash_lanes_bwd", "flash_classic_bwd", "qmm",
+              "grouped_conv")
+NO_HMMA_LIBS = ("qmm", "grouped_conv")  # their bf16 tensor-core paths are wgmma alone
 
 
 def hgmma_counts(libs: dict) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
     library built on wgmma, by kernel. Each must hold some HGMMA; the w8a16
-    library must hold no HMMA (its bf16 path is wgmma alone)."""
+    and grouped-conv libraries must hold no HMMA."""
     import os
     import shutil
 
@@ -279,13 +290,13 @@ def hgmma_counts(libs: dict) -> dict:
         for chunk in sass.split("Function : ")[1:]:
             n = chunk.count("HGMMA")
             if n:
-                per_fn[chunk.split("\n", 1)[0].strip()[:70]] = n
+                per_fn[chunk.split("\n", 1)[0].strip()] = n
         hmma = sum(1 for line in sass.splitlines() if "HMMA." in line)
         counts[name] = {"total": sum(per_fn.values()), "hmma": hmma, "by_kernel": per_fn}
         if not per_fn:
             raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
-        if name == "qmm" and hmma:
-            raise AssertionError(f"qmm: {hmma} HMMA (mma.sync) instructions remain in its SASS")
+        if name in NO_HMMA_LIBS and hmma:
+            raise AssertionError(f"{name}: {hmma} HMMA (mma.sync) instructions remain in its SASS")
     return counts
 
 
@@ -358,6 +369,45 @@ def forward_build(log: str) -> dict:
         if row["blocks_per_sm"] < 1:
             raise AssertionError(f"the forward at width {dp} fits no SM: {row}")
     return {str(k): widths[k] for k in sorted(widths)}
+
+
+def conv_build(log: str) -> dict:
+    """Registers and spills of the bf16 grouped-conv kernel at each group
+    width and rows a block (``-Xptxas -v`` of ``grouped_conv``), the blocks an
+    SM holds at 31 taps (the occupancy API) and the dynamic shared memory a
+    block asks for, computed as ``conv_smem`` does (ptxas reports static
+    shared memory only, and the kernel has none)."""
+    import re
+
+    from oron_tts_tpu_torch.ops import _build
+    from oron_tts_tpu_torch.ops.grouped_conv import WGMMA_GROUP_WIDTHS
+
+    tiles, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"gconv_wgmmaILi(\d+)ELi(\d)E", line)
+        if m:
+            current = tiles.setdefault((int(m.group(1)), 128 * int(m.group(2))), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    lib = _build.load("grouped_conv")
+    for width in WGMMA_GROUP_WIDTHS:
+        bm = 256 if width <= 64 else 128  # rows a block, as grouped_conv.cu picks them
+        row = tiles.setdefault((width, bm), {})
+        taps = max(1, 128 // width)  # a ring slot's taps; four slots
+        row["smem_bytes_computed"] = 2 * (4 * taps * width * width
+                                          + (bm + -(-31 // taps) * taps - 1) * width)
+        row["blocks_per_sm"] = lib.grouped_conv_blocks_per_sm(width, 31)
+        if row["blocks_per_sm"] < 1:
+            raise AssertionError(f"the conv at width {width}, {bm} rows fits no SM: {row}")
+    return {f"{w}x{bm}": tiles[(w, bm)] for w, bm in sorted(tiles)}
 
 
 TRAIN_B, TRAIN_T = 12, 2048  # the single-chip training shape (Base, bf16)
@@ -641,7 +691,7 @@ def check_kernels(torch, F) -> list[dict]:
             nbytes = 2 * x.numel() * 2 + w.numel() * 2 + bias.numel() * 4
             b_ms, b_by = bound_ms(flops, H100_BF16_FLOPS, nbytes)
             row.update(
-                ms=cuda_ms(lambda: grouped_conv1d_mish(x, w, bias, G)),
+                **forward_times(lambda: grouped_conv1d_mish(x, w, bias, G)),
                 plain_ms=cuda_ms(lambda: grouped_conv1d_mish_plain(x, w, bias, G)),
                 library_ms=cuda_ms(lambda: mish(F.conv1d(xt, wt, bt, padding=K // 2, groups=G))),
                 library="F.conv1d groups 16 + Mish",
@@ -666,6 +716,14 @@ def check_kernels(torch, F) -> list[dict]:
                - grouped_conv1d_mish_plain(x.float(), w.float(), bias, G)).abs().max().item()
         report({"name": "grouped_conv1d_mish", "dtype": str(dtype), "shape": "edge T=200",
                 "max_abs_err": err, "tol": conv_tol})
+
+    # the conv at the Small and training shapes (the Base one is its kernel
+    # row above), as cli.bench_conv times them: one call at a time, from a
+    # CUDA graph, F.conv1d + Mish, the bound
+    from oron_tts_tpu_torch.cli import bench_conv
+
+    for conv_row in bench_conv.bench(["small", "train"]):
+        emit({"phase": "conv_shapes", **conv_row})
 
     # 3. fused log-mel: 10 s of seeded noise at 24 kHz
     cfg = MelConfig()
@@ -709,6 +767,7 @@ CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
 # the forward body's template widths, and 20, 12 and 40, which the wrappers
 # pad to 24, 16 and 40
 FWD_WIDTHS = tuple(range(16, 257, 16)) + (20, 12, 40)
+WIDE_HEADS = (264, 320, 512, 1000)  # above the template instances: the wide bodies (F5)
 BWD_SRC = "oron_tts_tpu_torch/csrc/flash_bwd.cuh"  # rows 5 and 7: one wgmma body
 # bench.py's synthesis protocol: 120 letters, 1,560 frames; its comment says
 # "bucketed to 1664", its arithmetic (and the facade's multiple of 64) 1,600
@@ -929,8 +988,9 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
     torch.cuda.empty_cache()
 
     # F4: the wide variant at the training shape's 2,048 frames, heads of 192
-    # and 256 (5 and 4 heads: the Base width's 1,024 columns or just under)
-    for D, Hw in ((192, 5), (256, 4)):
+    # and 256 (5 and 4 heads: the Base width's 1,024 columns or just under);
+    # F5: the wide bodies at heads of 320 (3 heads)
+    for D, Hw in ((192, 5), (256, 4), (320, 3)):
         q, k, v, do = qkv((B, Hw, T, D), bf16, 4)
         out = flash_attention(q, k, v, kv_lens=lens)
         got = flash_attention_bwd(q, k, v, lens, out, do)
@@ -945,6 +1005,7 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
                "shape": [B, Hw, T, D], "kept_keys": kept, **errs,
                "bit_identical_twice": same_bits,
                "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, lens, out, do), iters=5),
+               "forward_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens=lens), iters=5),
                "bound_ms": b_ms, "bound_by": b_by,
                **backward_passes(torch, "classic", q, k, v, lens, out, do)}
         qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -1016,31 +1077,77 @@ def check_classic_kernels(torch, F, report) -> list[dict]:
             raise AssertionError(f"lanes kernels at D = {D}: stats output {same}, two backward "
                                  f"calls equal {same_bits}, kv_len = 0 row zero {empty_zero}")
 
-    # the widest heads: a classic backward at 264 and a lanes backward at 136
-    # (the lanes rule admits no head over 128) raise before any launch
-    counts = (flash_lanes_bwd.launches, flash_attention_bwd.launches)
-    refused = []
-    for name, call in (
-        ("flash_lanes_bwd", lambda: flash_lanes_bwd(
-            *qkv((1, 64, 136), bf16), lens_of([64]), *qkv((1, 64, 136), bf16, 2),
-            torch.zeros(1, 1, 64, device=dev), 1)),
-        ("flash_attention_bwd", lambda: flash_attention_bwd(
-            *qkv((1, 2, 64, 264), bf16), lens_of([64]), *qkv((1, 2, 64, 264), bf16, 2))),
-    ):
-        try:
-            call()
-        except ValueError as exc:
-            refused.append(f"{name}: {exc}"[:120])
-    emit({"phase": "kernel_refusals", "head_dims": {"flash_lanes_bwd": 136,
-                                                    "flash_attention_bwd": 264},
-          "refused": refused})
-    if len(refused) != 2 or counts != (flash_lanes_bwd.launches, flash_attention_bwd.launches):
-        raise AssertionError(f"a backward wider than its kernel was not refused before launch: "
-                             f"{refused}")
+    # F5: heads wider than 256 (the kernels' wide bodies: D in chunks for S
+    # and dP, 128 output columns a block; f32: 64) through the classic
+    # forwards (exp2 and exp), the packed and no-softmax ones, the lanes
+    # forward with its statistics, and the classic backward, twice for
+    # identical bits; a kv_len = 0 row
+    for D in WIDE_HEADS:
+        for dtype in (bf16, f32):
+            q, k, v, do = qkv((2, 4, 200, D), dtype, 4)
+            lens = lens_of([137, 0])
+            qf, kf, vf = q.float(), k.float(), v.float()
+            for name, got, ref in (
+                ("flash_attention", flash_attention(q, k, v, kv_lens=lens),
+                 flash_attention_plain(qf, kf, vf, kv_lens=lens)),
+                ("flash_attention", flash_attention(q, k, v, kv_lens=lens, use_exp2=False),
+                 flash_attention_plain(qf, kf, vf, kv_lens=lens, use_exp2=False)),
+                ("flash_attention_packed", flash_attention_packed(q, k, v, kv_lens=lens),
+                 flash_attention_plain(qf, kf, vf, kv_lens=lens)),
+            ):
+                report({"name": name, "dtype": str(dtype), "shape": [2, 4, 200, D],
+                        "kv_lens": [137, 0], "wide": True,
+                        "max_abs_err": (got.float() - ref).abs().max().item(),
+                        "tol": fwd_tol[dtype]})
+            # the no-softmax output is no average: it grows with sqrt(D), and
+            # so does the count of weights q.k / T that round the other way
+            # (beyond the output's rounding, 6.6e-3 at D = 512 in bf16), so
+            # the wide rows are held to 1e-2 of the plain version's largest
+            # value (1e-5 in f32)
+            row = nosm_row(q, k, v)
+            report({**row, "wide": True, "max_rel_err": row["max_abs_err"] / row["ref_max"],
+                    "tol": grad_tol[dtype], "tol_on": "max_rel_err"})
+            ql, kl, vl = (x.transpose(1, 2).reshape(2, 200, 4 * D) for x in (q, k, v))
+            out, lse = flash_lanes_fwd_stats(ql, kl, vl, lens, 4)
+            ref_out, ref_lse = flash_lanes_fwd_stats_plain(ql.float(), kl.float(), vl.float(),
+                                                           lens, 4)
+            report({"name": "flash_lanes_fwd_stats", "dtype": str(dtype),
+                    "shape": [2, 200, 4 * D], "head_dim": D, "wide": True,
+                    "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                    "max_abs_err": (out.float() - ref_out).abs().max().item(),
+                    "tol": fwd_tol[dtype]})
+            out = flash_attention(q, k, v, kv_lens=lens)
+            got = flash_attention_bwd(q, k, v, lens, out, do)
+            same_bits = bit_identical(got, flash_attention_bwd(q, k, v, lens, out, do))
+            refs = flash_attention_bwd_plain(qf, kf, vf, lens, out.float(), do.float())
+            report({"name": "flash_attention_bwd", "dtype": str(dtype),
+                    "shape": [2, 4, 200, D], "kv_lens": [137, 0], "wide": True,
+                    **grad_errors(got, refs, grad_tol[dtype]), "bit_identical_twice": same_bits})
+            if not same_bits:
+                raise AssertionError(f"flash_attention_bwd at D = {D}: two calls differ")
+            del q, k, v, do, out, got, refs
 
-    # repairs: the grouped conv at group widths 16, 32 (the Small config) and
-    # 128 (PR 4), 8 and 4 (R3, the SIMT kernel in bf16)
-    for C, T in ((512, 832), (256, 200), (2048, 200), (128, 200), (64, 200)):
+    # the lanes backward stops at 128 (the lanes rule admits no wider head):
+    # a head of 136 raises before any launch
+    launched = flash_lanes_bwd.launches
+    try:
+        flash_lanes_bwd(*qkv((1, 64, 136), bf16), lens_of([64]), *qkv((1, 64, 136), bf16, 2),
+                        torch.zeros(1, 1, 64, device=dev), 1)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)[:120]
+    emit({"phase": "kernel_refusals", "head_dims": {"flash_lanes_bwd": 136}, "refused": refused})
+    if refused is None or launched != flash_lanes_bwd.launches:
+        raise AssertionError("a lanes backward at head width 136 was not refused before launch")
+
+    # the grouped conv at every group width of its wgmma kernel, 16, 32 (the
+    # Small config), 64 (Base) and 128, at 832 frames and at ragged lengths:
+    # 200, 60 (inside one block's rows) and a single frame; and at 8 and 4
+    # (R3, the SIMT kernel in bf16)
+    from oron_tts_tpu_torch.ops.grouped_conv import WGMMA_GROUP_WIDTHS
+
+    for C, T in ([(16 * wd, T) for wd in WGMMA_GROUP_WIDTHS for T in (832, 200, 60, 1)]
+                 + [(128, 200), (64, 200)]):
         for dtype, tol in ((f32, 1e-4), (bf16, 2e-2)):
             x = torch.randn(2, T, C, generator=gen, device=dev).to(dtype)
             w = (torch.randn(31, C // 16, C, generator=gen, device=dev)
@@ -2476,16 +2583,62 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         wall = time.perf_counter() - t0
         d192_counts = read_counts(wrappers)
         del trainer, model
-    emit({"phase": "widths_train_d192", "config": "configs/test.yaml + dim 384, heads 2, bf16",
-          "head_dim": 192, "attn_impl": impl, "steps": 2, "loss": [m["loss"] for m in losses],
-          "ok": [m["ok"] for m in losses], "wall_s": wall, "launches": d192_counts,
+        emit({"phase": "widths_train_d192",
+              "config": "configs/test.yaml + dim 384, heads 2, bf16", "head_dim": 192,
+              "attn_impl": impl, "steps": 2, "loss": [m["loss"] for m in losses],
+              "ok": [m["ok"] for m in losses], "wall_s": wall, "launches": d192_counts,
+              "card": smi})
+        if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses) and impl == "flash"
+                and d192_counts["flash_attention"] == 4
+                and d192_counts["flash_attention_bwd"] == 4):
+            raise AssertionError(f"head-192 bf16 training on flash: impl {impl}, launches "
+                                 f"{d192_counts}, steps {losses}")
+
+        # F5: two bf16 F5Trainer steps with two heads of 320 (dim 640, depth 2),
+        # wider than the kernels' template instances, so "flash" runs their
+        # wide bodies; then an 8-step synthesis of that config
+        config["model"] = {**config["model"], "dim": 640, "heads": 2, "depth": 2}
+        model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+        model.init_params(0)
+        trainer = F5Trainer(config, model, loader, log_dir=f"{tmp}/logs320",
+                            checkpoint_dir=f"{tmp}/ckpt320")
+        impl = model.backbone.attn_impl
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch, torch.Generator().manual_seed(step))
+                  for step in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d320_counts = read_counts(wrappers)
+        del trainer, model
+    emit({"phase": "widths_train_d320", "config": "configs/test.yaml + dim 640, heads 2, bf16",
+          "head_dim": 320, "attn_impl": impl, "steps": 2, "loss": [m["loss"] for m in losses],
+          "ok": [m["ok"] for m in losses], "wall_s": wall, "launches": d320_counts,
           "card": smi})
     if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses) and impl == "flash"
-            and d192_counts["flash_attention"] == 4 and d192_counts["flash_attention_bwd"] == 4):
-        raise AssertionError(f"head-192 bf16 training on flash: impl {impl}, launches "
-                             f"{d192_counts}, steps {losses}")
+            and d320_counts["flash_attention"] == 4 and d320_counts["flash_attention_bwd"] == 4):
+        raise AssertionError(f"head-320 bf16 training on flash: impl {impl}, launches "
+                             f"{d320_counts}, steps {losses}")
+    model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+    model.init_params(0)
+    model.load_vocoder()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    wav = model.synthesize(MN_TEXT, lang="mn", n_steps=8, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d320_synth = read_counts(wrappers)
+    impl, depth = model.backbone.attn_impl, model.config.model.depth
+    del model
+    emit({"phase": "widths_synthesis_d320", "config": "configs/test.yaml + dim 640, heads 2",
+          "head_dim": 320, "attn_impl": impl, "steps": 8, "wall_s": wall, "samples": len(wav),
+          "launches": d320_synth, "card": smi})
+    if (d320_synth["flash_attention"] != 8 * depth or impl != "flash"
+            or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
+        raise AssertionError(f"heads of 320: launches {d320_synth}, impl {impl}, finite sound "
+                             f"{bool(np.isfinite(wav).all())}")
     return {n: synth_counts[n] + d20_counts[n] + train_counts[n] + d128_counts[n]
-            + d192_counts[n] for n in wrappers}
+            + d192_counts[n] + d320_counts[n] + d320_synth[n] for n in wrappers}
 
 
 def main() -> int:
@@ -2518,6 +2671,7 @@ def main() -> int:
     emit({"phase": "sass", "hgmma": hgmma_counts(libs)})
     emit({"phase": "forward_build", "by_width": forward_build(logs.get("flash_classic", ""))})
     emit({"phase": "qmm_build", "by_tile": qmm_build(logs.get("qmm", ""))})
+    emit({"phase": "conv_build", "by_tile": conv_build(logs.get("grouped_conv", ""))})
 
     seconds = {}
 

@@ -10,9 +10,11 @@
 // q, k, v and o are [B, H, T, D], contiguous, bf16 or f32; kv_lens [B] int32
 // is read for every (b, h) row, as the TPU kernels read their [B*H] copy. The
 // device body is flash_fwd.cuh's with the classic Layout (row stride D): the
-// lanes kernels' body with another stride. D is a multiple of 8 from 8 to
-// 256 (the wrapper zero-pads any other width and passes the scale of the
-// true one); a width that is not a multiple of 16 runs padded to the next one.
+// lanes kernels' body with another stride. D is any multiple of 8 (the
+// wrapper zero-pads any other width and passes the scale of the true one); to
+// 256 a width that is not a multiple of 16 runs padded to the next one, above
+// 256 the body's wide form runs (attn_fwd_wide: D in chunks for S, one part
+// of 128 output columns a block).
 //
 // flash_classic_fwd: one block of two warpgroups per (128 query rows, head,
 // batch row); exp2 of s*scale*log2(e) or (use_exp2 = 0) exp of s*scale. The
@@ -46,11 +48,8 @@ extern "C" int flash_classic_fwd(const void* q, const void* k, const void* v,
                                  const void* kv_lens, void* out, int B, int H, int T,
                                  int Dh, float scale, int use_exp2, int is_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
-    constexpr int DP = decltype(d)::value;
-    return launch_fwd<DP, SOFTMAX>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
-                                   classic_layout(T, H, Dh), scale, use_exp2, is_bf16, st);
-  });
+  return launch_fwd_any<SOFTMAX>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
+                                 classic_layout(T, H, Dh), scale, use_exp2, is_bf16, st);
 }
 
 extern "C" int flash_packed_fwd(const void* q, const void* k, const void* v,
@@ -58,21 +57,15 @@ extern "C" int flash_packed_fwd(const void* q, const void* k, const void* v,
                                 int Dh, float scale, int is_bf16, void* stream) {
   if (H % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
-    constexpr int DP = decltype(d)::value;
-    return launch_fwd<DP, SOFTMAX>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
-                                   classic_layout(T, H, Dh), scale, 1, is_bf16, st);
-  });
+  return launch_fwd_any<SOFTMAX>(q, k, v, kv_lens, out, nullptr, B, T, H, Dh,
+                                 classic_layout(T, H, Dh), scale, 1, is_bf16, st);
 }
 
 extern "C" int flash_nosm(const void* q, const void* k, const void* v, void* out, int B,
                           int H, int T, int Dh, int is_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
-    constexpr int DP = decltype(d)::value;
-    return launch_fwd<DP, NOSM>(q, k, v, nullptr, out, nullptr, B, T, H, Dh,
-                                classic_layout(T, H, Dh), 1.f / (float)T, 1, is_bf16, st);
-  });
+  return launch_fwd_any<NOSM>(q, k, v, nullptr, out, nullptr, B, T, H, Dh,
+                              classic_layout(T, H, Dh), 1.f / (float)T, 1, is_bf16, st);
 }
 
 // Blocks of the bf16 forward (every entry above and the lanes ones run it)

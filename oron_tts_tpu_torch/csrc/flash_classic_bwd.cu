@@ -3,11 +3,12 @@
 // Replaces the TPU kernel oron_tts_tpu/ops/flash_attention.py:749
 // (_flash_bwd_kernel, called by _flash_bwd :831, the VJP of
 // flash_attention_trainable :874): dq, dk, dv of [B, H, T, D] q, k, v from
-// the forward's output and its gradient. Head widths: multiples of 8 from 8
-// to 256, as the forward (the wrapper zero-pads any other width to the next
-// multiple of 8 and passes the scale of the true one); above 128 the body's
-// wide variant runs (flash_bwd.cuh, BwdTile). The TPU kernel takes any width;
-// above 256 the wrapper raises (ROADMAP, F5).
+// the forward's output and its gradient. Head widths: every multiple of 8,
+// as the forward and the TPU kernel (the wrapper zero-pads any other width to
+// the next multiple of 8 and passes the scale of the true one); from 136 to
+// 256 the body's wide variant runs (flash_bwd.cuh, BwdTile), above 256 its
+// chunked bodies (bwd_dq_wide, bwd_dkdv_wide), one part of 128 columns of dQ,
+// or of dK and dV, a block.
 //
 // Like the TPU kernel it receives no saved statistics: pass A of
 // flash_bwd.cuh (CLASSIC) first sweeps S over the keys below kv_len and
@@ -39,9 +40,16 @@ extern "C" int flash_classic_bwd(const void* q, const void* k, const void* v,
                                  int B, int H, int T, int Dh, float scale, int is_bf16,
                                  int passes, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Layout lay = classic_layout(T, H, Dh);
+  if (!is_bf16)
+    return launch_bwd_f32(q, k, v, out, dout, lse, kv_lens, delta, dq, dk, dv, B, T, H, Dh, lay,
+                          scale, 1, passes, st);
+  if (Dh > FWD_MAX_DH)
+    return launch_bwd_wide(q, k, v, out, dout, lse, kv_lens, delta, dq, dk, dv, B, T, H, Dh, lay,
+                           scale, passes, st);
   return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
     constexpr int DP = decltype(d)::value;
     return launch_bwd<DP, true>(q, k, v, out, dout, lse, kv_lens, delta, dq, dk, dv, B, T, H,
-                                Dh, classic_layout(T, H, Dh), scale, is_bf16, passes, st);
+                                Dh, lay, scale, passes, st);
   });
 }

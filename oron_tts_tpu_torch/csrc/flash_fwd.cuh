@@ -57,6 +57,8 @@
 // Shared memory is 2 * (128 + 5 * 64) * DP bytes: 229,376 at DP = 256 (the
 // limit is 232,448). Up to DP = 64 two blocks share an SM (128 registers a
 // thread), so the synthesis shape's 224 blocks fit in one wave of 264.
+// Wider heads take the wide body below (attn_fwd_wide): D cut into chunks for
+// S and into parts of 128 output columns, one part a block.
 //
 // The TPU kernels hold a whole key row in VMEM and run a two-pass softmax; a
 // thread block cannot hold that, so keys stream with the online softmax
@@ -65,8 +67,9 @@
 // to fill its 128-lane matrix unit; here one head's K/V tile is shared by 128
 // query rows instead, and the packed launch covers both heads of every pair.
 //
-// f32 inputs take a SIMT path in true f32, one query row per thread (the
-// reference path of the checks; not tuned).
+// f32 inputs take a SIMT body in true f32 at every width, one query row a
+// thread and 64 output columns a block (the reference path of the checks;
+// not tuned).
 #pragma once
 
 #include <type_traits>
@@ -196,6 +199,49 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, size
   }
 }
 
+// S_j, this thread's fragment of an m64n64 score tile (rows r0 and r0 + 8,
+// keys j * 64 + 8i + 2 * t4 + e), in place to its softmax weights (or, NOSM,
+// to S_j / T); updates the running max m and sum l of the two rows and gives
+// the factor a that rescales O. Only the last tile masks keys.
+template <int MODE>
+__device__ __forceinline__ void tile_softmax(float* s, int j, int limit, float s_scale, int t4,
+                                             float* m_i, float* l_i, float* a) {
+  if (MODE == NOSM) {
+#pragma unroll
+    for (int i = 0; i < KV_TILE / 2; ++i) s[i] *= s_scale;
+    return;
+  }
+  const int k0 = j * KV_TILE;
+  const bool ragged = k0 + KV_TILE > limit;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < KV_TILE / 2; ++i) {
+    const bool keep = !ragged || k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) < limit;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], keep ? s[i] : -INFINITY);
+  }
+  float nm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // the tile holds a kept key, so the max is finite; the scale is >= 0
+    const float m_new = fmaxf(m_i[r], mx[r] * s_scale);
+    a[r] = exp2_approx(m_i[r] - m_new);  // 0 on the first tile
+    m_i[r] = m_new;
+    nm[r] = -m_new;
+    l_i[r] *= a[r];
+  }
+#pragma unroll
+  for (int i = 0; i < KV_TILE / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float e = exp2_approx(fmaf(s[i], s_scale, nm[r]));
+    // -inf * 0 would be NaN where the scale is 0 (kv_len <= 0 rows)
+    if (ragged && k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) >= limit) e = 0.f;
+    s[i] = e;
+    l_i[r] += e;
+  }
+}
+
 // ------------------------------------------------------- bf16 (wgmma)
 
 template <int DP>
@@ -278,51 +324,13 @@ attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     for (int kk = 0; kk < KV_TILE / 16; ++kk) wgmma_rs_wide<KV_TILE, DP>(oacc, p + 4 * kk, Vt, kk);
     wg::commit();
   };
-  // S_j in place to its weights (or, NOSM, to S_j / T); alpha rescales O
-  auto softmax = [&](int j, float* a) {
-    if (MODE == NOSM) {
-#pragma unroll
-      for (int i = 0; i < KV_TILE / 2; ++i) s[i] *= s_scale;
-      return;
-    }
-    const int k0 = j * KV_TILE;
-    const bool ragged = k0 + KV_TILE > limit;  // only the last tile masks keys
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < KV_TILE / 2; ++i) {
-      const bool keep = !ragged || k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) < limit;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], keep ? s[i] : -INFINITY);
-    }
-    float nm[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // the tile holds a kept key, so the max is finite; the scale is >= 0
-      const float m_new = fmaxf(m_i[r], mx[r] * s_scale);
-      a[r] = exp2_approx(m_i[r] - m_new);  // 0 on the first tile
-      m_i[r] = m_new;
-      nm[r] = -m_new;
-      l_i[r] *= a[r];
-    }
-#pragma unroll
-    for (int i = 0; i < KV_TILE / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      float e = exp2_approx(fmaf(s[i], s_scale, nm[r]));
-      // -inf * 0 would be NaN where the scale is 0 (kv_len <= 0 rows)
-      if (ragged && k0 + (i >> 2) * 8 + t4 * 2 + (i & 1) >= limit) e = 0.f;
-      s[i] = e;
-      l_i[r] += e;
-    }
-  };
-
   float alpha[2] = {1.f, 1.f};
   next_tile(0);  // tile 0: S and its weights; O is still 0
   wg::fence();
   scores(0);
   wg::wait<0>();
   wg::fence_regs<KV_TILE / 2>(s);
-  softmax(0, alpha);
+  tile_softmax<MODE>(s, 0, limit, s_scale, t4, m_i, l_i, alpha);
 #pragma unroll
   for (int kk = 0; kk < KV_TILE / 16; ++kk) acc_to_a(s, kk, p + 4 * kk);
   // no branch around a wgmma below: ptxas would serialise them all
@@ -333,7 +341,7 @@ attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     pv(j - 1);
     wg::wait<1>();  // S_j alone: O += P_{j-1} V_{j-1} runs on under the softmax
     wg::fence_regs<KV_TILE / 2>(s);
-    softmax(j, alpha);
+    tile_softmax<MODE>(s, j, limit, s_scale, t4, m_i, l_i, alpha);
     wg::wait<0>();
     wg::fence_regs<DP / 2>(oacc);
 #pragma unroll
@@ -367,26 +375,36 @@ attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 }
 
 // ------------------------------------------------------------ f32 (SIMT)
+//
+// f32 at every head width (the reference path of the checks, not tuned):
+// one query row a thread and one part of F32_PART output columns a block;
+// q.k is summed in column order over chunks of F32_CHUNK columns staged in
+// shared memory, so shared memory and registers do not grow with D.
 
-constexpr int F32_ROWS = 64;  // query rows (threads) per block
-constexpr int F32_KEYS = 32;  // keys per shared-memory tile
+constexpr int F32_ROWS = 64;   // query rows (threads) per block
+constexpr int F32_KEYS = 32;   // keys per shared-memory tile
+constexpr int F32_CHUNK = 32;  // columns of Q and K a chunk stages
+constexpr int F32_PART = 64;   // output columns a block owns
 
-template <int D, int MODE>
+__host__ __device__ inline int f32_parts(int dh) { return (dh + F32_PART - 1) / F32_PART; }
+
+// Grid (ceil(T / 64) * parts, H, B); STATS runs one part (no output).
+template <int MODE>
 __global__ void __launch_bounds__(F32_ROWS)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ kv_lens,
-             float* __restrict__ o, float* __restrict__ lse, int T, int dh,
-             Layout lay, float scale, int use_exp2) {
-  extern __shared__ float fsm[];
+             float* __restrict__ o, float* __restrict__ lse, int T, int dh, Layout lay,
+             float scale, int use_exp2) {
+  __shared__ float Ks[F32_KEYS][F32_CHUNK];
+  __shared__ float Qs[F32_ROWS][F32_CHUNK + 1];
+  __shared__ float Vs[F32_KEYS][F32_PART];
   const int tid = threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  float* Ks = fsm;
-  float* Vs = Ks + F32_KEYS * D;
-  const int row = blockIdx.x * F32_ROWS + tid;
+  const int parts = MODE == STATS ? 1 : f32_parts(dh);
+  const int part = blockIdx.x % parts, col0 = part * F32_PART;
+  const int q0 = blockIdx.x / parts * F32_ROWS, row = q0 + tid;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y, rs = lay.row_stride;
   const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
-  const int rs = lay.row_stride;
   const bool ex2 = MODE == STATS ? true : use_exp2 != 0;
-
   int limit;
   float s_scale;
   if (MODE == NOSM) {
@@ -396,41 +414,61 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     key_limit(kv_lens[b], T, scale, limit, s_scale);
   }
 
-  float qr[D], acc[D];
+  float acc[F32_PART];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row < T && d < dh ? q[base + (size_t)row * rs + d] : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int d = 0; d < F32_PART; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
   for (int k0 = 0; k0 < limit; k0 += F32_KEYS) {
-    __syncthreads();
-    for (int idx = tid; idx < F32_KEYS * D; idx += F32_ROWS) {
-      const int r = idx / D, c = idx % D;
-      const bool ok = k0 + r < T && c < dh;
-      Ks[idx] = ok ? k[base + (size_t)(k0 + r) * rs + c] : 0.f;
-      if (MODE != STATS) Vs[idx] = ok ? v[base + (size_t)(k0 + r) * rs + c] : 0.f;
+    float dot[F32_KEYS];
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) dot[j] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += F32_CHUNK) {
+      __syncthreads();
+      for (int idx = tid; idx < F32_KEYS * F32_CHUNK; idx += F32_ROWS) {
+        const int r = idx / F32_CHUNK, c = idx % F32_CHUNK;
+        const bool ok = k0 + r < T && c0 + c < dh;
+        Ks[r][c] = ok ? k[base + (size_t)(k0 + r) * rs + c0 + c] : 0.f;
+      }
+      for (int idx = tid; idx < F32_ROWS * F32_CHUNK; idx += F32_ROWS) {
+        const int r = idx / F32_CHUNK, c = idx % F32_CHUNK;
+        const bool ok = q0 + r < T && c0 + c < dh;
+        Qs[r][c] = ok ? q[base + (size_t)(q0 + r) * rs + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < F32_CHUNK; ++c) {
+        const float qv = Qs[tid][c];
+#pragma unroll
+        for (int j = 0; j < F32_KEYS; ++j) dot[j] = fmaf(qv, Ks[j][c], dot[j]);
+      }
     }
-    __syncthreads();
+    if (MODE != STATS) {
+      __syncthreads();
+      for (int idx = tid; idx < F32_KEYS * F32_PART; idx += F32_ROWS) {
+        const int r = idx / F32_PART, c = idx % F32_PART;
+        const bool ok = k0 + r < T && col0 + c < dh;
+        Vs[r][c] = ok ? v[base + (size_t)(k0 + r) * rs + col0 + c] : 0.f;
+      }
+      __syncthreads();
+    }
     const int n = min(F32_KEYS, limit - k0);
-    for (int j = 0; j < n; ++j) {
-      float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j * D + d], dot);
+    for (int j = 0; j < F32_KEYS; ++j) {
+      if (j >= n) break;
       if (MODE == NOSM) {
-        const float p = dot * s_scale;
+        const float p = dot[j] * s_scale;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d]);
+        for (int d = 0; d < F32_PART; ++d) acc[d] = fmaf(p, Vs[j][d], acc[d]);
         continue;
       }
-      const float sv = dot * s_scale;
+      const float sv = dot[j] * s_scale;
       const float mn = fmaxf(m, sv);
       const float corr = ex2 ? exp2f(m - mn) : expf(m - mn);
       const float p = ex2 ? exp2f(sv - mn) : expf(sv - mn);
       l = l * corr + p;
       if (MODE != STATS) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d] * corr);
+        for (int d = 0; d < F32_PART; ++d) acc[d] = fmaf(p, Vs[j][d], acc[d] * corr);
       }
       m = mn;
     }
@@ -439,12 +477,171 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = MODE == NOSM ? 1.f : fmaxf(l, 1e-30f);
     if (MODE != STATS) {
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        if (d < dh) o[base + (size_t)row * rs + d] = acc[d] / denom;
+      for (int d = 0; d < F32_PART; ++d)
+        if (col0 + d < dh) o[base + (size_t)row * rs + col0 + d] = acc[d] / denom;
     }
-    if (MODE != NOSM && lse != nullptr)
+    if (MODE != NOSM && lse != nullptr && part == 0)
       lse[((size_t)b * H + h) * T + row] = m + log2f(denom);
   }
+}
+
+// ------------------------------------------ head widths above 256 (wide)
+//
+// Above 256 columns neither Q [128][DP] in shared memory nor an m64nDP
+// accumulator fits, so the wide bodies cut D twice: the products over D
+// (S = Q K^T here; dP = dO V^T in the backward) run over column chunks of
+// WIDE_CHUNK staged one at a time, and a block owns one part of WIDE_PART
+// output columns (of O here; of dQ, or of dK and dV, in the backward), the
+// grid's x dimension holding (row tile, part) with the part fastest. Every
+// part recomputes S over the full width, which costs ceil(D / 128) times the
+// score products; shared memory and registers do not grow with D, so one
+// instance serves every width (bf16 widths to 256 keep attn_fwd_wgmma).
+// Columns past dh land as zeros (cp.async's source size) and are never
+// stored. Each step of the ring is one unit: a chunk of the score product,
+// or the part of V for the PV product; copies run two units ahead.
+
+constexpr int WIDE_CHUNK = 64;   // columns of Q and K a ring unit stages
+constexpr int WIDE_PART = 128;   // output columns a block owns
+constexpr int WIDE_SLOTS = 3;    // ring slots: a unit in use, two in flight
+
+__host__ __device__ inline int wide_parts(int dh) { return (dh + WIDE_PART - 1) / WIDE_PART; }
+
+// issue(u) copies unit u into slot u % WIDE_SLOTS and commits one cp.async
+// group; past the last unit an empty group keeps the count.
+template <typename Issue>
+__device__ __forceinline__ void wide_issue(int u, int n_units, Issue&& issue) {
+  if (u < n_units) {
+    issue(u);
+  } else {
+    wg::cp_commit();
+  }
+}
+
+// The ring's first copies, units 0 .. WIDE_SLOTS - 2.
+template <typename Issue>
+__device__ __forceinline__ void wide_start(int n_units, Issue&& issue) {
+#pragma unroll
+  for (int u = 0; u < WIDE_SLOTS - 1; ++u) wide_issue(u, n_units, issue);
+}
+
+// Unit u has landed for every thread, which is also past its reads (and its
+// products' reads) of unit u - 1; then unit u + WIDE_SLOTS - 1's copy starts,
+// into that unit's slot.
+template <typename Issue>
+__device__ __forceinline__ void wide_step(int u, int n_units, Issue&& issue) {
+  wg::cp_wait<WIDE_SLOTS - 2>();
+  wg::fence_async_proxy();
+  __syncthreads();
+  wide_issue(u + WIDE_SLOTS - 1, n_units, issue);
+}
+
+struct FwdWide {  // a slot: Q [128][CHUNK] and K [64][CHUNK], or V [64][PART]
+  static constexpr int SLOT = (BLOCK_ROWS + KV_TILE) * WIDE_CHUNK;
+  static constexpr size_t BYTES = (size_t)WIDE_SLOTS * SLOT * 2;
+};
+static_assert(KV_TILE * WIDE_PART <= FwdWide::SLOT, "a V part fits a slot");
+
+// Grid (ceil(T / 128) * wide_parts(dh), H, B); as attn_fwd_wgmma otherwise.
+template <int MODE>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+attn_fwd_wide(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int dh,
+              Layout lay, float scale_log2) {
+  static_assert(MODE == SOFTMAX || MODE == NOSM, "bf16 STATS is not built");
+  constexpr int CH = WIDE_CHUNK, NP = WIDE_PART;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int parts = wide_parts(dh), part = blockIdx.x % parts, col0 = part * NP;
+  const int q0 = blockIdx.x / parts * BLOCK_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y, rs = lay.row_stride;
+  const size_t base = (size_t)b * lay.batch_stride + (size_t)h * lay.head_stride;
+  int limit;
+  float s_scale;
+  if (MODE == NOSM) {
+    limit = T;
+    s_scale = scale_log2;  // 1 / T
+  } else {
+    key_limit(kv_lens[b], T, scale_log2, limit, s_scale);
+  }
+  const int r0 = 64 * wgi + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int n_tiles = (limit + KV_TILE - 1) / KV_TILE;
+  const int nch = (dh + CH - 1) / CH, per_tile = nch + 1, n_units = n_tiles * per_tile;
+
+  auto issue = [&](int u) {  // tile j's chunk c of Q and K, or (c = nch) its V part
+    __nv_bfloat16* slot = ring + (u % WIDE_SLOTS) * FwdWide::SLOT;
+    const int j = u / per_tile, c = u % per_tile;
+    if (c < nch) {
+      load_core_tile<BLOCK_ROWS, CH>(slot, q, base + c * CH, q0, T, dh - c * CH, rs, tid);
+      load_core_tile<KV_TILE, CH>(slot + BLOCK_ROWS * CH, k, base + c * CH, j * KV_TILE, T,
+                                  dh - c * CH, rs, tid);
+    } else {
+      load_core_tile<KV_TILE, NP>(slot, v, base + col0, j * KV_TILE, T, dh - col0, rs, tid);
+    }
+    wg::cp_commit();
+  };
+
+  float oacc[NP / 2], s[KV_TILE / 2];
+  uint32_t p[KV_TILE / 4];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) oacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KV_TILE / 2; ++i) s[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+
+  wide_start(n_units, issue);
+  int u = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    for (int c = 0; c < nch; ++c, ++u) {  // S_j = Q K_j^T, chunk by chunk
+      wide_step(u, n_units, issue);
+      const __nv_bfloat16* Qc = ring + (u % WIDE_SLOTS) * FwdWide::SLOT;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wg::wgmma_ss<KV_TILE>(s, desc_k<BLOCK_ROWS>(Qc, 64 * wgi, kk),
+                              desc_k<KV_TILE>(Qc + BLOCK_ROWS * CH, 0, kk), c > 0 || kk > 0);
+      wg::commit();
+      wg::wait<0>();
+    }
+    wg::fence_regs<KV_TILE / 2>(s);
+    tile_softmax<MODE>(s, j, limit, s_scale, t4, m_i, l_i, alpha);
+    if (MODE != NOSM) {
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KV_TILE / 16; ++kk) acc_to_a(s, kk, p + 4 * kk);
+    wide_step(u, n_units, issue);  // O += P_j V_j, the block's columns
+    const __nv_bfloat16* Vt = ring + (u % WIDE_SLOTS) * FwdWide::SLOT;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_TILE / 16; ++kk)
+      wg::wgmma_rs_t<NP>(oacc, p + 4 * kk, desc_mn<KV_TILE>(Vt, kk));
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs<NP / 2>(oacc);
+    ++u;
+  }
+
+  float den[2] = {1.f, 1.f};
+  if (MODE != NOSM) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = l_i[r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      den[r] = fmaxf(x, 1e-30f);
+    }
+    if (lse != nullptr && part == 0 && t4 == 0) {
+      float* lse_row = lse + ((size_t)b * H + h) * T;
+      if (q0 + r0 < T) lse_row[q0 + r0] = m_i[0] + log2f(den[0]);
+      if (q0 + r0 + 8 < T) lse_row[q0 + r0 + 8] = m_i[1] + log2f(den[1]);
+    }
+  }
+  store_rows<NP>(o, base + col0, q0 + r0, T, dh - col0, rs, oacc, t4, den[0], den[1]);
 }
 
 // ------------------------------------------------------------------ host
@@ -456,39 +653,42 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// One launch of the forward; q/k/v/o are bf16 (is_bf16) or f32. scale is the
-// score scale of the true head width (1/T for NOSM); use_exp2 picks exp2 of
-// s * scale * log2(e) or exp of s * scale, the same softmax. STATS is f32 only.
+// One launch of the bf16 forward at padded width D (SOFTMAX or NOSM). scale
+// is the score scale of the true head width (1/T for NOSM); the body takes
+// s * scale * log2(e) through exp2 whether the caller asked for exp2 or exp,
+// the same softmax.
 template <int D, int MODE>
 inline int launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
                       void* o, float* lse, int B, int T, int H, int dh, Layout lay,
-                      float scale, int use_exp2, int is_bf16, cudaStream_t st) {
+                      float scale, cudaStream_t st) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
+  auto kern = attn_fwd_wgmma<D, MODE>;
+  const size_t smem = FwdSmem<D>::BYTES;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
+  kern<<<grid, BLOCK_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(o), lse, T, dh, lay, MODE == NOSM ? scale : LOG2E * scale);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the f32 forward at any head width dh (a multiple of 8);
+// use_exp2 picks exp2 of s * scale * log2(e) or exp of s * scale. STATS
+// (use_exp2 set) writes lse2 alone and runs one part.
+template <int MODE>
+inline int launch_fwd_f32(const float* q, const float* k, const float* v, const void* kv_lens,
+                          float* o, float* lse, int B, int T, int H, int dh, Layout lay,
+                          float scale, int use_exp2, cudaStream_t st) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  if (dh < 8 || dh % 8) return (int)cudaErrorInvalidValue;
   const float scale_exp2 = MODE == NOSM ? scale : LOG2E * scale;
-  cudaError_t err;
-  if constexpr (MODE != STATS) {
-    if (is_bf16) {
-      auto kern = attn_fwd_wgmma<D, MODE>;
-      const size_t smem = FwdSmem<D>::BYTES;
-      if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
-      dim3 grid((T + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
-      kern<<<grid, BLOCK_THREADS, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
-          static_cast<__nv_bfloat16*>(o), lse, T, dh, lay, scale_exp2);
-      return (int)cudaGetLastError();
-    }
-  } else if (is_bf16) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto kern = attn_fwd_f32<D, MODE>;
-  const size_t smem = 2 * F32_KEYS * D * sizeof(float);
-  if ((err = allow_smem(kern, smem)) != cudaSuccess) return (int)err;
-  dim3 grid((T + F32_ROWS - 1) / F32_ROWS, H, B);
-  kern<<<grid, F32_ROWS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(kv_lens), static_cast<float*>(o), lse, T, dh, lay,
-      use_exp2 || MODE == STATS ? scale_exp2 : scale, use_exp2);
+  const int parts = MODE == STATS ? 1 : f32_parts(dh);
+  dim3 grid((T + F32_ROWS - 1) / F32_ROWS * parts, H, B);
+  attn_fwd_f32<MODE><<<grid, F32_ROWS, 0, st>>>(q, k, v, static_cast<const int*>(kv_lens), o,
+                                                lse, T, dh, lay,
+                                                use_exp2 ? scale_exp2 : scale, use_exp2);
   return (int)cudaGetLastError();
 }
 
@@ -503,6 +703,9 @@ inline int fwd_blocks_per_sm() {
                                                       FwdSmem<DP>::BYTES);
   return err == cudaSuccess ? n : -(int)err;
 }
+
+// the widest head of the template instances; wider ones take the wide body
+constexpr int FWD_MAX_DH = 256;
 
 // Calls fn(std::integral_constant<int, DP>) with DP the head width dh
 // rounded up to a multiple of 16 (the wgmma depth); dh must be a multiple of
@@ -538,8 +741,43 @@ inline int with_padded_dim(int dh, Fn fn) {
   return (int)cudaErrorInvalidValue;
 }
 
-// the forwards' widest head
-constexpr int FWD_MAX_DH = 256;
+// One launch of the bf16 wide forward (dh above 256, a multiple of 8);
+// arguments as launch_fwd's.
+template <int MODE>
+inline int launch_fwd_wide(const void* q, const void* k, const void* v, const void* kv_lens,
+                           void* o, float* lse, int B, int T, int H, int dh, Layout lay,
+                           float scale, cudaStream_t st) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  if (dh % 8) return (int)cudaErrorInvalidValue;
+  auto kern = attn_fwd_wide<MODE>;
+  cudaError_t err = allow_smem(kern, FwdWide::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BLOCK_ROWS - 1) / BLOCK_ROWS * wide_parts(dh), H, B);
+  kern<<<grid, BLOCK_THREADS, FwdWide::BYTES, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(o), lse, T, dh, lay, MODE == NOSM ? scale : LOG2E * scale);
+  return (int)cudaGetLastError();
+}
+
+// One forward launch at any head width dh (a multiple of 8): f32 takes its
+// SIMT body; bf16 the template instance of the padded width up to
+// FWD_MAX_DH, the wide body above it. q/k/v/o are bf16 (is_bf16) or f32.
+template <int MODE>
+inline int launch_fwd_any(const void* q, const void* k, const void* v, const void* kv_lens,
+                          void* o, float* lse, int B, int T, int H, int dh, Layout lay,
+                          float scale, int use_exp2, int is_bf16, cudaStream_t st) {
+  if (!is_bf16)
+    return launch_fwd_f32<MODE>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                static_cast<const float*>(v), kv_lens, static_cast<float*>(o),
+                                lse, B, T, H, dh, lay, scale, use_exp2, st);
+  if (dh > FWD_MAX_DH)
+    return launch_fwd_wide<MODE>(q, k, v, kv_lens, o, lse, B, T, H, dh, lay, scale, st);
+  return with_padded_dim<FWD_MAX_DH>(dh, [&](auto d) {
+    return launch_fwd<decltype(d)::value, MODE>(q, k, v, kv_lens, o, lse, B, T, H, dh, lay,
+                                                scale, st);
+  });
+}
 
 }  // namespace attn
 }  // namespace oron

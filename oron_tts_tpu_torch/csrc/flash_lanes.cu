@@ -6,10 +6,11 @@
 // the [B, T, H*D] layout the projections write: a block reads its head's D
 // columns with strided rows, so no head transpose is ever materialised. The
 // device body is flash_fwd.cuh's (semantics, design and the online softmax
-// are described there), with the lanes Layout. Head widths: multiples of 8
-// from 8 to 256 (the wrapper zero-pads any other width to the next multiple
-// of 8 and passes the scale of the true one); a width that is not a multiple
-// of 16 runs padded to the next one.
+// are described there), with the lanes Layout. Head widths: every multiple
+// of 8 (the wrapper zero-pads any other width to the next multiple of 8 and
+// passes the scale of the true one); to 256 a width that is not a multiple
+// of 16 runs padded to the next one, above 256 the wide body
+// (attn_fwd_wide), which the lanes rule never reaches.
 //
 // Bound on the H100: at the slice's shapes (T ~ 832, H*D = 1024) the work
 // is ~4*T*kv*H*D flops over ~8*T*H*D bytes, some 400 flops per byte, so
@@ -35,11 +36,8 @@ int launch_lanes(const void* q, const void* k, const void* v, const void* kv_len
                  void* out, float* lse, int B, int T, int H, int Dh, float scale, int is_bf16,
                  void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return with_padded_dim<FWD_MAX_DH>(Dh, [&](auto d) {
-    constexpr int DP = decltype(d)::value;
-    return launch_fwd<DP, SOFTMAX>(q, k, v, kv_lens, out, lse, B, T, H, Dh,
-                                   lanes_layout(T, H, Dh), scale, 1, is_bf16, st);
-  });
+  return launch_fwd_any<SOFTMAX>(q, k, v, kv_lens, out, lse, B, T, H, Dh,
+                                 lanes_layout(T, H, Dh), scale, 1, is_bf16, st);
 }
 
 }  // namespace

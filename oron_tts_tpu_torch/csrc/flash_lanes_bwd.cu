@@ -26,10 +26,14 @@ extern "C" int flash_lanes_bwd(const void* q, const void* k, const void* v,
                                void* dv, int B, int T, int H, int Dh, float scale,
                                int is_bf16, int passes, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Layout lay = lanes_layout(T, H, Dh);
+  if (Dh > 128) return (int)cudaErrorInvalidValue;
+  if (!is_bf16)
+    return launch_bwd_f32(q, k, v, out, dout, const_cast<void*>(lse), kv_lens, delta, dq, dk,
+                          dv, B, T, H, Dh, lay, scale, 0, passes, st);
   return with_padded_dim(Dh, [&](auto d) {
     constexpr int DP = decltype(d)::value;
     return launch_bwd<DP, false>(q, k, v, out, dout, const_cast<void*>(lse), kv_lens, delta,
-                                 dq, dk, dv, B, T, H, Dh, lanes_layout(T, H, Dh), scale,
-                                 is_bf16, passes, st);
+                                 dq, dk, dv, B, T, H, Dh, lay, scale, passes, st);
   });
 }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
 ``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
-``flash_bwd.cuh``, and they and ``qmm`` share ``wgmma.cuh``) exposes a plain C
+``flash_bwd.cuh``, and they, ``qmm`` and ``grouped_conv`` share
+``wgmma.cuh``) exposes a plain C
 interface and becomes its own shared library,
 ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
 root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
@@ -81,6 +82,8 @@ SIGNATURES = {
     "grouped_conv": {
         # x, w, bias(f32), y, B, T, C, groups, K, is_bf16, stream
         "grouped_conv1d_mish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # group width, K: blocks of the bf16 wgmma kernel an SM holds
+        "grouped_conv_blocks_per_sm": (_I, _I),
     },
     "fused_mel": {
         # audio, L, window, twiddle, fb, out, n_frames, n_fft, hop,

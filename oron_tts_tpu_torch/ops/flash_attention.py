@@ -4,13 +4,14 @@
 attention on ``[B, T, H·D]`` tensors, keys at or beyond ``kv_lens[b]``
 masked, exactly as the JAX package's ``flash_attention_lanes`` forward.
 Every kernel of this module takes the head widths :func:`kernel_head_dim_ok`
-admits: any width from 1 to 256, the lanes backward to 128 (the widest head
-the lanes rule admits). The kernels
-themselves take multiples of 8 (16-byte rows), so the wrappers zero-pad any
-other width to the next multiple of 8 (per head, inside ``[B, T, H·D]`` for
-the lanes layout), pass the score scale 1/√D of the true width, and slice
-the outputs and gradients back; inside, a width that is not a multiple of 16
-runs padded to the next one. A wider head raises before any launch.
+admits: any width, as the JAX kernels do, except the lanes backward, which
+stops at 128 (the widest head the lanes rule admits) and raises above it
+before any launch. The kernels themselves take multiples of 8 (16-byte rows),
+so the wrappers zero-pad any other width to the next multiple of 8 (per head,
+inside ``[B, T, H·D]`` for the lanes layout), pass the score scale 1/√D of
+the true width, and slice the outputs and gradients back; inside, a width to
+256 that is not a multiple of 16 runs padded to the next one, and a wider one
+runs the kernels' wide bodies (D in chunks, 128 output columns a block).
 
 - CUDA tensors launch ``csrc/flash_lanes.cu`` (bf16: ``wgmma`` tensor cores
   fed by a ``cp.async`` ring, ``csrc/flash_fwd.cuh``; f32: true-f32 SIMT), or
@@ -59,7 +60,6 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30  # the TPU kernel's key mask value
 LOG2_E = 1.4426950408889634
-MAX_HEAD_DIM = 256  # the widest head (csrc/flash_fwd.cuh; flash_bwd.cuh, its wide variant)
 # The lanes backward keeps 128: the lanes rule (models/layers.py
 # resolve_attn_impl, after the JAX layers.py:484-500) sends no wider head to
 # the lanes kernels, so flash_lanes_bwd.cu builds no wider variant.
@@ -69,17 +69,18 @@ LANES_BWD_MAX_HEAD_DIM = 128
 def kernel_head_dim_ok(dim_head: int) -> bool:
     """Whether the attention kernels take this head width (either dtype).
 
-    Every classic kernel and the lanes forwards take 1 to 256; the lanes
-    backward stops at ``LANES_BWD_MAX_HEAD_DIM``, which the lanes rule never
-    exceeds.
+    Every classic kernel and the lanes forwards take any width, as the JAX
+    kernels do (above 256 through the kernels' wide bodies, whose shared
+    memory and registers do not grow with the width); the lanes backward
+    stops at ``LANES_BWD_MAX_HEAD_DIM``, which the lanes rule never exceeds.
     """
-    return 1 <= dim_head <= MAX_HEAD_DIM
+    return dim_head >= 1
 
 
 def _width(name: str, dim_head: int) -> int:
     """The kernel width for ``dim_head``: the next multiple of 8, or raise."""
     if not kernel_head_dim_ok(dim_head):
-        raise ValueError(f"{name} takes head widths from 1 to {MAX_HEAD_DIM}, got {dim_head}")
+        raise ValueError(f"{name} takes head widths of 1 or more, got {dim_head}")
     return -(-dim_head // 8) * 8
 
 

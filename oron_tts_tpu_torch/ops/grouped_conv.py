@@ -6,11 +6,12 @@ JAX package's ``nn.Conv`` layout), adds ``bias`` and applies Mish, all in
 f32, and returns ``x``'s dtype — the forward of the JAX package's
 ``grouped_conv1d_pallas(..., fuse_mish=True)``.
 
-- CUDA tensors launch ``csrc/grouped_conv.cu`` (bf16: ``mma.sync`` at group
-  widths 16, 32, 64 and 128, a SIMT kernel with f32 sums at widths 1, 2, 4
-  and 8; f32: true-f32 SIMT at widths that are multiples of 8 or divide 8),
-  or raise. Together that is every width the JAX rule sends to its kernel
-  (``models/layers.conv_route``).
+- CUDA tensors launch ``csrc/grouped_conv.cu`` (bf16: ``wgmma`` at group
+  widths 16, 32, 64 and 128, the taps' weights streamed through a
+  ``cp.async`` ring; a SIMT kernel with
+  f32 sums at widths 1, 2, 4 and 8; f32: true-f32 SIMT at widths that are
+  multiples of 8 or divide 8), or raise. Together that is every width the
+  JAX rule sends to its kernel (``models/layers.conv_route``).
 - CPU tensors take :func:`grouped_conv1d_mish_plain`.
 
 The kernel replaces ``oron_tts_tpu/ops/grouped_conv.py:34``
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 
 BF16_GROUP_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+WGMMA_GROUP_WIDTHS = (16, 32, 64, 128)  # bf16 widths on the wgmma kernel
 
 
 def kernel_group_width_ok(width: int, dtype: torch.dtype) -> bool:
@@ -77,10 +79,10 @@ def grouped_conv1d_mish(
         raise ValueError(f"weight {tuple(w.shape)} does not fit C={C}, groups={groups}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"grouped_conv1d_mish takes bf16 or f32, got {x.dtype}")
-    if not kernel_group_width_ok(cin_g, x.dtype) or C % (32 if cin_g > 8 else 8):
+    if not kernel_group_width_ok(cin_g, x.dtype) or C % 8:
         raise ValueError(f"the grouped-conv kernel takes group widths {BF16_GROUP_WIDTHS} in "
-                         "bf16 (and multiples of 8 in f32), C a multiple of 32 (8 at widths up "
-                         f"to 8); got width {cin_g} (C={C}, groups={groups}, {x.dtype})")
+                         "bf16 (and multiples of 8 in f32) and C a multiple of 8; got width "
+                         f"{cin_g} (C={C}, groups={groups}, {x.dtype})")
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
     b32 = bias.to(device=x.device, dtype=torch.float32).contiguous()

@@ -154,18 +154,18 @@ def test_gradient_checkpointing_leaves_gradients_unchanged():
         assert torch.equal(a, b)  # the recomputation redraws the same masks
 
 
-def test_flash_loss_and_gradients_at_head_width_192_match_jax():
-    """F4: a training loss and its gradients through ``attn_impl="flash"``
-    with heads of 192 (two heads, dim 384), as the JAX package computes them
-    with its classic Pallas kernels in interpret mode. On the card the port
-    runs the classic backward's wide variant here; on the CPU its plain
-    version. Same tolerance as the lanes comparison above."""
+def _flash_loss_matches_jax(heads: int, dim_head: int, seed: int) -> None:
+    """A training loss and its gradients through ``attn_impl="flash"`` with
+    ``heads`` heads of ``dim_head``, as the JAX package computes them with its
+    classic Pallas kernels in interpret mode (the port's plain versions on
+    the CPU). Same tolerance as the lanes comparison above."""
     from oron_tts_tpu_torch.config import ModelConfig
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
-    kw = dict(dim=384, depth=1, heads=2, dim_head=192, text_dim=32, conv_layers=1)
-    params = seeded_dit_params(ModelConfig(dim=384, depth=1, heads=2, text_dim=32,
-                                           conv_layers=1), seed=5)
+    dim = heads * dim_head
+    kw = dict(dim=dim, depth=1, heads=heads, dim_head=dim_head, text_dim=32, conv_layers=1)
+    params = seeded_dit_params(ModelConfig(dim=dim, depth=1, heads=heads, text_dim=32,
+                                           conv_layers=1), seed=seed)
     mel, ids, lens, x0 = _batch(2)
     j = jcfm.CFM(JDiT(**kw, dropout=0.0, attn_impl="flash"))
 
@@ -190,3 +190,15 @@ def test_flash_loss_and_gradients_at_head_width_192_match_jax():
         assert got is not None, name
         scale = max(float(ref.abs().max()), 1e-8)
         assert float((got - ref).abs().max()) <= 2e-4 * scale, name
+
+
+def test_flash_loss_and_gradients_at_head_width_192_match_jax():
+    """F4: two heads of 192 (dim 384); on the card the port runs the classic
+    backward's wide variant here."""
+    _flash_loss_matches_jax(heads=2, dim_head=192, seed=5)
+
+
+def test_flash_loss_and_gradients_at_head_width_320_match_jax():
+    """F5: two heads of 320 (dim 640), wider than the kernels' template
+    instances; on the card the port runs their chunked wide bodies here."""
+    _flash_loss_matches_jax(heads=2, dim_head=320, seed=6)

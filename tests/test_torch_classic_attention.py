@@ -62,6 +62,8 @@ def _j(a):
     (128, None, 20, "masked", True),    # widths the wrappers zero-pad to 24 and 16
     (128, None, 12, "empty_row", False),
     (384, 128, 20, "unmasked", True),
+    (128, None, 320, "masked", True),   # wider than 256: the kernels' wide bodies (F5)
+    (384, 128, 320, "empty_row", False),
 ])
 def test_flash_attention_plain_matches_jax_kernel(T, block_k, D, kind, use_exp2):
     B, H = 2, 2
@@ -117,7 +119,7 @@ def test_flash_attention_packed_refuses_a_gradient():
 # ── kernel 7: the classic backward ──────────────────────────────────────
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128, 20, 12, 136, 192, 256])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 20, 12, 136, 192, 256, 320])
 def test_flash_attention_gradients_match_jax_grad(D):
     B, H, T = 2, 2, 128
     q, k, v, probe = _qkv((B, H, T, D), seed=10 + D, n=4)
@@ -141,16 +143,17 @@ def test_flash_attention_gradients_match_jax_grad(D):
 
 
 def test_backward_head_widths_reach_the_forwards():
-    """F4: the classic backward takes every width the forwards take, 1 to
-    256 (the JAX ``_flash_bwd_kernel`` takes any); above 256 every kernel
-    refuses, and the lanes backward keeps 128, as wide as the lanes rule goes."""
-    for d in range(1, 257):
+    """F4 and F5: the classic backward takes every width the forwards take,
+    any width from 1 up, as the JAX ``_flash_bwd_kernel`` does (above 256 the
+    kernels' wide bodies); the lanes backward keeps 128, as wide as the lanes
+    rule goes, and a width below 1 is refused."""
+    for d in (*range(1, 257), 257, 264, 320, 500, 512, 1000, 1024, 4096):
         assert tfa.kernel_head_dim_ok(d), d
         assert tfa._width("flash_attention_bwd", d) == -(-d // 8) * 8
-    assert not tfa.kernel_head_dim_ok(257) and not tfa.kernel_head_dim_ok(0)
+    assert not tfa.kernel_head_dim_ok(0)
     assert tfa.LANES_BWD_MAX_HEAD_DIM == 128
-    with pytest.raises(ValueError, match="from 1 to 256"):
-        tfa._width("flash_attention_bwd", 257)
+    with pytest.raises(ValueError, match="of 1 or more"):
+        tfa._width("flash_attention_bwd", 0)
 
 
 def test_flash_attention_trainable_defaults_lengths_to_t():
@@ -269,11 +272,10 @@ def _jax_conv_kernel(dim, groups):
 def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
     """Over a grid of (dim, heads) or (dim, groups), the shapes a JAX rule
     sends to its Pallas kernel are the shapes the port's kernels take: every
-    head width to 256 in every kernel, the classic backward's too since F4
-    (one that is not a multiple of 8 is zero-padded by the wrappers), and the
-    lanes rule admits no head the lanes backward's 128 would refuse. Wider
-    heads raise (ROADMAP §3, F5). Decided from the shapes alone, so no card is
-    needed."""
+    head width in every kernel, the classic backward's too (F4, and F5 above
+    256; one that is not a multiple of 8 is zero-padded by the wrappers), and
+    the lanes rule admits no head the lanes backward's 128 would refuse.
+    Decided from the shapes alone, so no card is needed."""
     from oron_tts_tpu_torch.ops import grouped_conv as tgc
 
     checked = 0
@@ -306,11 +308,11 @@ def test_kernel_widths_admit_what_the_jax_rules_admit(rule):
             else:  # the JAX classic kernel takes any head width
                 assert tl.resolve_attn_impl(heads, d, attn_impl="flash") == "flash"
             checked += 1
-            assert tfa.kernel_head_dim_ok(d) == (d <= 256), (dim, heads)
+            assert tfa.kernel_head_dim_ok(d), (dim, heads)
     assert checked > 20
 
 
-@pytest.mark.parametrize("D,heads", [(20, 5), (12, 2), (3, 4), (64, 2), (192, 1)])
+@pytest.mark.parametrize("D,heads", [(20, 5), (12, 2), (3, 4), (64, 2), (192, 1), (300, 2)])
 def test_padded_width_keeps_the_scores_and_slices_back(D, heads):
     """What the wrappers hand a kernel at a width that is not a multiple of 8:
     each head's columns zero-padded to the next multiple of 8 (lanes: inside
@@ -329,10 +331,10 @@ def test_padded_width_keeps_the_scores_and_slices_back(D, heads):
     torch.testing.assert_close(sp, s, rtol=1e-6, atol=1e-6)
     qc = q.view(2, 9, heads, D).transpose(1, 2)
     assert torch.equal(tfa._unpad_last(tfa._pad_last(qc, dp), D), qc)
-    with pytest.raises(ValueError, match="from 1 to 256"):
-        tfa._width("flash_attention_bwd", 264)
-    with pytest.raises(ValueError, match="from 1 to 256"):
-        tfa._width("flash_attention", 264)
+    # no upper limit since F5: widths above 256 run the kernels' wide bodies
+    assert tfa._width("flash_attention_bwd", 264) == tfa._width("flash_attention", 264) == 264
+    with pytest.raises(ValueError, match="of 1 or more"):
+        tfa._width("flash_attention", 0)
 
 
 # ── the bench entry point ───────────────────────────────────────────────

@@ -52,7 +52,10 @@ def test_attention_all_keys_masked_gives_uniform_weights():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("C,G,K,T", [(256, 4, 7, 24), (1024, 16, 31, 40)])
+# group widths 64 (Base) and, with 16 groups and 31 taps, each other width
+# the wgmma kernel takes: 16, 32 (Small) and 128
+@pytest.mark.parametrize("C,G,K,T", [(256, 4, 7, 24), (1024, 16, 31, 40), (256, 16, 31, 20),
+                                     (512, 16, 31, 20), (2048, 16, 31, 20)])
 def test_grouped_conv_plain_matches_jax_pallas(C, G, K, T):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, T, C)).astype(np.float32)
@@ -77,6 +80,15 @@ def test_grouped_conv_plain_keeps_input_dtype():
     y32 = grouped_conv1d_mish_plain(x.bfloat16().float(), w, b, 4)
     np.testing.assert_allclose(y16.float().numpy(), y32.numpy(), atol=2e-2)
 
+
+
+def test_bench_conv_runs_on_the_cpu(capsys):
+    from oron_tts_tpu_torch.cli import bench_conv
+
+    rows = bench_conv.main(["--device", "cpu", "--iters", "1", "--shapes", "small"])
+    assert [r["shape"] for r in rows] == ["small"] and rows[0]["x"] == [2, 83, 512]
+    assert rows[0]["ms"] > 0 and rows[0]["card"] == "cpu" and "graph_ms" not in rows[0]
+    assert '"shape": "small"' in capsys.readouterr().out
 
 def test_filterbank_matches_jax():
     np.testing.assert_array_equal(mel_filterbank(CFG), j_filterbank(JMelConfig()))
