@@ -17,7 +17,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    each template width, with the shared memory a block asks for; the w8a16
    kernel's registers, spills, wgmma serialisation and blocks an SM at each
    tile; the conv kernel's at each group width and rows a block
-   (``conv_build``).
+   (``conv_build``); the log-mel kernel's at each n_fft (``mel_build``).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the slice's shapes, with its time, the plain version's, a PyTorch
    library call's where one computes the same function, and its bound
@@ -45,7 +45,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    alone; the grouped conv at group widths 4, 8, 16, 32, 64 and 128 and at
    ragged lengths (200, 60 and 1 frames), timed one call at a time and from
    a CUDA graph at the Base shape (its kernel row) and at the Small and
-   training shapes (``cli.bench_conv``, ``conv_shapes``).
+   training shapes (``cli.bench_conv``, ``conv_shapes``); the log-mel at
+   ``[1, 240000]`` (10 s; timed one call at a time and from a CUDA graph,
+   beside its plain cuFFT-based version both ways), at 30,001, 512, 300 and
+   1 samples, as batches ``[8, 240000]`` (timed, with its bound) and
+   ``[2, 3, 24000]`` in one launch each, at its other n_fft (256, 512 and
+   2,048), on silence (log(1e-5)) and twice on one batch for identical
+   bits.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -410,6 +416,29 @@ def conv_build(log: str) -> dict:
     return {f"{w}x{bm}": tiles[(w, bm)] for w, bm in sorted(tiles)}
 
 
+def mel_build(log: str) -> dict:
+    """Registers and spills of the log-mel kernel at each n_fft (``-Xptxas
+    -v`` of ``fused_mel``; the instance is named by M = n_fft / 2)."""
+    import re
+
+    by_n_fft, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"log_mel_kernelILi(\d+)E", line)
+        if m:
+            current = by_n_fft.setdefault(2 * int(m.group(1)), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    return dict(sorted(by_n_fft.items()))
+
+
 TRAIN_B, TRAIN_T = 12, 2048  # the single-chip training shape (Base, bf16)
 
 
@@ -619,7 +648,7 @@ def check_train_kernels(torch, F, report) -> list[dict]:
 def check_kernels(torch, F) -> list[dict]:
     from oron_tts_tpu_torch.config import ModelConfig
     from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd, flash_lanes_plain
-    from oron_tts_tpu_torch.ops.fused_mel import log_mel_fused, log_mel_plain
+    from oron_tts_tpu_torch.ops.fused_mel import KERNEL_N_FFT, log_mel_fused, log_mel_plain
     from oron_tts_tpu_torch.ops.grouped_conv import (
         grouped_conv1d_mish,
         grouped_conv1d_mish_plain,
@@ -725,39 +754,71 @@ def check_kernels(torch, F) -> list[dict]:
     for conv_row in bench_conv.bench(["small", "train"]):
         emit({"phase": "conv_shapes", **conv_row})
 
-    # 3. fused log-mel: 10 s of seeded noise at 24 kHz
+    # 3. fused log-mel: 10 s of seeded noise at 24 kHz, [1, 240000]
     cfg = MelConfig()
-    audio = 0.3 * torch.randn(240000, generator=gen, device=dev)
-    out = log_mel_fused(audio, cfg)
-    ref = log_mel_plain(audio, cfg)
-    torch.cuda.synchronize()
-    n_frames, n_bins = out.shape[1], cfg.n_freqs
-    # the least work for the function: window, a real FFT (2.5 N log2 N),
-    # magnitudes, the filterbank's non-zero taps (its triangles overlap only
-    # pairwise) and the log; bytes: audio, output, window and those taps
     window, fb = mel_constants(cfg)
     taps = int((fb != 0).sum())
-    per_frame = (cfg.n_fft + 2.5 * cfg.n_fft * math.log2(cfg.n_fft) + 3.0 * n_bins
-                 + 2.0 * taps + cfg.n_mels)
-    flops = n_frames * per_frame
-    nbytes = (audio.numel() + out.numel() + window.size + taps) * 4
-    b_ms, b_by = bound_ms(flops, H100_F32_FLOPS, nbytes)
-    row = {
-        "name": "log_mel_fused", "dtype": "torch.float32",
-        "max_abs_err": (out - ref).abs().max().item(), "tol": 1e-3,
-        "ms": cuda_ms(lambda: log_mel_fused(audio, cfg)),
-        "plain_ms": cuda_ms(lambda: log_mel_plain(audio, cfg)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "route": "cuda", "source": "oron_tts_tpu_torch/csrc/fused_mel.cu",
-        "replaces": "oron_tts_tpu/ops/pallas_mel.py:26",
-    }
+
+    def mel_bound(audio, out) -> tuple[float, str]:
+        # the least work for the function: window, a real FFT (2.5 N log2 N),
+        # magnitudes, the filterbank's non-zero taps (its triangles overlap
+        # only pairwise) and the log a frame; bytes: audio, output, window and
+        # those taps
+        per_frame = (cfg.n_fft + 2.5 * cfg.n_fft * math.log2(cfg.n_fft) + 3.0 * cfg.n_freqs
+                     + 2.0 * taps + cfg.n_mels)
+        nbytes = (audio.numel() + out.numel() + window.size + taps) * 4
+        return bound_ms(out.numel() // cfg.n_mels * per_frame, H100_F32_FLOPS, nbytes)
+
+    def mel_case(shape, timed=False) -> dict:
+        audio = 0.3 * torch.randn(*shape, generator=gen, device=dev)
+        out = log_mel_fused(audio, cfg)
+        ref = log_mel_plain(audio, cfg)
+        torch.cuda.synchronize()
+        row = {"name": "log_mel_fused", "dtype": "torch.float32", "shape": list(shape),
+               "max_abs_err": (out - ref).abs().max().item(), "tol": 1e-3}
+        if shape[-1] == 1:
+            # one sample: every frame is c * window, whose spectrum is two
+            # bins; the other bins hold each f32 FFT's own rounding of those
+            # two (~1e-6), which puts high bands at the 1e-5 floor, where the
+            # log magnifies it. Held as mels, relative to the largest one
+            mel, mel_ref = out.exp(), ref.exp()
+            row.update(max_exp_rel_err=((mel - mel_ref).abs().max() / mel_ref.max()).item(),
+                       tol=1e-6, tol_on="max_exp_rel_err")
+        if tuple(out.shape) != tuple(shape[:-1]) + (cfg.n_mels, 1 + shape[-1] // cfg.hop_length):
+            raise AssertionError(f"log_mel_fused: shape {tuple(out.shape)} for {shape}")
+        if timed:
+            b_ms, b_by = mel_bound(audio, out)
+            row.update(ms=cuda_ms(lambda: log_mel_fused(audio, cfg)),
+                       graph_ms=cuda_graph_ms(lambda: log_mel_fused(audio, cfg)),
+                       plain_ms=cuda_ms(lambda: log_mel_plain(audio, cfg)),
+                       plain_graph_ms=cuda_graph_ms(lambda: log_mel_plain(audio, cfg)),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        return row
+
+    row = mel_case((1, 240000), timed=True)
+    row.update(route="cuda", source="oron_tts_tpu_torch/csrc/fused_mel.cu",
+               replaces="oron_tts_tpu/ops/pallas_mel.py:26")
     rows.append(row)
     report(row)
-    short = 0.3 * torch.randn(30001, generator=gen, device=dev)
-    report({"name": "log_mel_fused", "dtype": "torch.float32", "shape": "edge L=30001",
-            "max_abs_err": (log_mel_fused(short, cfg) - log_mel_plain(short, cfg)).abs().max().item(),
-            "tol": 1e-3})
-    del audio, out, ref, q, k, v, x
+    # the edge L = 30,001; 512 samples or fewer, where the pad reflects more
+    # than once (F6); batches in one launch (F7), the first also timed
+    for shape in ((1, 30001), (1,), (300,), (1, 512), (8, 240000), (2, 3, 24000)):
+        report(mel_case(shape, timed=shape == (8, 240000)))
+    # the kernel's other instances, which no config in the repository uses
+    for n_fft in KERNEL_N_FFT:
+        other = MelConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
+        if other != cfg:
+            audio = 0.3 * torch.randn(2, 30001, generator=gen, device=dev)
+            err = (log_mel_fused(audio, other) - log_mel_plain(audio, other)).abs().max().item()
+            report({"name": "log_mel_fused", "dtype": "torch.float32",
+                    "shape": f"n_fft {n_fft} [2, 30001]", "max_abs_err": err, "tol": 1e-3})
+    silence = log_mel_fused(torch.zeros(2, 8192, device=dev), cfg)
+    report({"name": "log_mel_fused", "dtype": "torch.float32", "shape": "silence [2, 8192]",
+            "max_abs_err": (silence - math.log(cfg.log_clip)).abs().max().item(), "tol": 1e-5})
+    audio = 0.3 * torch.randn(8, 240000, generator=gen, device=dev)
+    if not bit_identical([log_mel_fused(audio, cfg)], [log_mel_fused(audio, cfg)]):
+        raise AssertionError("log_mel_fused: two calls on the same batch differ")
+    del audio, q, k, v, x
     torch.cuda.empty_cache()
     return (rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
             + check_classic_kernels(torch, F, report))
@@ -2672,6 +2733,7 @@ def main() -> int:
     emit({"phase": "forward_build", "by_width": forward_build(logs.get("flash_classic", ""))})
     emit({"phase": "qmm_build", "by_tile": qmm_build(logs.get("qmm", ""))})
     emit({"phase": "conv_build", "by_tile": conv_build(logs.get("grouped_conv", ""))})
+    emit({"phase": "mel_build", "by_n_fft": mel_build(logs.get("fused_mel", ""))})
 
     seconds = {}
 
@@ -2700,7 +2762,8 @@ def main() -> int:
                                "library_ms")}
         | {"library": row.get("library"), "shape": row.get("shape")}
         | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms", "graph_ms", "library_graph_ms",
-                               "linear_bf16_ms", "linear_bf16_graph_ms") if k in row}
+                               "plain_graph_ms", "linear_bf16_ms", "linear_bf16_graph_ms")
+           if k in row}
         for row in rows
     ], "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,9 +86,9 @@ SIGNATURES = {
         "grouped_conv_blocks_per_sm": (_I, _I),
     },
     "fused_mel": {
-        # audio, L, window, twiddle, fb, out, n_frames, n_fft, hop,
-        # n_mels, log_clip, stream
-        "log_mel_fused": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # audio [B, L], B, L, window, twiddle [2, T], T, bands [3, n_mels] int32,
+        # weights, n_taps, out, n_frames, n_fft, hop, n_mels, log_clip, stream
+        "log_mel_fused": (_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P),
     },
     "qmm": {
         # x [M, K], w_q int8 [N, K], scale f32 [N], bias [N] in x's type or null,

@@ -1,8 +1,9 @@
 """AudioProcessor: WAV loading on the host, log-mel on the device.
 
 Counterpart of the JAX package's ``ops/audio.py``. ``mel_spectrogram`` on
-a 1-D waveform on the card runs the fused log-mel kernel; on the CPU it
-runs the plain version. The card is the default device, as for ``F5TTS``.
+the card runs the fused log-mel kernel, one launch for a batch of
+waveforms; on the CPU it runs the plain version. The card is the default
+device, as for ``F5TTS``.
 """
 
 from __future__ import annotations
@@ -52,7 +53,9 @@ class AudioProcessor:
         return wavio.normalize_peak(np.asarray(audio))
 
     def mel_spectrogram(self, audio: np.ndarray | torch.Tensor) -> torch.Tensor:
-        """Log-mel [n_mels, T] of a waveform [L] or [1, L], on this processor's device."""
+        """Log-mel [n_mels, T] (or [..., n_mels, T] for batched input), on
+        this processor's device; a [1, L] input collapses to [n_mels, T], as
+        in the JAX package."""
         x = torch.as_tensor(np.asarray(audio) if not torch.is_tensor(audio) else audio)
         x = x.to(device=self.device, dtype=torch.float32)
         if x.ndim == 2 and x.shape[0] == 1:

@@ -1,10 +1,11 @@
 """Log-mel spectrogram with the Vocos feature contract (plain PyTorch).
 
-Same contract as the JAX package's ``ops/mel.py``: reflect-pad by n_fft/2,
-periodic Hann window zero-padded to n_fft, onesided DFT magnitude
-(power 1), HTK mel filterbank without norm (torchaudio's defaults), and
-``log(max(mel, 1e-5))``. The window and filterbank are built on the host
-in numpy, once per configuration.
+Same contract as the JAX package's ``ops/mel.py``: reflect-pad by n_fft/2
+(numpy's reflect, at any length), periodic Hann window zero-padded to
+n_fft, onesided DFT magnitude (power 1), HTK mel filterbank without norm
+(torchaudio's defaults), and ``log(max(mel, 1e-5))``. The window and
+filterbank are built on the host in numpy, once per configuration, and
+copied to each device once.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
@@ -80,16 +80,43 @@ def mel_constants(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray]:
     return padded_hann_window(cfg.n_fft, cfg.win_length), mel_filterbank(cfg)
 
 
+def reflect_index(L: int, pad: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Source sample of each of the L + 2·pad positions of ``np.pad(x, pad, "reflect")``.
+
+    numpy's reflect does not repeat the edge sample and reflects again where
+    the pad is longer than the signal: period 2(L - 1); L = 1 repeats its
+    one sample. ``F.pad(mode="reflect")`` refuses pads of L or more.
+    """
+    if L < 1:
+        raise ValueError("a waveform needs at least one sample")
+    p = torch.arange(-pad, L + pad, device=device)
+    if L == 1:
+        return torch.zeros_like(p)
+    period = 2 * (L - 1)
+    p = p.remainder(period)
+    return torch.where(p < L, p, period - p)
+
+
+_device_consts: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _mel_tensors(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(window, filterbank) on ``device``, copied once, so a call makes no
+    host-to-device copy (and can be captured in a CUDA graph)."""
+    key = (cfg, str(device))
+    if key not in _device_consts:
+        _device_consts[key] = tuple(torch.from_numpy(a).to(device) for a in mel_constants(cfg))
+    return _device_consts[key]
+
+
 def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """[..., L] f32 waveform → [..., n_mels, 1 + L // hop] log-mel, in f32."""
-    window, fb = mel_constants(cfg)
     x = audio.float()
-    lead = x.shape[:-1]
-    pad = cfg.n_fft // 2
-    x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    window, fb = _mel_tensors(cfg, x.device)
+    lead, L = x.shape[:-1], x.shape[-1]
+    x = x.reshape(-1, L)[:, reflect_index(L, cfg.n_fft // 2, x.device)]
     frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)  # [N, frames, n_fft]
-    frames = frames * torch.from_numpy(window).to(x.device)
-    mag = torch.fft.rfft(frames, dim=-1).abs()  # [N, frames, n_freqs]
-    mel = torch.matmul(mag, torch.from_numpy(fb).to(x.device))  # [N, frames, n_mels]
+    mag = torch.fft.rfft(frames * window, dim=-1).abs()  # [N, frames, n_freqs]
+    mel = torch.matmul(mag, fb)  # [N, frames, n_mels]
     out = torch.log(torch.clamp(mel, min=cfg.log_clip)).transpose(-1, -2)
     return out.reshape(*lead, cfg.n_mels, out.shape[-1])
