@@ -107,6 +107,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
     that config with dim 128 and a DiT of 5 heads of width 20 (seeded
     weights; the lanes kernels with each head padded to 24), all on the
     card.
+13. align: ``cli.eval_alignment`` (the tone-code quality eval) at the Small
+    width, cut to 64 sentences (4 held out), 4 epochs and 8-step syntheses:
+    bf16 training and synthesis on the card, the CERs each in [0, 1], the
+    loss finite; launch counts are zeroed before and read after.
+14. interop: the seeded Base weights exported by ``cli.export`` to ``.pt``
+    and ``.safetensors`` and loaded back through ``cli.infer.load_model`` on
+    the card, each file's mel bit-equal to the ``.npz`` load's (same seed);
+    ``griffin_lim`` on the card against the CPU (within 1e-3 of the
+    waveform's largest value); the bundled Vocos written in the official
+    torch layout and loaded through the converter, decoding as the ``.npz``
+    does (within 1e-5 of the largest value).
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -2702,6 +2713,148 @@ def run_widths(torch, smi: str) -> dict[str, int]:
             + d192_counts[n] + d320_counts[n] + d320_synth[n] for n in wrappers}
 
 
+def run_align(torch, smi: str) -> dict[str, int]:
+    """The tone-code quality eval at the Small width, cut short, through its CLI.
+
+    ``cli.eval_alignment`` as a user runs it, on the card: 64 sentences (4
+    held out), 4 epochs of bf16 ``F5Trainer`` on "lanes", 8-step syntheses.
+    Its CERs are not the quality number (that is the full protocol's, 512
+    sentences and 60 epochs): here each must be a rate in [0, 1] and the
+    loss finite, and the counters show which kernels trained and sampled.
+    """
+    from oron_tts_tpu_torch.cli import eval_alignment
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+
+    wrappers = kernel_wrappers() | {"grouped_conv1d_mish": grouped_conv1d_mish}
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        payload = eval_alignment.main([
+            "--dim", "512", "--depth", "12", "--heads", "8", "--text-dim", "256",
+            "--sentences", "64", "--epochs", "4", "--holdout", "4", "--n-steps", "8",
+            "--out", str(Path(tmp) / "align.json")])
+        counts = read_counts(wrappers)
+        wall = time.perf_counter() - t0
+    cers = {f"{w}_{k}": payload["holdout"][w][k] for w in ("raw", "ema")
+            for k in ("cer", "cer_reffree_duration", "cer_reffree_calibrated")}
+    emit({"phase": "align", "config": "Small (dim 512, depth 12, heads 8, text_dim 256), bf16",
+          "sentences": 64, "holdout": 4, "epochs": 4, "n_steps": 8,
+          "untrained_cer_4clip": payload["untrained_cer_4clip"], **cers,
+          "steps": payload["steps"], "train_seconds": payload["train_seconds"],
+          "frames_per_s": payload["frames_per_s"], "final_train_loss": payload["final_train_loss"],
+          "wall_s": wall, "launches": counts, "device": payload["device"], "card": smi})
+    if not (math.isfinite(payload["final_train_loss"]) and payload["steps"] > 0
+            and all(0.0 <= c <= 1.0 for c in [*cers.values(), payload["untrained_cer_4clip"]])):
+        raise AssertionError(f"align: loss {payload['final_train_loss']}, CERs {cers}")
+    ran = ("flash_lanes_fwd", "flash_lanes_fwd_stats", "flash_lanes_bwd", "grouped_conv1d_mish")
+    if not all(counts[n] > 0 for n in ran):
+        raise AssertionError(f"align: launches {counts}")
+    return counts
+
+
+def vocos_torch_layout(torch, params: dict) -> dict:
+    """A Vocos flax tree in the official torch layout: ``convert_vocos_state_dict``'s inverse."""
+    import numpy as np
+
+    def lin(p):
+        return {"weight": p["kernel"].T, "bias": p["bias"]}
+
+    def conv(p):
+        return {"weight": p["kernel"].transpose(2, 1, 0), "bias": p["bias"]}
+
+    def ln(p):
+        return {"weight": p["scale"], "bias": p["bias"]}
+
+    parts = {"backbone.embed": conv(params["embed"]), "backbone.norm": ln(params["norm_pre"]),
+             "backbone.final_layer_norm": ln(params["norm_post"]), "head.out": lin(params["head"])}
+    for i in range(sum(1 for k in params if k.startswith("block"))):
+        b, key = params[f"block{i}"], f"backbone.convnext.{i}"
+        parts |= {f"{key}.dwconv": conv(b["dwconv"]), f"{key}.norm": ln(b["norm"]),
+                  f"{key}.pwconv1": lin(b["pwconv1"]), f"{key}.pwconv2": lin(b["pwconv2"])}
+        if "gamma" in b:
+            parts[key] = {"gamma": b["gamma"]}
+    return {f"{k}.{n}": torch.from_numpy(np.ascontiguousarray(v))
+            for k, d in parts.items() for n, v in d.items()}
+
+
+def run_interop(torch, smi: str) -> dict[str, int]:
+    """Base weights through ``cli.export`` and back through ``cli.infer.load_model``;
+    Griffin-Lim and a torch-layout Vocos on the card."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli import export
+    from oron_tts_tpu_torch.cli.infer import load_model
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.evals.alignment import render_text
+    from oron_tts_tpu_torch.models.f5tts import BUNDLED_VOCODER
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+    from oron_tts_tpu_torch.ops.griffin_lim import griffin_lim
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+    from oron_tts_tpu_torch.ops.mel import MelConfig, log_mel_spectrogram
+    from oron_tts_tpu_torch.train.checkpoint import flatten_tree, write_npz
+    from oron_tts_tpu_torch.utils.weights import load_npz_tree, seeded_dit_params
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish)}
+    cfg = F5Config()
+    mels, seconds, sizes = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp)
+        write_npz(ckpt / "f5tts_step_00000001.npz",
+                  flatten_tree({"params": seeded_dit_params(cfg.model, seed=0)}))
+        (ckpt / "config.json").write_text("{}")  # every default: the Base model
+        for fmt in ("pt", "safetensors"):
+            t0 = time.perf_counter()
+            out = export.main(["--checkpoint", str(ckpt), "--output", str(ckpt / f"f5tts.{fmt}")])
+            seconds[f"export_{fmt}"] = time.perf_counter() - t0
+            sizes[fmt] = out.stat().st_size
+        zero_counts(wrappers)
+        for name in ("npz", "pt", "safetensors"):
+            t0 = time.perf_counter()
+            model = load_model(str(ckpt if name == "npz" else ckpt / f"f5tts.{name}"))
+            seconds[f"load_{name}"] = time.perf_counter() - t0
+            if not (model.device.type == "cuda" and model.dtype == torch.bfloat16):
+                raise AssertionError(f"{name}: loaded on {model.device} in {model.dtype}")
+            mels[name] = model.synthesize_mel(MN_TEXT, n_steps=8, seed=0)
+            if name != "safetensors":
+                del model
+        counts = read_counts(wrappers)
+
+        # Griffin-Lim on the card against the CPU, on a rendered sentence's mel
+        mcfg = MelConfig()
+        log_mel = log_mel_spectrogram(torch.from_numpy(render_text(MN_TEXT)), mcfg)[None]
+        t0 = time.perf_counter()
+        gl_card = griffin_lim(log_mel.cuda(), mcfg, n_iter=32).cpu()
+        torch.cuda.synchronize()
+        seconds["griffin_lim_card"] = time.perf_counter() - t0
+        gl_cpu = griffin_lim(log_mel, mcfg, n_iter=32)
+        gl_err = float((gl_card - gl_cpu).abs().max() / gl_cpu.abs().max())
+
+        # the bundled Vocos in the official torch layout, through the converter
+        tree = load_npz_tree(BUNDLED_VOCODER)
+        torch.save(vocos_torch_layout(torch, tree.get("ema") or tree.get("params") or tree),
+                   ckpt / "vocos.pt")
+        mel = torch.from_numpy(mels["npz"]).cuda()[None]
+        model.load_vocoder()
+        wav_npz = model._decode_mel(mel)
+        model.load_vocoder(ckpt / "vocos.pt")
+        wav_pt = model._decode_mel(mel)
+        voc_err = float(np.abs(wav_pt - wav_npz).max() / np.abs(wav_npz).max())
+        del model
+    same = {n: bool(np.array_equal(mels[n], mels["npz"])) for n in ("pt", "safetensors")}
+    emit({"phase": "interop", "config": "Base, bf16, seeded", "frames": mels["npz"].shape[-1],
+          "bytes": sizes, "seconds": seconds, "mel_bit_equal_to_npz": same,
+          "griffin_lim_frames": int(log_mel.shape[-1]), "griffin_lim_rel_err": gl_err,
+          "vocos_torch_layout_rel_err": voc_err, "launches": counts, "card": smi})
+    if not all(same.values()):
+        raise AssertionError(f"interop: exported weights give another mel: {same}")
+    if not (gl_err <= 1e-3 and voc_err <= 1e-5 and np.isfinite(wav_pt).all()):
+        raise AssertionError(f"interop: Griffin-Lim card vs CPU {gl_err} (tolerance 1e-3 of the "
+                             f"largest), torch-layout Vocos {voc_err} (1e-5)")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"interop: launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2712,11 +2865,9 @@ def main() -> int:
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from oron_tts_tpu_torch.ops import _build
+    from oron_tts_tpu_torch.utils.device import card_name
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name("cuda")
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2751,7 +2902,7 @@ def main() -> int:
     launches: dict[str, int] = {}
     for name, phase in (("slice", run_slice), ("train", run_train), ("serve", run_serve),
                         ("batch_knee", run_batch_knee), ("classic", run_classic),
-                        ("widths", run_widths)):
+                        ("widths", run_widths), ("align", run_align), ("interop", run_interop)):
         for kernel, n in (timed(name, phase, torch, smi) or {}).items():
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})

@@ -1,4 +1,5 @@
-"""Command-line entry points of the PyTorch port: ``train``, ``infer``, ``serve``."""
+"""Command-line entry points of the PyTorch port: ``train``, ``infer``, ``serve``, ``export``,
+the tone-code eval (``make_tone_corpus``, ``eval_alignment``) and the benches."""
 
 NOT_PORTED = (
     "{flag} is not ported to the PyTorch package yet (see ROADMAP.md, "
@@ -17,4 +18,4 @@ def validate_quantize_mesh(parser, quantize: str | None, mesh: str | None) -> No
         parser.error("--quantize int8 (the w8a16 kernel) is single-device; "
                      "use int8_dynamic with --mesh")
     if mesh:
-        parser.error(NOT_PORTED.format(flag="--mesh") + ", section 1 item 10")
+        parser.error(NOT_PORTED.format(flag="--mesh") + ", section 1 item 8")

@@ -3,13 +3,14 @@
     python -m oron_tts_tpu_torch.cli.infer --checkpoint <dir-or-.npz> \\
         --text "Сайн байна уу" --output out.wav [--device cpu]
 
-Counterpart of the JAX package's ``cli/infer.py`` for native ``.npz``
-checkpoints (either package's) and the bundled or a given ``.npz`` Vocos
-vocoder. It runs on the card unless ``--device cpu`` is given. A calibrated
-``duration_stats`` table in ``config.json`` sets the length of every
-ref-free solve, as in the JAX package. Torch ``.pt``/``.safetensors``
-checkpoints and ``--mesh`` are not ported yet (``ROADMAP.md``): they raise an
-error that says so.
+Counterpart of the JAX package's ``cli/infer.py``: native ``.npz``
+checkpoints (either package's) and the reference's torch ``.pt`` and
+``.safetensors`` files (``utils/torch_compat.py``, EMA weights first); the
+bundled Vocos, a Vocos ``.npz`` or torch-layout file, or ``--vocoder
+griffin_lim``. It runs on the card unless ``--device cpu`` is given. A
+calibrated ``duration_stats`` table in ``config.json`` sets the length of
+every ref-free solve, as in the JAX package. ``--mesh`` is not ported yet
+(``ROADMAP.md``): it raises an error that says so.
 """
 
 from __future__ import annotations
@@ -17,16 +18,19 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from oron_tts_tpu_torch.cli import NOT_PORTED, validate_quantize_mesh
+from oron_tts_tpu_torch.cli import validate_quantize_mesh
 
 
 def load_model(checkpoint_path: str, use_ema: bool = True, precision: str | None = None,
                quantize: str | None = None, device: str | None = None):
-    """Load ``F5TTS`` from a native ``.npz`` checkpoint or a checkpoint directory.
+    """Load ``F5TTS`` from an ``.npz``, ``.pt`` or ``.safetensors`` file or a directory.
 
     A directory holds ``f5tts_step_*.npz`` (the newest is taken, else
     ``f5tts_best.npz``) and ``config.json``; a file reads the ``config.json``
-    beside it. ``precision=None`` is the facade's default (bf16 on the card,
+    beside it. A torch file holds the reference F5TTS's keys
+    (``cfm.backbone.*``, or the DiT's own), converted by
+    ``utils/torch_compat.py``; ``use_ema`` prefers its EMA weights.
+    ``precision=None`` is the facade's default (bf16 on the card,
     f32 on the CPU: the parameters are stored in the compute type);
     ``"float32"`` forces f32. ``quantize`` (``"int8"`` w8a16, ``"int8_dynamic"``
     w8a8) converts the attention and FFN projections in memory after loading.
@@ -43,7 +47,7 @@ def load_model(checkpoint_path: str, use_ema: bool = True, precision: str | None
         raise SystemExit(
             f"error: checkpoint path does not exist: {path}\n"
             "Pass a checkpoint directory (with f5tts_step_*.npz + config.json) "
-            "or a .npz file."
+            "or a .npz/.pt/.safetensors file."
         )
     cm = CheckpointManager(path if path.is_dir() else path.parent)
     config = cm.load_config() or {}
@@ -59,22 +63,29 @@ def load_model(checkpoint_path: str, use_ema: bool = True, precision: str | None
         if found is None:
             raise FileNotFoundError(f"no checkpoint found in {path}")
         path = found
-    if path.suffix != ".npz":
-        raise NotImplementedError(NOT_PORTED.format(
-            flag=f"Loading a {path.suffix} checkpoint (the torch_compat converter)"))
+    if path.suffix == ".npz":
+        trees, meta = load_pytree_npz(path)
+        if use_ema and trees.get("ema") is not None:
+            params = trees["ema"]
+            print("Loading EMA weights (smoothed)")
+        else:
+            params = trees.get("params")
+            print("[WARN] EMA weights not found in checkpoint, using raw weights" if use_ema
+                  else "Loading raw training weights (--no-ema)")
+        if params is None:
+            raise ValueError(f"{path} holds no 'params' tree")
+        model.load_params(params)
+        print(f"Checkpoint step: {meta.get('step', '?')}")
+    else:  # the reference's torch .pt / .safetensors
+        from oron_tts_tpu_torch.utils.torch_compat import (
+            convert_f5tts_state_dict,
+            load_torch_checkpoint,
+        )
 
-    trees, meta = load_pytree_npz(path)
-    if use_ema and trees.get("ema") is not None:
-        params = trees["ema"]
-        print("Loading EMA weights (smoothed)")
-    else:
-        params = trees.get("params")
-        print("[WARN] EMA weights not found in checkpoint, using raw weights" if use_ema
-              else "Loading raw training weights (--no-ema)")
-    if params is None:
-        raise ValueError(f"{path} holds no 'params' tree")
-    model.load_params(params)
-    print(f"Checkpoint step: {meta.get('step', '?')}")
+        sd = load_torch_checkpoint(path, prefer_ema=use_ema)
+        m = model.config.model
+        model.load_params(convert_f5tts_state_dict(sd, depth=m.depth, conv_layers=m.conv_layers))
+        print(f"Loaded torch-format checkpoint ({'EMA' if use_ema else 'raw'} weights preferred)")
     if quantize:
         model.quantize_for_serving(quantize)
         print(f"DiT attention/FFN projections quantized for serving: {quantize} "
@@ -98,7 +109,8 @@ def parse_cfg_interval(parser: argparse.ArgumentParser, text: str | None):
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="OronTTS F5-TTS inference (PyTorch, one GPU)")
     parser.add_argument("--checkpoint", type=str, required=True,
-                        help="Path to an .npz checkpoint or a checkpoint directory")
+                        help="Path to an .npz/.pt/.safetensors checkpoint or a checkpoint "
+                             "directory")
     parser.add_argument("--text", type=str, default=None, help="Cyrillic text to synthesize")
     parser.add_argument("--text-file", type=str, default=None,
                         help="File with one utterance per line: batched synthesis, "
@@ -125,7 +137,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--pause-ms", type=int, default=250, help="Silence between chunks")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--no-ema", action="store_true", help="Use raw weights instead of EMA")
-    parser.add_argument("--vocoder", type=str, default=None, help="Vocos .npz checkpoint")
+    parser.add_argument("--vocoder", type=str, default=None,
+                        help="Vocos .npz or torch-layout file, or griffin_lim")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--fp32", action="store_true",
                         help="Force float32 compute and parameters (default: bf16 on the card)")

@@ -5,9 +5,13 @@
 
 Counterpart of the JAX package's ``cli/train.py`` for ``--from-local`` data
 (a ``metadata.json`` of ``audio_path``/``text`` records). It runs on the card
-unless ``--device cpu`` is given. The HuggingFace dataset path, the hub
-push and the device mesh are not ported yet (``ROADMAP.md``): their flags
-are accepted and raise an error that says so.
+unless ``--device cpu`` is given. ``--pretrain-ckpt`` takes an ``.npz``
+checkpoint (either package's) or the reference's torch ``.pt`` or
+``.safetensors`` file, whose tensors of another shape (an official
+checkpoint's text embedding) keep their fresh values and are printed. The
+HuggingFace dataset path, the hub push and the device mesh are not ported
+yet (``ROADMAP.md``): their flags are accepted and raise an error that says
+so.
 """
 
 from __future__ import annotations
@@ -136,7 +140,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--log-dir", type=str, default="output/logs")
     parser.add_argument("--checkpoint-dir", type=str, default="output/checkpoints")
     parser.add_argument("--pretrain-ckpt", type=str, default=None,
-                        help="Pretrained .npz checkpoint (either package's)")
+                        help="Pretrained .npz checkpoint (either package's) or a "
+                             "reference .pt/.safetensors file")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--resume-best", action="store_true")
     parser.add_argument("--num-epochs", type=int, default=None)
@@ -164,7 +169,7 @@ def main(argv: list[str] | None = None) -> None:
     from oron_tts_tpu_torch.models.f5tts import F5TTS
     from oron_tts_tpu_torch.train.trainer import F5Trainer, TrainingPreempted
     from oron_tts_tpu_torch.utils.device import resolve_device
-    from oron_tts_tpu_torch.utils.weights import load_npz_tree
+    from oron_tts_tpu_torch.utils.weights import load_npz_tree, to_flax_params
 
     device = resolve_device(args.device)  # raises without CUDA unless --device cpu
     config = load_config(args.config)
@@ -202,11 +207,26 @@ def main(argv: list[str] | None = None) -> None:
     )
     if args.pretrain_ckpt:
         path = Path(args.pretrain_ckpt)
-        if path.suffix != ".npz":
-            parser.error("--pretrain-ckpt takes an .npz checkpoint; converting "
-                         ".pt/.safetensors files is not ported yet (see ROADMAP.md)")
-        trees = load_npz_tree(path)
-        trainer.set_params(trees.get("ema") or trees.get("params") or trees)
+        if path.suffix == ".npz":
+            trees = load_npz_tree(path)
+            trainer.set_params(trees.get("ema") or trees.get("params") or trees)
+        else:
+            from oron_tts_tpu_torch.utils.torch_compat import (
+                convert_f5tts_state_dict,
+                load_torch_checkpoint,
+                merge_compatible,
+            )
+
+            m = model.config.model
+            converted = convert_f5tts_state_dict(
+                load_torch_checkpoint(path), depth=m.depth, conv_layers=m.conv_layers)
+            # non-strict: a leaf of another shape (an official F5-TTS text
+            # embedding against the 65-token vocabulary) keeps its fresh init
+            merged, skipped = merge_compatible(
+                to_flax_params(dict(zip(trainer.state.names, trainer.state.params))), converted)
+            trainer.set_params(merged)
+            if skipped:
+                print(f"[WARN] Shape-skipped pretrained keys (first 5): {skipped[:5]}")
         print(f"Loaded pretrained weights from {path}")
     if args.resume or args.resume_best:
         trainer.load_checkpoint(load_best=args.resume_best)

@@ -40,7 +40,7 @@ import torch
 from oron_tts_tpu_torch.config import F5Config
 from oron_tts_tpu_torch.models.cfm import CFM
 from oron_tts_tpu_torch.models.dit import DiT, quantize_dit_params
-from oron_tts_tpu_torch.models.vocos import VocosDecoder
+from oron_tts_tpu_torch.models.vocos import VocosDecoder, convert_vocos_state_dict
 from oron_tts_tpu_torch.ops.audio import AudioProcessor
 from oron_tts_tpu_torch.text import TextCleaner, validate_language
 from oron_tts_tpu_torch.text.align import stretch_text_to_len
@@ -63,6 +63,17 @@ BUNDLED_VOCODER = (
     Path(__file__).resolve().parents[2] / "oron_tts_tpu" / "assets" / "vocoder"
     / "vocos_default.npz"
 )
+
+
+def _looks_like_hub_id(spec: str) -> bool:
+    """True for ``org/name``-shaped specs that are not filesystem paths.
+
+    A hub id has exactly one slash and no path-like prefix or weight-file
+    suffix, so a real (even missing) local path is never taken for one.
+    """
+    if spec.startswith((".", "/", "~")) or spec.count("/") != 1:
+        return False
+    return not spec.endswith((".npz", ".pt", ".bin", ".safetensors", ".ckpt"))
 
 
 def _normalize_ws(text: str) -> str:
@@ -158,7 +169,7 @@ class F5TTS:
         )
         self.params_loaded = False
         self.quant_mode: str | None = None
-        self.vocoder: VocosDecoder | None = None
+        self.vocoder: VocosDecoder | str | None = None  # or "griffin_lim"
         # per-token duration calibration (data/duration_stats.py), fitted on
         # the training corpus and carried in config.json; None keeps chars·13
         self.duration_stats: dict[str, Any] | None = None
@@ -221,30 +232,57 @@ class F5TTS:
     # ── vocoder ──────────────────────────────────────────────────────────
 
     def load_vocoder(self, checkpoint_path: str | Path | None = None) -> None:
-        """Load a Vocos ``.npz`` checkpoint and its ``config.json`` sidecar.
+        """Load a Vocos checkpoint: the port's ``.npz`` or the official torch layout.
 
         Resolution: explicit path → ``ORON_VOCOS_CKPT`` → the bundled file.
+        ``"griffin_lim"`` (either way) selects the Griffin-Lim phase
+        estimation, explicitly. An ``.npz`` reads its ``config.json``
+        sidecar; a ``.pt``/``.bin``/``.safetensors`` file in the official
+        Vocos layout (``backbone.embed``, ``backbone.convnext.{i}.*``,
+        ``head.out``) loads through ``convert_vocos_state_dict`` into the
+        mag/phase head, its size read from the tensors. A path that does not
+        exist raises ``FileNotFoundError`` (the JAX package falls back to
+        Griffin-Lim there); so does a hub id such as
+        ``"charactr/vocos-mel-24khz"``: the port fetches nothing, the weights
+        must be given as a local file.
         """
-        path = Path(checkpoint_path or os.environ.get("ORON_VOCOS_CKPT") or BUNDLED_VOCODER)
-        if path.suffix != ".npz":
-            raise NotImplementedError(
-                f"vocoder {str(path)!r}: only .npz Vocos checkpoints are ported; Griffin-Lim, "
-                "hub ids and torch Vocos weights are listed in ROADMAP.md, 'Still to port'")
+        spec = checkpoint_path or os.environ.get("ORON_VOCOS_CKPT")
+        if spec is not None and str(spec) == "griffin_lim":
+            _logger.info("Griffin-Lim vocoder explicitly selected")
+            self.vocoder = "griffin_lim"
+            return
+        path = Path(spec or BUNDLED_VOCODER)
         if not path.exists():
-            raise FileNotFoundError(f"no Vocos .npz checkpoint at {path}")
-        trees = load_npz_tree(path)
-        params = trees.get("ema") or trees.get("params") or trees
-        cfg_path = path.parent / "config.json"
-        voc_cfg = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+            if _looks_like_hub_id(str(spec)):
+                raise FileNotFoundError(
+                    f"vocoder {str(spec)!r} looks like a hub id: the port downloads nothing; "
+                    "fetch the Vocos weights and pass the local .safetensors/.bin/.pt file")
+            raise FileNotFoundError(f"no Vocos checkpoint at {path}")
+        if path.suffix == ".npz":
+            trees = load_npz_tree(path)
+            params = trees.get("ema") or trees.get("params") or trees
+            cfg_path = path.parent / "config.json"
+            voc_cfg = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+            dim = voc_cfg.get("dim", 512)
+            n_layers = voc_cfg.get("n_layers", 8)
+            intermediate_dim = voc_cfg.get("intermediate_dim", 1536)
+            head_mode = voc_cfg.get("head_mode", "real_imag")
+            layer_scale = bool(voc_cfg.get("layer_scale", False))
+        else:
+            from oron_tts_tpu_torch.utils.torch_compat import load_torch_checkpoint
+
+            sd = load_torch_checkpoint(path)
+            n_layers = 1 + max(int(k.split(".")[2]) for k in sd
+                               if k.startswith("backbone.convnext."))
+            params = convert_vocos_state_dict(sd, n_layers=n_layers)
+            dim = int(sd["backbone.embed.weight"].shape[0])
+            intermediate_dim = int(sd["backbone.convnext.0.pwconv1.weight"].shape[0])
+            head_mode = "mag_phase"
+            layer_scale = any(k.endswith(".gamma") for k in sd)
         module = VocosDecoder(
-            n_mels=self.n_mels,
-            dim=voc_cfg.get("dim", 512),
-            n_layers=voc_cfg.get("n_layers", 8),
-            intermediate_dim=voc_cfg.get("intermediate_dim", 1536),
-            n_fft=self.config.audio.n_fft,
-            hop_length=self.hop_length,
-            head_mode=voc_cfg.get("head_mode", "real_imag"),
-            layer_scale=bool(voc_cfg.get("layer_scale", False)),
+            n_mels=self.n_mels, dim=dim, n_layers=n_layers, intermediate_dim=intermediate_dim,
+            n_fft=self.config.audio.n_fft, hop_length=self.hop_length,
+            head_mode=head_mode, layer_scale=layer_scale,
         )
         module.load_state_dict(from_flax_params(params), strict=True)
         # the vocoder runs in f32 on every device, as in the JAX package
@@ -257,7 +295,8 @@ class F5TTS:
 
     @torch.no_grad()
     def _decode_mel_group(self, mel: torch.Tensor, lens: list[int]) -> torch.Tensor:
-        """[B, n_mels, T] log-mels → waveforms [B, ≥T·hop] on the device, one vocoder call.
+        """[B, n_mels, T] log-mels → waveforms [B, ≥T·hop] on the device, one vocoder call
+        (Griffin-Lim: one a row).
 
         Decoded at the bucket length. ``lens`` makes a row independent of the
         bucket and of its neighbours: mel beyond a row's length is zeroed and
@@ -268,6 +307,14 @@ class F5TTS:
             self.load_vocoder()
         T = mel.shape[-1]
         mel = torch.nn.functional.pad(mel.float(), (0, self._bucket(T) - T))
+        if self.vocoder == "griffin_lim":  # row by row, each at its own length
+            from oron_tts_tpu_torch.ops.griffin_lim import griffin_lim
+
+            out = torch.zeros(mel.shape[0], mel.shape[-1] * self.hop_length, device=self.device)
+            for i, n in enumerate(lens):
+                out[i, : n * self.hop_length] = griffin_lim(
+                    mel[i: i + 1, :, :n], self.audio_processor.mel_config, n_iter=32)[0]
+            return out
         lens_t = torch.tensor(lens, device=self.device)
         valid = torch.arange(mel.shape[-1], device=self.device)[None, :] < lens_t[:, None]
         return self.vocoder(torch.where(valid[:, None, :], mel, 0.0), lens_t)

@@ -22,6 +22,7 @@ from torch import nn
 
 from oron_tts_tpu_torch.models.layers import ConvWeights, DepthwiseConv1d
 from oron_tts_tpu_torch.ops.stft import istft_real
+from oron_tts_tpu_torch.utils.torch_compat import _conv1d, _layernorm, _linear, _np
 
 LOG_MAG_CLIP = 4.605170185988091  # log(1e2), the official Vocos clip
 
@@ -110,3 +111,32 @@ class VocosDecoder(nn.Module):
         return istft_real(ri[..., 0].transpose(-1, -2), ri[..., 1].transpose(-1, -2),
                           self.n_fft, self.hop_length, normalized=True, lens=lens,
                           length=out.shape[1] * self.hop_length)
+
+
+def convert_vocos_state_dict(state_dict: dict, n_layers: int = 8) -> dict:
+    """Official Vocos torch state dict → the flax tree ``VocosDecoder`` loads.
+
+    Keys ``backbone.embed``, ``backbone.norm``, ``backbone.convnext.{i}.*``
+    (with the layer-scale ``gamma`` where the checkpoint has one),
+    ``backbone.final_layer_norm`` and ``head.out``; load the tree with
+    ``utils.weights.from_flax_params`` into ``head_mode="mag_phase"``.
+    Counterpart of the JAX package's ``convert_vocos_state_dict``.
+    """
+    params = {
+        "embed": _conv1d(state_dict, "backbone.embed"),
+        "norm_pre": _layernorm(state_dict, "backbone.norm"),
+        "norm_post": _layernorm(state_dict, "backbone.final_layer_norm"),
+        "head": _linear(state_dict, "head.out"),
+    }
+    for i in range(n_layers):
+        b = f"backbone.convnext.{i}"
+        block = {
+            "dwconv": _conv1d(state_dict, f"{b}.dwconv"),
+            "norm": _layernorm(state_dict, f"{b}.norm"),
+            "pwconv1": _linear(state_dict, f"{b}.pwconv1"),
+            "pwconv2": _linear(state_dict, f"{b}.pwconv2"),
+        }
+        if f"{b}.gamma" in state_dict:
+            block["gamma"] = _np(state_dict[f"{b}.gamma"])
+        params[f"block{i}"] = block
+    return params

@@ -548,15 +548,22 @@ def test_serve_and_infer_refuse_what_is_not_ported(checkpoint_dir, tmp_path, mon
             serve.create_server(argv)
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and "single-device" in err
-    (tmp_path / "model.pt").write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_model(str(tmp_path / "model.pt"), device="cpu")
+    # torch checkpoints are read since the torch_compat port: an unreadable one
+    # is refused by its reader, a hub id or a missing file as a vocoder too
+    (tmp_path / "model.safetensors").write_bytes(b"x")
+    with pytest.raises(ValueError, match="safetensors header"):
+        load_model(str(tmp_path / "model.safetensors"), device="cpu")
     with pytest.raises(SystemExit, match="does not exist"):
         load_model(str(tmp_path / "missing"), device="cpu")
-    for vocoder in ("griffin_lim", "charactr/vocos-mel-24khz", str(tmp_path / "vocos.pt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for vocoder, match in (("charactr/vocos-mel-24khz", "hub id"),
+                           (str(tmp_path / "vocos.pt"), "no Vocos checkpoint")):
+        with pytest.raises(FileNotFoundError, match=match):
             infer_main(["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--text", "x",
                         "--vocoder", vocoder])
+    infer_main(["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--text", "сайн",
+                "--steps", "1", "--vocoder", "griffin_lim", "--output", str(tmp_path / "gl.wav")])
+    wav, rate = read_wav(tmp_path / "gl.wav")
+    assert rate == 24000 and len(wav) > 0 and np.isfinite(wav).all()
     # a calibrated duration table in config.json is read, no longer refused
     stats_dir = tmp_path / "stats"
     stats_dir.mkdir()
