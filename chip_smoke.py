@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis, training, serving and attention slices on one NVIDIA GPU.
+"""Drive the PyTorch port's synthesis, training, serving, attention and data slices on one GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -118,6 +118,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
     waveform's largest value); the bundled Vocos written in the official
     torch layout and loaded through the converter, decoding as the ``.npz``
     does (within 1e-5 of the largest value).
+15. memory: ``F5Trainer`` steps on ``configs/runpod.yaml``'s model (Base,
+    bf16, dropout 0.1) at ``[12, 2048]`` to ``[24, 2048]`` frames with
+    rematerialisation off and on: each step's peak memory beside
+    ``utils/memory.py``'s estimate, the constants the points imply,
+    ``gradient_checkpointing: auto``'s choice for each shipped config that
+    sets it, and one step at runpod's worst padded batch ``[24, 2816]`` with
+    that choice; fails if the estimate falls below a measured peak.
+16. serve_load: ``cli.bench_serve_load`` at its defaults (Base bf16, 32
+    clients, 96 mixed-length requests, 32 steps, batches of up to 16), which
+    must shed nothing, then 128 requests of 8 steps at once against a wait
+    ceiling of 1.5 default solve estimates, which must answer 429s; every
+    request is served in both.
+17. streaming: ``cli.bench_streaming`` (Base bf16, a seeded Vocos installed by
+    ``set_vocoder``, 600 characters): time to first audio and total.
+18. prepare: 24 seeded clips of 1.5-6 s through ``cli.prepare``'s record
+    path (decode, spectral-gate denoise, peak normalization, silence trim,
+    WAV, metadata), a seeded local Common Voice tar of WAV clips through
+    ``cli.clean_local_cv``, one ``cli.train --from-local`` epoch on
+    ``configs/test.yaml`` over the prepared clips and one more over them as
+    bytes, then ``cli.test_pipeline`` on the card; the dataset's host
+    log-mel must be the native one.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -1252,7 +1273,7 @@ def check_reference(torch) -> None:
     for device in ("cuda", "cpu"):
         model = F5TTS(F5Config(model=mcfg), device=device, dtype=torch.float32)
         model.load_params(params)
-        mel = model.cfm.sample(
+        mel, _ = model.cfm.sample(
             cond.to(device), ids.to(device), torch.tensor([dur]), torch.tensor([ref_len]),
             steps=4, cfg_strength=2.0, sway_sampling_coef=-1.0, noise=noise,
         )
@@ -1831,7 +1852,7 @@ def check_reference_serve(torch) -> None:
             mels.append(model.cfm.sample(
                 cond.to(device), ids.to(device), torch.tensor(durs), torch.tensor(refs),
                 steps=4, cfg_strength=2.0, sway_sampling_coef=-1.0, noise=noise,
-                cfg_interval=(0.1, 0.7), method="midpoint").cpu())
+                cfg_interval=(0.1, 0.7), method="midpoint")[0].cpu())
             if device == "cuda":
                 launches = quantized_matmul.launches
         err = (mels[0] - mels[1]).abs().max().item()
@@ -2365,8 +2386,8 @@ def run_classic(torch, smi: str) -> dict[str, int]:
         with_attn_impl(torch, model, impl, state)
 
         def solve(steps: int):
-            mel = model.cfm.sample(cond, text, duration, lens, steps=steps, cfg_strength=2.0,
-                                   sway_sampling_coef=-1.0, noise=noise)
+            mel, _ = model.cfm.sample(cond, text, duration, lens, steps=steps,
+                                      cfg_strength=2.0, sway_sampling_coef=-1.0, noise=noise)
             return mel, model._decode_mel(mel[:, :frames].transpose(1, 2))
 
         solve(2)  # warm-up
@@ -2855,6 +2876,335 @@ def run_interop(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+MEMORY_POINTS = ((12, 2048), (16, 2048), (20, 2048), (24, 2048))  # no-remat and remat
+RUNPOD_WORST = (24, 2816)  # configs/runpod.yaml's worst padded batch (67,584 frames)
+AUTO_CONFIGS = ("local", "colab", "runpod", "bench_e2e")
+
+
+def run_memory(torch, smi: str) -> dict[str, int]:
+    """Peak memory of Base bf16 training steps against ``utils/memory.py``'s estimate (F10).
+
+    ``F5Trainer.train_step`` on ``configs/runpod.yaml``'s model (Base,
+    dropout 0.1, "lanes") over full seeded batches: each point's
+    ``torch.cuda.max_memory_allocated`` with rematerialisation off and on,
+    the constants the points imply (activation bytes a frame, model dim and
+    block; the margin the CUDA context and the allocator's slack leave),
+    ``gradient_checkpointing: auto``'s choice for each shipped config that
+    sets it, and one step at runpod's worst padded batch with that choice.
+    Fails if the estimate falls below a measured peak.
+    """
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli.train import auto_remat_frames
+    from oron_tts_tpu_torch.config import F5Config, load_config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_bwd, flash_lanes_fwd_stats
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
+    from oron_tts_tpu_torch.utils import memory as mem
+    from oron_tts_tpu_torch.utils.weights import seeded_dit_params
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd_stats, flash_lanes_bwd)}
+    root = Path(__file__).resolve().parent
+    config = load_config(root / "configs" / "runpod.yaml")
+    config["gradient_checkpointing"] = False
+    m = config["model"]
+    dim, depth = m["dim"], m["depth"]
+    total = mem.device_memory_bytes()
+    choices = {}
+    for name in AUTO_CONFIGS:
+        c = load_config(root / "configs" / f"{name}.yaml")
+        frames = auto_remat_frames(c)
+        cm = c["model"]
+        choices[name] = {"frames": frames, "remat": mem.auto_gradient_checkpointing(c, frames),
+                         "estimate_gb": mem.estimate_train_bytes(
+                             mem.config_param_count(c), frames, cm["dim"], cm["depth"]) / 1e9}
+    n_est = mem.config_param_count(config)
+    state = n_est * mem.state_bytes_per_param()
+
+    torch.cuda.empty_cache()
+    # tensors an earlier phase left alive are not this step's: peaks are taken above them
+    baseline = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = F5TTS(F5Config.from_dict(config))  # the card, bf16
+    model.load_params(seeded_dit_params(model.config.model, seed=0))
+    trainer = F5Trainer({**config, "use_tqdm": False, "log_interval": 10**9}, model, [None],
+                        log_dir=tempfile.mkdtemp(), checkpoint_dir=tempfile.mkdtemp())
+    rng = np.random.default_rng(7)
+    setup_s = time.perf_counter() - t0
+
+    def step(rows: int, t: int, remat: bool) -> dict:
+        batch = {"mel": rng.standard_normal((rows, 100, t), dtype=np.float32),
+                 "text_ids": rng.integers(1, 65, (rows, t)).astype(np.int32),
+                 "mel_lengths": np.full(rows, t, np.int32)}
+        model.backbone.gradient_checkpointing = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        frames = rows * t
+        est = mem.estimate_train_bytes(n_est, frames, dim, depth, remat=remat)
+        point = {"batch": [rows, t], "frames": frames, "remat": remat, "estimate_gb": est / 1e9}
+        t1 = time.perf_counter()
+        try:
+            out = trainer.train_step(batch, torch.Generator().manual_seed(frames))
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            # recorded, not raised: the estimate must then lie above the card's budget
+            for p in trainer.work:
+                p.grad = None
+            torch.cuda.empty_cache()
+            point |= {"oom": True,
+                      "peak_gb": (torch.cuda.max_memory_allocated() - baseline) / 1e9}
+            emit({"phase": "memory_point", **point, "card": smi})
+            return point
+        free, _ = torch.cuda.mem_get_info()
+        point |= {"oom": False,
+                  "peak_gb": (torch.cuda.max_memory_allocated() - baseline) / 1e9,
+                  "reserved_gb": (torch.cuda.max_memory_reserved() - baseline) / 1e9,
+                  "outside_torch_gb": (total - free - torch.cuda.memory_reserved()) / 1e9,
+                  "step_s": time.perf_counter() - t1, "loss": out["loss"], "ok": out["ok"]}
+        emit({"phase": "memory_point", **point, "card": smi})
+        return point
+
+    step(*MEMORY_POINTS[0], False)  # warm-up: first launches, the matmul library's workspace
+    zero_counts(wrappers)
+    points = [step(rows, t, remat) for remat in (False, True) for rows, t in MEMORY_POINTS]
+    worst_remat = choices["runpod"]["remat"]
+    points.append(step(*RUNPOD_WORST, worst_remat))
+    counts = read_counts(wrappers)
+    n_params = model.num_params()
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    ran = [p for p in points if not p["oom"]]
+
+    def line(pts):  # least squares: peak bytes = intercept + slope · frames
+        f = np.array([p["frames"] for p in pts], float)
+        y = np.array([p["peak_gb"] * 1e9 for p in pts])
+        slope, intercept = np.polyfit(f, y, 1)
+        return float(slope), float(intercept)
+
+    slope_off, icpt_off = line([p for p in ran if not p["remat"]])
+    slope_on, icpt_on = line([p for p in ran if p["remat"]])
+    fit_act = slope_off / (dim * depth)
+    fit_remat = (slope_on / dim - fit_act) / depth
+    slack = max(p["reserved_gb"] / p["peak_gb"] for p in ran)
+    outside = max(p["outside_torch_gb"] for p in ran) * 1e9
+    emit({"phase": "memory", "config": "configs/runpod.yaml (Base, dropout 0.1), bf16, lanes",
+          "device_bytes": total, "baseline_gb": baseline / 1e9,
+          "state_bytes_per_param": mem.state_bytes_per_param(),
+          "params_estimated": n_est, "params": n_params,
+          "act_bytes_per_frame_dim_layer": mem.ACT_BYTES_PER_FRAME_DIM_LAYER,
+          "remat_bytes_per_frame_dim_layer": mem.REMAT_BYTES_PER_FRAME_DIM_LAYER,
+          "margin": mem.MEMORY_MARGIN,
+          "state_gb": state / 1e9,
+          "fitted": {"act_bytes_per_frame_dim_layer": fit_act,
+                     "remat_bytes_per_frame_dim_layer": fit_remat,
+                     "intercept_gb": icpt_off / 1e9, "intercept_remat_gb": icpt_on / 1e9,
+                     "reserved_over_allocated": slack,
+                     "margin": (1 - outside / total) / slack},
+          "points": [{k: p.get(k) for k in ("batch", "remat", "oom", "peak_gb", "estimate_gb",
+                                             "step_s")} for p in points],
+          "auto": choices, "runpod_worst": {"batch": list(RUNPOD_WORST), "remat": worst_remat,
+                                            "peak_gb": points[-1]["peak_gb"]},
+          "setup_s": setup_s, "launches": counts, "card": smi})
+    below = [p for p in ran if p["estimate_gb"] < p["peak_gb"]]
+    if below:
+        raise AssertionError(f"memory: the estimate is below the measured peak at {below}")
+    budget = total * mem.MEMORY_MARGIN / 1e9
+    wrong = [p for p in points if p["oom"] and p["estimate_gb"] <= budget]
+    if wrong or points[-1]["oom"]:
+        raise AssertionError(
+            f"memory: out of memory where the estimate fits: {wrong or points[-1]}")
+    if not all(p["ok"] and math.isfinite(p["loss"]) for p in ran):
+        raise AssertionError("memory: a step was not finite")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"memory: launches {counts}")
+    return counts
+
+
+def run_serve_load(torch, smi: str) -> dict[str, int]:
+    """``cli.bench_serve_load`` at its defaults (Base bf16, 32 clients, 96 requests, 32
+    steps), then once more with a wait ceiling low enough to shed.
+
+    The shed run sends 128 requests of 8 steps from 128 clients at once
+    against a ceiling of 1.5 default solve estimates (32 steps): the fresh
+    server's estimate is at least 0.735 s after its warm-up
+    (``SOLVE_EWMA_PRIOR_S`` folded twice), so a request with six or more
+    batches of 16 ahead of it is answered 429 whatever the card's speed,
+    while the admitted ones, whose 8-step solves take a fraction of the
+    ceiling, are served. One model serves both runs; each starts a fresh
+    server.
+    """
+    from oron_tts_tpu_torch.cli import bench_serve_load
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish)}
+    keys = ("warmup_s", "wall_s", "req_per_s", "audio_s_per_s", "latency_ms",
+            "latency_ms_by_chars", "merged_batches", "request_timeout_s", "responses_429",
+            "responses_504", "shed_requests", "solve_estimate_s")
+    model = bench_serve_load.build_model(bench_serve_load.build_parser().parse_args([]))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "serve_load.json")
+        zero_counts(wrappers)
+        default = bench_serve_load.main(["--out", out], model=model)
+        counts = read_counts(wrappers)
+        emit({"phase": "serve_load", "run": "default", **{k: default[k] for k in keys},
+              "launches": counts, "card": smi})
+        if default["shed_requests"] or default["responses_429"] or default["responses_504"]:
+            raise AssertionError(f"serve_load: the default run shed requests: {default}")
+        timeout = round(1.5 * default["solve_estimate_s"], 2)
+        shed = bench_serve_load.main(["--out", out, "--request-timeout", str(timeout),
+                                      "--clients", "128", "--requests", "128", "--steps", "8",
+                                      "--label", "shed"], model=model)
+        del model
+        emit({"phase": "serve_load", "run": "shed", "clients": 128, "requests": 128, "steps": 8,
+              **{k: shed[k] for k in keys}, "card": smi})
+        if not shed["responses_429"]:
+            raise AssertionError(f"serve_load: a {timeout} s ceiling shed nothing")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"serve_load: launches {counts}")
+    return counts
+
+
+def run_streaming(torch, smi: str) -> dict[str, int]:
+    """``cli.bench_streaming``: Base bf16 with a seeded Vocos set by ``set_vocoder``."""
+    from oron_tts_tpu_torch.cli import bench_streaming
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish)}
+    zero_counts(wrappers)
+    payload = bench_streaming.main([])
+    counts = read_counts(wrappers)
+    emit({"phase": "streaming", **payload, "launches": counts})
+    if not (payload["pieces"] > 1 and 0 < payload["ttfa_s"] < payload["total_s"]):
+        raise AssertionError(f"streaming: {payload}")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"streaming: launches {counts}")
+    return counts
+
+
+PREP_CLIPS = 24
+PREP_WORDS = ("сайн байна уу монгол хэл өнөөдөр цаг агаар сайхан тал нутаг өргөн "
+              "уудам орон юм").split()
+
+
+def speech_like(rng, seconds: float, rate: int = 24000):
+    """A seeded clip: voiced syllables (harmonics under an envelope) in a noise floor,
+    with 0.2 s of quiet at each end for the trim."""
+    import numpy as np
+
+    n = int(seconds * rate)
+    t = np.arange(n) / rate
+    f0 = rng.uniform(110, 220)
+    voiced = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.3)) / k for k in range(1, 6))
+    envelope = np.clip(np.sin(2 * np.pi * rng.uniform(2.5, 4.5) * t), 0, None) ** 2
+    edge = int(0.2 * rate)
+    envelope[:edge] = envelope[-edge:] = 0.0
+    clip = 0.3 * voiced * envelope + 0.003 * rng.standard_normal(n)
+    return clip.astype(np.float32)
+
+
+def run_prepare(torch, smi: str) -> dict[str, int]:
+    """Data preparation on seeded clips, a local Common Voice tar, then training on the card."""
+    import csv
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from oron_tts_tpu_torch import native
+    from oron_tts_tpu_torch.cli import clean_local_cv, prepare, test_pipeline
+    from oron_tts_tpu_torch.cli import train as cli_train
+    from oron_tts_tpu_torch.config import F5Config, load_config
+    from oron_tts_tpu_torch.data.dataset import TTSDataset
+    from oron_tts_tpu_torch.data.wav import wav_bytes, wav_info_bytes
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_bwd, flash_lanes_fwd_stats
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd_stats, flash_lanes_bwd)}
+    rng = np.random.default_rng(11)
+    seconds = {}
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        records = []
+        for i in range(PREP_CLIPS):
+            words = " ".join(rng.choice(PREP_WORDS, size=int(rng.integers(3, 9))))
+            clip = speech_like(rng, float(rng.uniform(1.5, 6.0)))
+            records.append({"sentence": words.capitalize() + ".", "client_id": f"c{i % 4}",
+                            "audio": {"bytes": wav_bytes(clip, 24000), "path": None}})
+        t0 = time.perf_counter()
+        meta = prepare.process_dataset(records, tmp / "prepared", "mn", denoise=True)
+        prepare.create_metadata(tmp / "prepared", meta)
+        seconds["prepare"] = time.perf_counter() - t0
+
+        tsv = io.StringIO()
+        writer = csv.writer(tsv, delimiter="\t")
+        writer.writerow(["client_id", "path", "sentence"])
+        archive = tmp / "cv.tar.gz"
+        with tarfile.open(archive, "w:gz") as tar:
+            for i, rec in enumerate(records[:8]):
+                name = f"common_voice_mn_{i:04d}.wav"
+                writer.writerow([rec["client_id"], name, rec["sentence"]])
+                data = rec["audio"]["bytes"]
+                info = tarfile.TarInfo(f"cv-corpus/mn/clips/{name}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+            data = tsv.getvalue().encode()
+            info = tarfile.TarInfo("cv-corpus/mn/validated.tsv")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+        t0 = time.perf_counter()
+        cv_meta = clean_local_cv.main(["--archive", str(archive), "--output-dir",
+                                       str(tmp / "cv"), "--denoise"])
+        seconds["clean_local_cv"] = time.perf_counter() - t0
+
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        cli_train.main(["--config", str(root / "configs" / "test.yaml"), "--from-local",
+                        "--data-dir", str(tmp / "prepared"), "--device", "cuda",
+                        "--num-epochs", "1", "--log-dir", str(tmp / "logs"),
+                        "--checkpoint-dir", str(tmp / "ckpt")])
+        seconds["train_cli"] = time.perf_counter() - t0
+        checkpoints = sorted(p.name for p in (tmp / "ckpt").glob("f5tts_step_*.npz"))
+
+        # one more epoch over the same WAVs held as bytes (the HuggingFace path's mode)
+        config = load_config(root / "configs" / "test.yaml")
+        dataset = TTSDataset(audio_bytes_list=[Path(m["audio_path"]).read_bytes() for m in meta],
+                             texts=[m["text"] for m in meta])
+        dataset.durations = [wav_info_bytes(b)[0] for b in dataset.audio_bytes_list]
+        loader, _ = cli_train.build_loaders(dataset, config)
+        model = F5TTS(F5Config.from_dict(config), device="cuda", dtype=torch.float32)
+        model.init_params(0)
+        t0 = time.perf_counter()
+        trainer = F5Trainer({**config, "use_tqdm": False}, model, loader,
+                            log_dir=str(tmp / "logs2"), checkpoint_dir=str(tmp / "ckpt2"))
+        loss = trainer.train_epoch(total_epochs=1)
+        seconds["train_bytes_epoch"] = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+
+    t0 = time.perf_counter()
+    failed = test_pipeline.main(["--device", "cuda"])
+    seconds["test_pipeline"] = time.perf_counter() - t0
+    extractor = dataset.mel_extractor
+    emit({"phase": "prepare", "clips": PREP_CLIPS, "prepared": len(meta),
+          "clean_local_cv": len(cv_meta), "checkpoints": checkpoints,
+          "bytes_epoch_loss": loss, "extractor": extractor, "native": native.available(),
+          "test_pipeline_failed": failed, "seconds": seconds, "launches": counts, "card": smi})
+    if extractor != "native audiokit":
+        raise AssertionError(f"prepare: the host log-mel was {extractor}, not the native one")
+    if not (len(meta) == PREP_CLIPS and len(cv_meta) == 8 and checkpoints
+            and math.isfinite(loss) and failed == 0):
+        raise AssertionError(f"prepare: {len(meta)} prepared, {len(cv_meta)} from the tar, "
+                             f"checkpoints {checkpoints}, loss {loss}, {failed} steps failed")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"prepare: launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2902,7 +3252,9 @@ def main() -> int:
     launches: dict[str, int] = {}
     for name, phase in (("slice", run_slice), ("train", run_train), ("serve", run_serve),
                         ("batch_knee", run_batch_knee), ("classic", run_classic),
-                        ("widths", run_widths), ("align", run_align), ("interop", run_interop)):
+                        ("widths", run_widths), ("align", run_align), ("interop", run_interop),
+                        ("memory", run_memory), ("serve_load", run_serve_load),
+                        ("streaming", run_streaming), ("prepare", run_prepare)):
         for kernel, n in (timed(name, phase, torch, smi) or {}).items():
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})

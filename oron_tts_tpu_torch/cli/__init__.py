@@ -1,5 +1,8 @@
 """Command-line entry points of the PyTorch port: ``train``, ``infer``, ``serve``, ``export``,
-the tone-code eval (``make_tone_corpus``, ``eval_alignment``) and the benches."""
+data preparation (``prepare``, ``clean_local_cv``), the smoke harness
+(``test_pipeline``), the tone-code eval (``make_tone_corpus``,
+``eval_alignment``) and the benches (``bench_serve_load``, ``bench_streaming``
+among them)."""
 
 NOT_PORTED = (
     "{flag} is not ported to the PyTorch package yet (see ROADMAP.md, "
@@ -18,4 +21,4 @@ def validate_quantize_mesh(parser, quantize: str | None, mesh: str | None) -> No
         parser.error("--quantize int8 (the w8a16 kernel) is single-device; "
                      "use int8_dynamic with --mesh")
     if mesh:
-        parser.error(NOT_PORTED.format(flag="--mesh") + ", section 1 item 8")
+        parser.error(NOT_PORTED.format(flag="--mesh") + ", section 1 item 5 (multi-GPU)")

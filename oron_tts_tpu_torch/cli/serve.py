@@ -160,6 +160,11 @@ class MicroBatcher:
             total += (n + self._max_batch - 1) // self._max_batch
         return total
 
+    @property
+    def solve_estimate_s(self) -> float:
+        """The current estimate of one batched solve's wall time."""
+        return self._solve_ewma_s
+
     def projected_wait_s(self) -> float:
         """Projected queue wait of a new request: solves ahead × the solve-time estimate.
 

@@ -1,17 +1,23 @@
-"""Training CLI of the PyTorch port (local data, one GPU).
+"""Training CLI of the PyTorch port (local or HuggingFace data, one GPU).
 
     python -m oron_tts_tpu_torch.cli.train --config configs/test.yaml \\
         --from-local --data-dir data/processed [--device cpu]
 
-Counterpart of the JAX package's ``cli/train.py`` for ``--from-local`` data
-(a ``metadata.json`` of ``audio_path``/``text`` records). It runs on the card
-unless ``--device cpu`` is given. ``--pretrain-ckpt`` takes an ``.npz``
-checkpoint (either package's) or the reference's torch ``.pt`` or
-``.safetensors`` file, whose tensors of another shape (an official
-checkpoint's text embedding) keep their fresh values and are printed. The
-HuggingFace dataset path, the hub push and the device mesh are not ported
-yet (``ROADMAP.md``): their flags are accepted and raise an error that says
-so.
+    python -m oron_tts_tpu_torch.cli.train --config configs/runpod.yaml \\
+        --dataset btsee/mbspeech_mn [--split train --text-column sentence_norm]
+
+Counterpart of the JAX package's ``cli/train.py``: ``--from-local`` data (a
+``metadata.json`` of ``audio_path``/``text`` records) or a HuggingFace
+dataset (``--dataset``, ingested by ``TTSDataset.from_hf_dataset``, which
+needs the ``datasets`` library and the network). It runs on the card unless
+``--device cpu`` is given. ``gradient_checkpointing: auto`` is decided by the
+memory estimate of ``utils/memory.py`` for the worst padded batch the
+collator can build, against the card's memory (the host's with ``--device
+cpu``). ``--pretrain-ckpt`` takes an ``.npz`` checkpoint (either package's)
+or the reference's torch ``.pt`` or ``.safetensors`` file, whose tensors of
+another shape (an official checkpoint's text embedding) keep their fresh
+values and are printed. The hub push and the device mesh are not ported yet
+(``ROADMAP.md``): their flags are accepted and raise an error that says so.
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ import argparse
 import json
 from pathlib import Path
 
-from oron_tts_tpu_torch.cli import NOT_PORTED as _NOT_PORTED
+from oron_tts_tpu_torch.cli import NOT_PORTED
 
-NOT_PORTED = _NOT_PORTED + "; use --from-local --data-dir"
+HUB_ITEM = ", section 1 item 3 (hub push/pull)"
+MESH_ITEM = ", section 1 item 5 (multi-GPU)"
 
 
 def _metadata_attr_tokens(value: object) -> list[str]:
@@ -31,6 +38,63 @@ def _metadata_attr_tokens(value: object) -> list[str]:
     if isinstance(value, str) and value.strip():
         return [value.strip()]
     return []
+
+
+def build_hf_dataset(args, config: dict):
+    """``TTSDataset`` over a HuggingFace dataset's raw audio bytes (``--dataset``)."""
+    from oron_tts_tpu_torch.data.dataset import TTSDataset
+    from oron_tts_tpu_torch.data.hf import HFDatasetWrapper
+
+    sample_rate = config.get("sample_rate", 24000)
+    print(f"Loading dataset from HuggingFace: {args.dataset}")
+    wrapper = HFDatasetWrapper(args.dataset, dataset_config=args.dataset_config,
+                               cache_dir=args.cache_dir, sample_rate=sample_rate)
+    return TTSDataset.from_hf_dataset(
+        wrapper.load(split=args.split), audio_column=args.audio_column,
+        text_column=args.text_column, lang_column=args.lang_column,
+        gender_column=args.gender_column, age_column=args.age_column,
+        sample_rate=sample_rate, n_mels=config.get("n_mels", 100), default_lang=args.lang,
+        cache_bytes=int(config.get("dataset_cache_bytes", 2 << 30)),
+    )
+
+
+def auto_remat_frames(config: dict) -> int:
+    """Padded frames of the worst batch ``build_loaders`` can produce (one card)."""
+    from oron_tts_tpu_torch.data.dataset import frames_for_duration
+    from oron_tts_tpu_torch.utils.memory import worst_case_padded_frames
+
+    collator = make_collator(config)
+    sample_rate = config.get("sample_rate", 24000)
+    hop_length = config.get("hop_length", 256)
+    t_multiple = collator.pad_to_multiple
+    max_clip = frames_for_duration(config.get("max_duration_s", 30.0), sample_rate, hop_length)
+    if config.get("batch_size_type", "sample") == "frame":
+        return worst_case_padded_frames(
+            int(config.get("frames_threshold", 6000)), max_clip,
+            row_multiple=collator.pad_batch_to_multiple, t_multiple=t_multiple,
+            max_samples=int(config.get("max_samples", 0)),
+            min_clip_frames=frames_for_duration(
+                config.get("min_duration_s", 1.0), sample_rate, hop_length),
+        )
+    rows = config.get("batch_size", 16)
+    rows = -(-rows // collator.pad_batch_to_multiple) * collator.pad_batch_to_multiple
+    return rows * (-(-max_clip // t_multiple) * t_multiple)
+
+
+def decide_gradient_checkpointing(config: dict, device) -> bool:
+    """``gradient_checkpointing: auto`` → the estimate's choice, printed."""
+    from oron_tts_tpu_torch.utils.memory import (
+        auto_gradient_checkpointing,
+        device_memory_bytes,
+        host_memory_bytes,
+    )
+
+    frames = auto_remat_frames(config)
+    budget = device_memory_bytes(device) if device.type == "cuda" else host_memory_bytes()
+    bf16 = config.get("mixed_precision", "bfloat16") == "bfloat16" and device.type == "cuda"
+    remat = auto_gradient_checkpointing(config, frames, device_bytes=budget, bf16_compute=bf16)
+    print(f"gradient_checkpointing=auto -> {remat} ({frames} frames)")
+    return remat
 
 
 def build_dataset(data_dir: str, config: dict, default_lang: str = "mn"):
@@ -84,15 +148,21 @@ class _Subset:
         return self.base[self.indices[i]]
 
 
+def make_collator(config: dict):
+    """The collator ``build_loaders`` pads batches with, as the JAX package's CLI sets it."""
+    from oron_tts_tpu_torch.data.dataset import TTSCollator
+
+    frame_batches = config.get("batch_size_type", "sample") == "frame"
+    return TTSCollator(
+        pad_to_multiple=config.get("pad_to_multiple", 64), n_mels=config.get("n_mels", 100),
+        pad_batch_to_multiple=config.get("batch_pad_multiple", 0) or (8 if frame_batches else 1))
+
+
 def build_loaders(dataset, config: dict):
     """Seeded 90/10 split, samplers and loaders, as the JAX package's CLI."""
     import numpy as np
 
-    from oron_tts_tpu_torch.data.dataset import (
-        DynamicBatchSampler,
-        FixedBatchSampler,
-        TTSCollator,
-    )
+    from oron_tts_tpu_torch.data.dataset import DynamicBatchSampler, FixedBatchSampler
     from oron_tts_tpu_torch.data.loader import DataLoader
 
     n = len(dataset)
@@ -105,10 +175,7 @@ def build_loaders(dataset, config: dict):
     batch_size = config.get("batch_size", 16)
     frame_batches = config.get("batch_size_type", "sample") == "frame"
     num_workers = config.get("num_workers", 4)
-    collator = TTSCollator(pad_to_multiple=config.get("pad_to_multiple", 64),
-                           n_mels=config.get("n_mels", 100))
-    collator.pad_batch_to_multiple = max(
-        1, config.get("batch_pad_multiple", 0) or (8 if frame_batches else 1))
+    collator = make_collator(config)
     if frame_batches and train_subset.durations:
         sampler = DynamicBatchSampler(
             durations=train_subset.durations,
@@ -135,7 +202,19 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--config", type=str, default="configs/runpod.yaml")
     parser.add_argument("--data-dir", type=str, default="data/processed")
     parser.add_argument("--from-local", action="store_true",
-                        help="Use <data-dir>/metadata.json (the only data path so far)")
+                        help="Use <data-dir>/metadata.json instead of a HuggingFace dataset")
+    parser.add_argument("--dataset", type=str, default="btsee/mbspeech_mn")
+    parser.add_argument("--dataset-config", type=str, default=None,
+                        help="Optional HF dataset config/subset")
+    parser.add_argument("--split", type=str, default="train")
+    parser.add_argument("--audio-column", type=str, default="audio")
+    parser.add_argument("--text-column", type=str, default=None)
+    parser.add_argument("--lang-column", type=str, default=None)
+    parser.add_argument("--gender-column", type=str, default=None,
+                        help="Metadata column mapped to [FEMALE]/[MALE]")
+    parser.add_argument("--age-column", type=str, default=None,
+                        help="Metadata column mapped to [YOUNG]/[MIDDLE]/[ELDERLY]")
+    parser.add_argument("--cache-dir", type=str, default="output/data/cache")
     parser.add_argument("--lang", type=str, default="mn", choices=["mn", "kz"])
     parser.add_argument("--log-dir", type=str, default="output/logs")
     parser.add_argument("--checkpoint-dir", type=str, default="output/checkpoints")
@@ -148,20 +227,20 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     # accepted for flag parity with the JAX package; not ported yet
-    parser.add_argument("--dataset", type=str, default=None)
     parser.add_argument("--push-to-hub", action="store_true")
     parser.add_argument("--hf-repo", type=str, default=None)
     parser.add_argument("--mesh", type=str, default=None)
     parser.add_argument("--multihost", action="store_true")
+    parser.add_argument("--num-gpus", type=int, default=None)
     args = parser.parse_args(argv)
 
-    for flag, given in (("--dataset / the HuggingFace dataset path", args.dataset),
-                        ("--push-to-hub", args.push_to_hub), ("--hf-repo", args.hf_repo),
-                        ("--mesh", args.mesh), ("--multihost", args.multihost)):
+    for flag, given, item in (("--push-to-hub", args.push_to_hub, HUB_ITEM),
+                              ("--hf-repo", args.hf_repo, HUB_ITEM),
+                              ("--mesh", args.mesh, MESH_ITEM),
+                              ("--multihost", args.multihost, MESH_ITEM),
+                              ("--num-gpus", args.num_gpus is not None, MESH_ITEM)):
         if given:
-            parser.error(NOT_PORTED.format(flag=flag))
-    if not args.from_local:
-        parser.error(NOT_PORTED.format(flag="Loading a dataset from HuggingFace"))
+            parser.error(NOT_PORTED.format(flag=flag) + item)
 
     import torch
 
@@ -175,10 +254,9 @@ def main(argv: list[str] | None = None) -> None:
     config = load_config(args.config)
     if args.num_epochs:
         config["num_epochs"] = args.num_epochs
-    if config.get("gradient_checkpointing") == "auto":
-        config["gradient_checkpointing"] = False
 
-    dataset = build_dataset(args.data_dir, config, args.lang)
+    dataset = (build_dataset(args.data_dir, config, args.lang) if args.from_local
+               else build_hf_dataset(args, config))
     print(f"Dataset size: {len(dataset)}")
     # calibrate the ref-free duration from the corpus; the table rides the
     # config into config.json beside every checkpoint (data/duration_stats.py)
@@ -194,6 +272,8 @@ def main(argv: list[str] | None = None) -> None:
             print(f"Duration calibration: global "
                   f"{stats['global']:.2f} frames/token over {stats['n']} clips")
     train_loader, val_loader = build_loaders(dataset, config)
+    if config.get("gradient_checkpointing") == "auto":
+        config["gradient_checkpointing"] = decide_gradient_checkpointing(config, device)
 
     bf16 = config.get("mixed_precision", "bfloat16") == "bfloat16" and device.type == "cuda"
     model = F5TTS(F5Config.from_dict(config), device=device,

@@ -5,20 +5,25 @@ samples carry a log-mel ``[n_mels, T]`` and token ids stretched to ``T``;
 the collator pads the time axis up to a multiple of ``pad_to_multiple`` and
 optionally the batch axis; ``DynamicBatchSampler`` packs a frame budget
 (sort by length, greedy fill, epoch-seeded shuffle, nothing dropped) and
-``FixedBatchSampler`` cuts shuffled fixed-size batches. The mel comes from
-this package's ``ops/mel.py`` on the host, in f32.
+``FixedBatchSampler`` cuts shuffled fixed-size batches. Audio comes from
+files, in-memory arrays or raw encoded bytes (``from_hf_dataset`` keeps a
+HuggingFace dataset's bytes and maps its gender and age columns to the
+``[FEMALE]``/``[YOUNG]``/… attribute tokens). The mel is computed on the
+host in f32 by the native audiokit library (``native/``), or by this
+package's ``ops/mel.py`` where the library cannot be built; which one ran
+is logged once.
 
-Not ported yet: ``from_hf_dataset`` (needs the ``datasets`` library and the
-network), ``GlobalBatchSchedule`` (multi-host) and the native audiokit
-feature extractor.
+Not ported yet: ``GlobalBatchSchedule`` (multi-host).
 """
 
 from __future__ import annotations
 
 import logging
+import subprocess
 import threading
+from collections.abc import Mapping
 from pathlib import Path
-from typing import Any
+from typing import Any, Final
 
 import numpy as np
 import torch
@@ -30,9 +35,60 @@ from oron_tts_tpu_torch.text.align import stretch_text_to_len
 
 _logger = logging.getLogger(__name__)
 
+GENDER_ATTR_TOKENS: Final[dict[str, str]] = {
+    "female": "[FEMALE]", "f": "[FEMALE]", "woman": "[FEMALE]",
+    "women": "[FEMALE]", "girl": "[FEMALE]",
+    "male": "[MALE]", "m": "[MALE]", "man": "[MALE]",
+    "men": "[MALE]", "boy": "[MALE]",
+}
+
+AGE_ATTR_TOKENS: Final[dict[str, str]] = {
+    "child": "[YOUNG]", "teen": "[YOUNG]", "teens": "[YOUNG]",
+    "twenties": "[YOUNG]", "20s": "[YOUNG]", "young": "[YOUNG]",
+    "adult": "[MIDDLE]", "thirties": "[MIDDLE]", "forties": "[MIDDLE]",
+    "fourties": "[MIDDLE]", "fifties": "[MIDDLE]", "30s": "[MIDDLE]",
+    "40s": "[MIDDLE]", "50s": "[MIDDLE]", "middle": "[MIDDLE]",
+    "sixties": "[ELDERLY]", "seventies": "[ELDERLY]", "eighties": "[ELDERLY]",
+    "nineties": "[ELDERLY]", "60s": "[ELDERLY]", "70s": "[ELDERLY]",
+    "80s": "[ELDERLY]", "90s": "[ELDERLY]", "elderly": "[ELDERLY]",
+    "senior": "[ELDERLY]",
+}
+
+_NULLISH: Final[frozenset[str]] = frozenset({"none", "null", "nan", "other", "unknown"})
+
+
+def _lookup_attr(value: Any, mapping: Mapping[str, str]) -> str | None:
+    if value is None:
+        return None
+    norm = str(value).strip().lower().replace("-", "_").replace(" ", "_")
+    if not norm or norm in _NULLISH:
+        return None
+    return mapping.get(norm)
+
+
+def attr_tokens_from_metadata(
+    item: Mapping[str, Any],
+    gender_column: str | None = None,
+    age_column: str | None = None,
+) -> list[str]:
+    """A record's gender and age columns as attribute tokens (unknown values give none)."""
+    tokens: list[str] = []
+    for column, mapping in ((gender_column, GENDER_ATTR_TOKENS), (age_column, AGE_ATTR_TOKENS)):
+        if column and column in item:
+            tok = _lookup_attr(item[column], mapping)
+            if tok:
+                tokens.append(tok)
+    return tokens
+
+
+def frames_for_duration(duration_s: float, sample_rate: int = 24000,
+                        hop_length: int = 256) -> int:
+    """Estimated mel frames of a clip (a centred STFT: T = n // hop + 1)."""
+    return int(duration_s * sample_rate / hop_length) + 1
+
 
 class TTSDataset:
-    """Storage modes: file paths or in-memory float arrays."""
+    """Storage modes: file paths, in-memory float arrays, or raw encoded bytes."""
 
     def __init__(
         self,
@@ -44,19 +100,24 @@ class TTSDataset:
         min_duration_s: float = 1.0,
         max_duration_s: float = 30.0,
         audio_arrays: list[np.ndarray] | None = None,
+        audio_bytes_list: list[bytes] | None = None,
         attr_tokens_list: list[list[str]] | None = None,
         cache_bytes: int = 2 << 30,
     ) -> None:
+        self.audio_paths: list[Path] | None = None
+        self.audio_arrays: list[np.ndarray] | None = None
+        self.audio_bytes_list: list[bytes] | None = None
         if audio_paths is not None:
-            self.audio_paths: list[Path] | None = [Path(p) for p in audio_paths]
-            self.audio_arrays = None
+            self.audio_paths = [Path(p) for p in audio_paths]
             self._len = len(audio_paths)
+        elif audio_bytes_list is not None:
+            self.audio_bytes_list = audio_bytes_list
+            self._len = len(audio_bytes_list)
         elif audio_arrays is not None:
-            self.audio_paths = None
             self.audio_arrays = audio_arrays
             self._len = len(audio_arrays)
         else:
-            raise ValueError("Must provide audio_paths or audio_arrays")
+            raise ValueError("Must provide audio_paths, audio_arrays, or audio_bytes_list")
         if texts is None:
             raise ValueError("texts must be provided")
         if self._len != len(texts):
@@ -75,6 +136,8 @@ class TTSDataset:
         self.mel_config = MelConfig(sample_rate=sample_rate, n_mels=n_mels)
         self.text_cleaner = TextCleaner()
         self.durations: list[float] = []
+        # the host log-mel this dataset used: "native audiokit" or "torch (ops/mel.py)"
+        self.mel_extractor: str | None = None
         # item cache, bounded in bytes: decode + mel is deterministic per
         # index, so epochs past the first read from memory
         self._cache_bytes_budget = max(0, int(cache_bytes))
@@ -87,10 +150,26 @@ class TTSDataset:
         return self._len
 
     def _mel(self, audio: np.ndarray) -> np.ndarray:
+        """Host log-mel ``[n_mels, T]``: native audiokit, else the PyTorch plain version."""
+        from oron_tts_tpu_torch import native
+
+        cfg = self.mel_config
+        out = native.log_mel(audio, cfg.sample_rate, cfg.n_fft, cfg.hop_length,
+                             cfg.win_length, cfg.n_mels)
+        self._note_extractor("torch (ops/mel.py)" if out is None else "native audiokit")
+        if out is not None:
+            return out
         with torch.no_grad():
-            return log_mel_spectrogram(torch.from_numpy(audio), self.mel_config).numpy()
+            return log_mel_spectrogram(torch.from_numpy(audio), cfg).numpy()
+
+    def _note_extractor(self, name: str) -> None:
+        if self.mel_extractor != name:  # logged once a dataset, and on a change
+            self.mel_extractor = name
+            _logger.info("TTSDataset log-mel extractor: %s", name)
 
     def _load_audio(self, idx: int) -> np.ndarray:
+        if self.audio_bytes_list is not None:
+            return wavio.decode_audio_bytes(self.audio_bytes_list[idx], self.sample_rate)
         if self.audio_arrays is not None:
             return np.asarray(self.audio_arrays[idx], dtype=np.float32)
         samples, sr = wavio.read_wav(self.audio_paths[idx])
@@ -150,6 +229,97 @@ class TTSDataset:
         text_ids = np.asarray(stretch_text_to_len(raw_ids, T), dtype=np.int32)
         return {"mel": mel, "text_ids": text_ids, "mask": np.ones(T, dtype=bool),
                 "lang": lang, "text": text}
+
+    @classmethod
+    def from_hf_dataset(
+        cls,
+        hf_dataset: Any,
+        audio_column: str = "audio",
+        text_column: str | None = None,
+        lang_column: str | None = None,
+        gender_column: str | None = None,
+        age_column: str | None = None,
+        sample_rate: int = 24000,
+        n_mels: int = 100,
+        default_lang: str = "mn",
+        min_duration_s: float = 1.0,
+        max_duration_s: float = 30.0,
+        cache_bytes: int = 2 << 30,
+    ) -> "TTSDataset":
+        """Ingest a HuggingFace dataset, keeping its raw audio bytes; 1–30 s clips only.
+
+        Needs the ``datasets`` library, imported here and nowhere else.
+        """
+        from datasets import Audio
+
+        hf_dataset = hf_dataset.cast_column(audio_column, Audio(decode=False))
+        if text_column is None:
+            text_column = next((c for c in ("sentence_norm", "text", "sentence", "transcript",
+                                            "transcription") if c in hf_dataset.column_names),
+                               None)
+            if text_column is None:
+                raise ValueError(f"No text column found. Available: {hf_dataset.column_names}")
+        _logger.info("Using text column: %s", text_column)
+
+        audio_bytes_list: list[bytes] = []
+        texts: list[str] = []
+        langs: list[str] = []
+        attrs: list[list[str]] = []
+        durations: list[float] = []
+        skipped = {"short": 0, "long": 0, "empty": 0, "no_audio": 0}
+        for item in hf_dataset:
+            info = item[audio_column]
+            raw = info.get("bytes") if isinstance(info, dict) else None
+            if not raw:
+                path = info.get("path") if isinstance(info, dict) else None
+                if path and Path(path).exists():
+                    raw = Path(path).read_bytes()
+            if not raw:
+                skipped["no_audio"] += 1
+                continue
+            try:
+                dur, _ = wavio.wav_info_bytes(raw)
+            except ValueError:
+                # another container: decode (ffmpeg) to measure, skip on failure
+                try:
+                    dur = len(wavio.decode_audio_bytes(raw, sample_rate)) / sample_rate
+                except (ValueError, OSError, subprocess.SubprocessError):
+                    skipped["no_audio"] += 1
+                    continue
+            text_val = item[text_column]
+            if not text_val or not str(text_val).strip():
+                skipped["empty"] += 1
+                continue
+            if dur < min_duration_s:
+                skipped["short"] += 1
+                continue
+            if dur > max_duration_s:
+                skipped["long"] += 1
+                continue
+            audio_bytes_list.append(raw)
+            texts.append(text_val)
+            durations.append(dur)
+            langs.append(item[lang_column] if lang_column and lang_column in item
+                         else default_lang)
+            attrs.append(attr_tokens_from_metadata(
+                item, gender_column=gender_column, age_column=age_column))
+
+        total_skipped = sum(skipped.values())
+        if total_skipped:
+            _logger.warning(
+                "Filtered %d samples (short=%d, long=%d, empty_text=%d, no_audio=%d). Kept %d.",
+                total_skipped, skipped["short"], skipped["long"], skipped["empty"],
+                skipped["no_audio"], len(audio_bytes_list))
+        if not audio_bytes_list:
+            raise RuntimeError(
+                "No valid samples after filtering. Check "
+                f"min_duration_s={min_duration_s}, max_duration_s={max_duration_s}.")
+        ds = cls(audio_bytes_list=audio_bytes_list, texts=texts, langs=langs,
+                 sample_rate=sample_rate, n_mels=n_mels, min_duration_s=min_duration_s,
+                 max_duration_s=max_duration_s, attr_tokens_list=attrs,
+                 cache_bytes=cache_bytes)
+        ds.durations = durations
+        return ds
 
 
 def round_up(x: int, multiple: int) -> int:

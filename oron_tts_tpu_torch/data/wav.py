@@ -1,16 +1,19 @@
 """Self-contained WAV (RIFF) reading/writing on numpy.
 
-The subset of the JAX package's ``data/wav.py`` that ``AudioProcessor``
-and the training dataset need: PCM 8/16/24/32 and IEEE float32/64 decode,
-PCM16/float32 encode (whole files, and a header plus PCM16 pieces for a
-stream of unknown length), header-only durations, polyphase resampling and
-peak normalization.
+Counterpart of the JAX package's ``data/wav.py``: PCM 8/16/24/32 and IEEE
+float32/64 decode, PCM16/float32 encode (whole files, and a header plus
+PCM16 pieces for a stream of unknown length), header-only durations of a
+file or of bytes, decoding of any audio bytes (WAV in-process, other
+containers through an ``ffmpeg`` subprocess), polyphase resampling, peak
+normalization and energy-based silence trimming.
 """
 
 from __future__ import annotations
 
 import io
+import shutil
 import struct
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -110,6 +113,17 @@ def wav_info(path: str | Path) -> tuple[float, int]:
             return _wav_info_bytes(Path(path).read_bytes())
         except struct.error as exc:
             raise ValueError(f"malformed WAVE data: {exc}") from exc
+
+
+def wav_info_bytes(data: bytes) -> tuple[float, int]:
+    """(duration_seconds, sample_rate) of WAV bytes without decoding the samples.
+
+    Raises ValueError for malformed or truncated data (never struct.error).
+    """
+    try:
+        return _wav_info_bytes(data)
+    except struct.error as exc:
+        raise ValueError(f"malformed WAVE data: {exc}") from exc
 
 
 def _wav_info_bytes(data: bytes) -> tuple[float, int]:
@@ -214,3 +228,57 @@ def normalize_peak(audio: np.ndarray) -> np.ndarray:
     if peak < 1e-8:
         return audio
     return np.clip(audio / (peak + 1e-7), -1.0, 1.0)
+
+
+def decode_audio_bytes(raw: bytes, target_sr: int) -> np.ndarray:
+    """Audio bytes (WAV in-process, anything else through ``ffmpeg``) → mono f32 at ``target_sr``.
+
+    Downmixes by the channel mean and resamples, as the JAX package does.
+    """
+    try:
+        samples, sr = read_wav_bytes(raw)
+    except ValueError:
+        # ffmpeg decodes straight to the target rate: no second resample
+        samples, sr = _decode_via_ffmpeg(raw, target_sr)
+    if samples.ndim > 1:
+        samples = samples.mean(axis=1)
+    if sr != target_sr:
+        samples = resample(samples, sr, target_sr)
+    return samples.astype(np.float32)
+
+
+def _decode_via_ffmpeg(raw: bytes, target_sr: int = 48000) -> tuple[np.ndarray, int]:
+    if shutil.which("ffmpeg") is None:
+        raise ValueError("unsupported audio container and ffmpeg not available")
+    proc = subprocess.run(
+        ["ffmpeg", "-v", "quiet", "-i", "pipe:0", "-f", "f32le", "-ac", "1",
+         "-ar", str(target_sr), "pipe:1"],
+        input=raw, stdout=subprocess.PIPE, check=True,
+    )
+    return np.frombuffer(proc.stdout, dtype="<f4").copy(), target_sr
+
+
+def trim_silence(
+    audio: np.ndarray,
+    top_db: float = 20.0,
+    frame_length: int = 2048,
+    hop_length: int = 512,
+) -> np.ndarray:
+    """Energy-based edge trim (``librosa.effects.trim`` semantics)."""
+    if audio.size == 0:
+        return audio
+    if len(audio) >= frame_length:
+        n_frames = max(1, 1 + (len(audio) - frame_length) // hop_length)
+    else:
+        n_frames = 1
+    rms = np.empty(n_frames, dtype=np.float64)
+    for i in range(n_frames):
+        seg = audio[i * hop_length: i * hop_length + frame_length]
+        rms[i] = np.sqrt(np.mean(seg.astype(np.float64) ** 2) + 1e-20)
+    keep = 20.0 * np.log10(rms / rms.max()) > -top_db
+    if not keep.any():
+        return audio[:0]
+    first, last = np.argmax(keep), len(keep) - 1 - np.argmax(keep[::-1])
+    start = first * hop_length
+    end = min(len(audio), last * hop_length + frame_length)
+    return audio[start:end]

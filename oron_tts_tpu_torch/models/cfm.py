@@ -219,9 +219,11 @@ class CFM:
         sway_sampling_coef: float | None = None,
         seed: int | Sequence[int] | None = None,
         noise: torch.Tensor | None = None,
+        return_trajectory: bool = False,
+        max_duration: int = 65536,
         cfg_interval: tuple[float, float] | None = None,
         method: str = "euler",
-    ) -> torch.Tensor:
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """ODE generation (Euler or explicit midpoint).
 
         Args:
@@ -232,6 +234,10 @@ class CFM:
                 or one int per row (row i draws what ``seed[i]`` draws alone,
                 whatever the batch: :func:`per_row_noise`).
             noise: optional [B, T, M] initial noise, instead of ``seed``.
+            return_trajectory: also return the state before the first step and
+                after every step (per step, for either method), on the device.
+            max_duration: the most frames ``cond`` may hold; more raises
+                before anything runs on the device.
             cfg_interval: optional ``(lo, hi)``: guidance (the doubled forward
                 and the guided combine) applies only at steps whose time lies
                 in ``[lo, hi]``; the others run one cond-only forward. ``None``
@@ -240,7 +246,8 @@ class CFM:
                 step, second order).
 
         Returns:
-            mel [B, T, M] f32.
+            (mel [B, T, M] f32, trajectory [steps + 1, B, T, M] f32 or None),
+            as the JAX package's ``sample``.
         """
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
@@ -252,6 +259,8 @@ class CFM:
                 0.0 <= float(cfg_interval[0]) <= float(cfg_interval[1])):
             raise ValueError(f"cfg_interval must satisfy 0 <= lo <= hi, got {cfg_interval}")
         batch, max_dur, n_mels = cond.shape
+        if max_dur > max_duration:
+            raise ValueError(f"duration exceeds max_duration={max_duration}")
         d = np.asarray(torch.as_tensor(duration).cpu())
         ln = np.asarray(torch.as_tensor(lens).cpu())
         if d.size != batch or ln.size != batch:
@@ -308,6 +317,7 @@ class CFM:
                 x, step_cond, te_cond, te_uncond, t_b, attn_mask, t_mods=tm)
             return (pred + (pred - null) * cfg_strength).float()
 
+        trajectory = [x] if return_trajectory else None
         for start, stop, guided in segments:
             for i in range(start, stop):
                 dt = float(grid[i + 1] - grid[i])  # an f32 grid difference
@@ -315,4 +325,7 @@ class CFM:
                 if method == "midpoint":
                     v = velocity(x + v * (dt / 2), steps + i, guided)
                 x = x + v * dt
-        return torch.where(cond_mask, cond, x)
+                if trajectory is not None:
+                    trajectory.append(x)
+        out = torch.where(cond_mask, cond, x)
+        return out, (torch.stack(trajectory) if trajectory is not None else None)

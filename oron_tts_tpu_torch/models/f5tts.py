@@ -229,7 +229,46 @@ class F5TTS:
         """Round a frame count up to the bucket multiple."""
         return -(-n // self.pad_to_multiple) * self.pad_to_multiple
 
+    # ── training ─────────────────────────────────────────────────────────
+
+    def forward(
+        self,
+        mel: torch.Tensor,
+        text_ids: torch.Tensor,
+        lens: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        x0: torch.Tensor | None = None,
+        train: bool = True,
+    ) -> torch.Tensor:
+        """CFM loss; ``lens`` is lengths ``[B]`` or a bool mask ``[B, T]``.
+
+        ``generator`` (a CPU ``torch.Generator``) takes the place of the JAX
+        facade's ``rng``, whose default is key 0: here a generator seeded
+        with 0. ``x0`` overrides the drawn noise.
+        """
+        if not self.params_loaded:
+            raise RuntimeError("call init_params or load a checkpoint")
+        lens = None if lens is None else torch.as_tensor(lens)
+        if lens is not None and lens.dtype == torch.bool and lens.ndim == 2:
+            lens = lens.sum(dim=-1).to(torch.int32)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return self.cfm.loss(torch.as_tensor(mel).to(self.device), torch.as_tensor(text_ids),
+                             lens, generator, train=train, x0=x0)
+
     # ── vocoder ──────────────────────────────────────────────────────────
+
+    def set_vocoder(self, module: torch.nn.Module,
+                    state_dict: dict[str, torch.Tensor] | None = None) -> None:
+        """Install a vocoder (a ``VocosDecoder`` or a module with its call).
+
+        ``state_dict`` is loaded into ``module`` first, when given; the module
+        moves to the model's device. Nothing decoded for the previous vocoder
+        is kept: ``_decode_mel_group`` reads ``self.vocoder`` at every call.
+        """
+        if state_dict is not None:
+            module.load_state_dict(state_dict, strict=True)
+        self.vocoder = module.to(self.device).eval()
 
     def load_vocoder(self, checkpoint_path: str | Path | None = None) -> None:
         """Load a Vocos checkpoint: the port's ``.npz`` or the official torch layout.
@@ -686,7 +725,7 @@ class F5TTS:
                            device=self.device)
         if plan.ref_mel is not None:
             cond[:, :ref_len] = plan.ref_mel.T.float()
-        mel = self.cfm.sample(
+        mel, _ = self.cfm.sample(
             cond, torch.from_numpy(text_arr).to(self.device), torch.tensor(totals),
             torch.tensor([ref_len] * len(group)), seed=[row_seeds[i] for i in group], **sampler,
         )

@@ -49,8 +49,19 @@ class AudioProcessor:
             samples = wavio.resample(samples, sr, self.sample_rate)
         return samples.astype(np.float32), self.sample_rate
 
+    def save_audio(self, path: str | Path, audio: np.ndarray) -> None:
+        wavio.write_wav(path, np.asarray(audio), self.sample_rate)
+
     def normalize_audio(self, audio: np.ndarray) -> np.ndarray:
         return wavio.normalize_peak(np.asarray(audio))
+
+    def trim_silence(self, audio: np.ndarray, top_db: float = 20.0, frame_length: int = 2048,
+                     hop_length: int = 512) -> np.ndarray:
+        return wavio.trim_silence(np.asarray(audio), top_db=top_db,
+                                  frame_length=frame_length, hop_length=hop_length)
+
+    def get_audio_duration(self, audio: np.ndarray) -> float:
+        return len(audio) / self.sample_rate
 
     def mel_spectrogram(self, audio: np.ndarray | torch.Tensor) -> torch.Tensor:
         """Log-mel [n_mels, T] (or [..., n_mels, T] for batched input), on

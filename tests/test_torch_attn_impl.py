@@ -209,7 +209,7 @@ def test_cfm_sample_on_flash_matches_jax():
     ref, _ = JCFM(_jax_dit("flash")).sample(
         {"params": dit_params()}, cond, ids, duration, lens, steps=4, cfg_strength=2.0,
         sway_sampling_coef=-1.0, noise=noise)
-    out = CFM(_port_dit("flash")).sample(
+    out, _ = CFM(_port_dit("flash")).sample(
         _t(cond), _t(ids), _t(duration), _t(lens), steps=4, cfg_strength=2.0,
         sway_sampling_coef=-1.0, noise=_t(noise))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)

@@ -46,10 +46,10 @@ def _both(models, **kw):
     cond, ids, noise = _sample_inputs()
     ref, _ = jm.cfm.sample(jm.variables, cond, ids, DURATIONS, LENS, steps=6, cfg_strength=2.0,
                            sway_sampling_coef=-1.0, noise=noise, **kw)
-    out = pm.cfm.sample(torch.from_numpy(cond), torch.from_numpy(ids),
-                        torch.from_numpy(DURATIONS), torch.from_numpy(LENS), steps=6,
-                        cfg_strength=2.0, sway_sampling_coef=-1.0,
-                        noise=torch.from_numpy(noise.copy()), **kw)
+    out, _ = pm.cfm.sample(torch.from_numpy(cond), torch.from_numpy(ids),
+                           torch.from_numpy(DURATIONS), torch.from_numpy(LENS), steps=6,
+                           cfg_strength=2.0, sway_sampling_coef=-1.0,
+                           noise=torch.from_numpy(noise.copy()), **kw)
     return out.numpy(), np.asarray(ref)
 
 
@@ -71,12 +71,12 @@ def test_cfg_interval_full_range_is_identical_to_none(models):
     args = (torch.from_numpy(cond), torch.from_numpy(ids), torch.from_numpy(DURATIONS),
             torch.from_numpy(LENS))
     kw = dict(steps=6, cfg_strength=2.0, sway_sampling_coef=-1.0)
-    base = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()), **kw)
-    full = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()), cfg_interval=(0.0, 1.0),
-                         **kw)
+    base, _ = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()), **kw)
+    full, _ = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()),
+                            cfg_interval=(0.0, 1.0), **kw)
     assert torch.equal(base, full)
-    part = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()), cfg_interval=(0.1, 0.7),
-                         **kw)
+    part, _ = pm.cfm.sample(*args, noise=torch.from_numpy(noise.copy()),
+                            cfg_interval=(0.1, 0.7), **kw)
     assert not torch.equal(base, part)
 
 

@@ -75,10 +75,10 @@ def test_cfm_sample_with_injected_noise(ref_len):
     ref, _ = jm.cfm.sample(jm.variables, cond, ids, duration, lens, steps=4,
                            cfg_strength=2.0, sway_sampling_coef=-1.0,
                            noise=NOISE[:, :T])
-    out = pm.cfm.sample(torch.from_numpy(cond), torch.from_numpy(ids),
-                        torch.from_numpy(duration), torch.from_numpy(lens), steps=4,
-                        cfg_strength=2.0, sway_sampling_coef=-1.0,
-                        noise=torch.from_numpy(NOISE[:, :T].copy()))
+    out, _ = pm.cfm.sample(torch.from_numpy(cond), torch.from_numpy(ids),
+                           torch.from_numpy(duration), torch.from_numpy(lens), steps=4,
+                           cfg_strength=2.0, sway_sampling_coef=-1.0,
+                           noise=torch.from_numpy(NOISE[:, :T].copy()))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 

@@ -655,13 +655,18 @@ def test_cli_trains_from_local_data_and_resumes(tmp_path, capsys):
     assert "skipped 1/6 samples" in out and "Resumed from step 2" in out
 
 
-@pytest.mark.parametrize("flags", [["--push-to-hub"], ["--mesh", "4x1"], ["--dataset", "a/b"], []])
+# the HuggingFace dataset path (--dataset, and no --from-local) is ported;
+# the hub push and the multi-GPU flags still raise, each naming its ROADMAP item
+@pytest.mark.parametrize("flags", [["--push-to-hub"], ["--mesh", "4x1"], ["--hf-repo", "a/b"],
+                                   ["--num-gpus", "2"], ["--multihost"]])
 def test_cli_names_what_is_not_ported(flags, capsys):
     from oron_tts_tpu_torch.cli import train as cli_train
 
     with pytest.raises(SystemExit):
-        cli_train.main(["--device", "cpu"] + (flags + ["--from-local"] if flags else []))
-    assert "ROADMAP.md" in capsys.readouterr().err
+        cli_train.main(["--device", "cpu"] + flags + ["--from-local"])
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err
+    assert ("item 3" if flags[0] in ("--push-to-hub", "--hf-repo") else "item 5") in err
 
 
 # ── learning dynamics ───────────────────────────────────────────────────
