@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis, training, serving, attention and data slices on one GPU.
+"""Drive the PyTorch port's synthesis, training, serving, attention, data and vocoder slices on one GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -139,6 +139,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``configs/test.yaml`` over the prepared clips and one more over them as
     bytes, then ``cli.test_pipeline`` on the card; the dataset's host
     log-mel must be the native one.
+
+19. vocoder: the bundled Vocos scored by ``cli.eval_vocoder`` on the seeded
+    out-of-distribution corpus (``cli.make_synthetic_speech --family ood -n
+    40 --seed 123``, 32 clips of 2 s, with Griffin-Lim) against the
+    reference's MR-STFT 1.0808 and mel-L1 0.2356 (within 0.003; Griffin-Lim
+    1.2061 / 0.4034 within 0.03 / 0.015); ``cli.train_vocoder`` from scratch
+    at full width (dim 512, 8 blocks, mag/phase, batches of 16 crops of 64
+    frames) on a seeded 64-clip training corpus, 200 steps in windows of 25:
+    every window finite, no step skipped, the last window's mean loss below
+    the first's, one more window under ``torch.profiler``; the checkpoint
+    loaded by ``F5TTS.load_vocoder`` decodes a mel; then the GAN stage
+    (``--resume --gan --gan-start-step 200 --steps 250``): finite losses,
+    both nets moved, the discriminator's checkpoint written.
+20. grad_accum: ``cli.bench_grad_accum`` at its defaults (Base bf16, windows
+    of 4 × ``[3, 2048]`` pipelined, with a host read after every
+    micro-batch, and with remat, beside the fused ``[12, 2048]`` step),
+    launch counts zeroed before and read after.
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -3205,6 +3222,160 @@ def run_prepare(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+VOC_REF = {"mr_stft": 1.0808, "mel_l1": 0.2356}  # the JAX eval of the bundled Vocos
+VOC_GL_REF = {"mr_stft": 1.2061, "mel_l1": 0.4034}
+VOC_STEPS, VOC_GAN_STEPS = 200, 250
+
+
+def params_of(path) -> "np.ndarray":
+    import numpy as np
+
+    with np.load(path) as data:
+        return np.concatenate([data[k].ravel() for k in sorted(data.files)
+                               if k.startswith("params/")])
+
+
+def run_vocoder(torch, smi: str) -> dict[str, int]:
+    """Eval of the bundled Vocos against the reference, then MR-STFT and GAN training."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.cli import eval_vocoder, make_synthetic_speech, train_vocoder
+    from oron_tts_tpu_torch.models.discriminators import VocoderDiscriminator
+    from oron_tts_tpu_torch.models.f5tts import BUNDLED_VOCODER, F5TTS
+    from oron_tts_tpu_torch.models.vocos import VocosDecoder
+    from oron_tts_tpu_torch.ops.mel import MelConfig
+    from oron_tts_tpu_torch.train.checkpoint import CheckpointManager, flatten_tree
+    from oron_tts_tpu_torch.train.vocoder import OptaxAdamW, make_vocoder_superstep, pack_corpus
+    from oron_tts_tpu_torch.utils.weights import from_flax_params, init_module_params
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        make_synthetic_speech.main(["--out", str(tmp / "ood"), "--family", "ood", "-n", "40",
+                                    "--seed", "123"])
+        seconds["ood_corpus"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = eval_vocoder.main(["--checkpoint", str(BUNDLED_VOCODER), "--data-dir",
+                                str(tmp / "ood"), "--holdout-frac", "1.0", "--griffin-lim"])
+        seconds["eval"] = time.perf_counter() - t0
+        emit({"phase": "vocoder_eval", "clips": ev["clips"], "mr_stft": ev["mr_stft_exact"],
+              "mel_l1": ev["mel_l1_exact"], "griffin_lim_mr_stft": ev["griffin_lim_mr_stft"],
+              "griffin_lim_mel_l1": ev["griffin_lim_mel_l1"], "reference": VOC_REF,
+              "griffin_lim_reference": VOC_GL_REF, "seconds": seconds["eval"], "card": smi})
+        if not (ev["clips"] == 32 and abs(ev["mr_stft_exact"] - VOC_REF["mr_stft"]) <= 0.003
+                and abs(ev["mel_l1_exact"] - VOC_REF["mel_l1"]) <= 0.003
+                and abs(ev["griffin_lim_mr_stft"] - VOC_GL_REF["mr_stft"]) <= 0.03
+                and abs(ev["griffin_lim_mel_l1"] - VOC_GL_REF["mel_l1"]) <= 0.015):
+            raise AssertionError(f"vocoder eval off the reference: {ev}")
+
+        t0 = time.perf_counter()
+        make_synthetic_speech.main(["--out", str(tmp / "train"), "-n", "64", "--seed", "0"])
+        seconds["train_corpus"] = time.perf_counter() - t0
+        ckpt = tmp / "ckpt"
+        base = ["--data-dir", str(tmp / "train"), "--checkpoint-dir", str(ckpt),
+                "--log-interval", "25"]
+        baseline = torch.cuda.memory_allocated() / 1e9  # what earlier phases left alive
+        torch.cuda.reset_peak_memory_stats()
+        out = train_vocoder.main(base + ["--steps", str(VOC_STEPS)])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        windows = out["windows"]
+        mel_cfg = MelConfig()
+        crop_s = 64 * mel_cfg.hop_length / mel_cfg.sample_rate
+        train_s = sum(w["seconds"] for w in windows[1:])  # the first window warms up
+        steps_per_s = 25 * (len(windows) - 1) / train_s
+        report = {"phase": "vocoder_train", "config": "dim 512, 8 blocks, mag_phase, batch 16, "
+                  "64-frame crops, fp32", "steps": out["step"], "windows": len(windows),
+                  "window_loss_mean": [w["loss_mean"] for w in windows],
+                  "skipped": sum(w["skipped"] for w in windows),
+                  "first_window_s": windows[0]["seconds"], "steps_per_s": steps_per_s,
+                  "audio_s_per_s": steps_per_s * 16 * crop_s, "peak_gb": peak,
+                  "baseline_gb": baseline,
+                  "seconds": out["seconds"], "card": smi}
+        if not (out["step"] == VOC_STEPS and report["skipped"] == 0
+                and all(math.isfinite(x) for x in report["window_loss_mean"])
+                and report["window_loss_mean"][-1] < report["window_loss_mean"][0]):
+            emit(report)
+            raise AssertionError("vocoder training: not finite, skipped, or did not learn")
+
+        # one more window, traced: launches per step and the device's idle share
+        step_path = ckpt / f"vocos_step_{VOC_STEPS:08d}.npz"
+        info = CheckpointManager(ckpt, model_name="vocos").load(step_path)
+        vocoder = VocosDecoder(head_mode="mag_phase")
+        vocoder.load_state_dict(from_flax_params(info["params"]))
+        vocoder.cuda().train()
+        opt = OptaxAdamW(list(vocoder.parameters()), 2e-4)
+        window = make_vocoder_superstep(vocoder, opt, mel_cfg, 64 * mel_cfg.hop_length, 25)
+        audios = train_vocoder.load_corpus(str(tmp / "train"), 0.05, mel_cfg.sample_rate)
+        flat_np, offsets, max_starts = pack_corpus(audios, 64 * mel_cfg.hop_length)
+        flat = torch.from_numpy(flat_np).cuda()
+        rng = np.random.default_rng(5)
+        clips = rng.integers(0, len(audios), size=(25, 16))
+        starts = offsets[clips] + (rng.random((25, 16)) * (max_starts[clips] + 1)).astype(np.int64)
+        prof = profile_once(torch, lambda: window(flat, starts))
+        report["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_s", "device_idle_share",
+                                                  "device_kernels", "device_s_by_kind")}
+        report["launches_per_step"] = prof["device_kernels"] / 25
+        emit(report)
+        del vocoder, opt, window, flat
+
+        model = F5TTS.from_config({"model": {"dim": 64, "depth": 2, "heads": 2, "text_dim": 32,
+                                             "ff_mult": 2, "conv_layers": 1}}, device="cuda")
+        model.load_vocoder(step_path)
+        mel = torch.randn(1, 100, 80, generator=torch.Generator().manual_seed(0)) - 5.0
+        wav = model._decode_mel(mel.cuda())
+        if not (wav.shape == (80 * 256,) and np.isfinite(wav).all() and np.abs(wav).max() > 0):
+            raise AssertionError(f"the trained vocoder decoded {wav.shape}, finite "
+                                 f"{np.isfinite(wav).all()}")
+        del model
+
+        torch.cuda.reset_peak_memory_stats()
+        gan = train_vocoder.main(base + ["--steps", str(VOC_GAN_STEPS), "--resume", "--gan",
+                                         "--gan-start-step", str(VOC_STEPS)])
+        gan_peak = torch.cuda.max_memory_allocated() / 1e9
+        disc_path = ckpt / f"vocos_disc_step_{VOC_GAN_STEPS:08d}.npz"
+        g_moved = not np.array_equal(params_of(step_path),
+                                     params_of(ckpt / f"vocos_step_{VOC_GAN_STEPS:08d}.npz"))
+        d_init = flatten_tree(init_module_params(VocoderDiscriminator(), seed=1), "params")
+        d_init = np.concatenate([d_init[k].ravel() for k in sorted(d_init)])
+        d_moved = disc_path.exists() and not np.array_equal(d_init, params_of(disc_path))
+        gw = gan["windows"]
+        gan_s = sum(w["seconds"] for w in gw[1:]) or gw[0]["seconds"]
+        emit({"phase": "vocoder_gan", "steps": gan["step"] - VOC_STEPS,
+              "g_loss_mean": [w["g_loss_mean"] for w in gw],
+              "d_loss_mean": [w["d_loss_mean"] for w in gw],
+              "mel_l1_mean": [w["mel_l1_mean"] for w in gw],
+              "steps_per_s": 25 * max(len(gw) - 1, 1) / gan_s, "first_window_s": gw[0]["seconds"],
+              "peak_gb": gan_peak, "baseline_gb": baseline, "generator_moved": g_moved, "discriminator_moved": d_moved,
+              "disc_checkpoint": disc_path.name if disc_path.exists() else None,
+              "seconds": {**seconds, "gan": gan["seconds"]}, "card": smi})
+        if not (gan["step"] == VOC_GAN_STEPS and all(w["finite"] for w in gw)
+                and g_moved and d_moved):
+            raise AssertionError("vocoder GAN stage: not finite, or a net did not move")
+    return {}
+
+
+def run_grad_accum(torch, smi: str) -> dict[str, int]:
+    """``cli.bench_grad_accum`` at its defaults: accumulation windows against the fused step."""
+    from oron_tts_tpu_torch.cli import bench_grad_accum
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_bwd, flash_lanes_fwd_stats
+    from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+
+    wrappers = {f.__name__: f for f in (grouped_conv1d_mish, flash_lanes_fwd_stats,
+                                        flash_lanes_bwd, gelu_dropout_fwd, gelu_dropout_bwd)}
+    zero_counts(wrappers)
+    out = bench_grad_accum.main([])
+    counts = read_counts(wrappers)
+    emit({"phase": "grad_accum", **out, "launches": counts, "card": smi})
+    modes = ("pipelined", "per-micro host sync", "remat", "fused")
+    if not all(out[m]["ok"] and math.isfinite(out[m]["loss"]) for m in modes):
+        raise AssertionError(f"grad_accum: a step was not applied: {out}")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"grad_accum: launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3254,7 +3425,8 @@ def main() -> int:
                         ("batch_knee", run_batch_knee), ("classic", run_classic),
                         ("widths", run_widths), ("align", run_align), ("interop", run_interop),
                         ("memory", run_memory), ("serve_load", run_serve_load),
-                        ("streaming", run_streaming), ("prepare", run_prepare)):
+                        ("streaming", run_streaming), ("prepare", run_prepare),
+                        ("vocoder", run_vocoder), ("grad_accum", run_grad_accum)):
         for kernel, n in (timed(name, phase, torch, smi) or {}).items():
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})

@@ -1,8 +1,9 @@
 """Command-line entry points of the PyTorch port: ``train``, ``infer``, ``serve``, ``export``,
 data preparation (``prepare``, ``clean_local_cv``), the smoke harness
 (``test_pipeline``), the tone-code eval (``make_tone_corpus``,
-``eval_alignment``) and the benches (``bench_serve_load``, ``bench_streaming``
-among them)."""
+``eval_alignment``), vocoder training and its eval (``make_synthetic_speech``,
+``train_vocoder``, ``eval_vocoder``) and the benches (``bench_serve_load``,
+``bench_streaming``, ``bench_grad_accum`` among them)."""
 
 NOT_PORTED = (
     "{flag} is not ported to the PyTorch package yet (see ROADMAP.md, "

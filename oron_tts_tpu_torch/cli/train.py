@@ -16,20 +16,29 @@ collator can build, against the card's memory (the host's with ``--device
 cpu``). ``--pretrain-ckpt`` takes an ``.npz`` checkpoint (either package's)
 or the reference's torch ``.pt`` or ``.safetensors`` file, whose tensors of
 another shape (an official checkpoint's text embedding) keep their fresh
-values and are printed. The hub push and the device mesh are not ported yet
-(``ROADMAP.md``): their flags are accepted and raise an error that says so.
+values and are printed. ``--push-to-hub`` mirrors the checkpoint directory
+to ``--hf-repo`` every ``--hub-upload-interval`` interval saves and once at
+the end (``huggingface_hub`` and the network; the token from ``--hf-token``
+or ``HF_TOKEN``). The device mesh is not ported yet (``ROADMAP.md``):
+``--mesh``, ``--multihost`` and ``--num-gpus`` are accepted and raise an
+error that says so.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 from oron_tts_tpu_torch.cli import NOT_PORTED
 
-HUB_ITEM = ", section 1 item 3 (hub push/pull)"
 MESH_ITEM = ", section 1 item 5 (multi-GPU)"
+
+
+def resolve_hf_token(token: str | None = None) -> str | None:
+    return (token or os.getenv("HF_TOKEN") or os.getenv("HUGGING_FACE_HUB_TOKEN")
+            or os.getenv("HUGGINGFACE_HUB_TOKEN"))
 
 
 def _metadata_attr_tokens(value: object) -> list[str]:
@@ -226,21 +235,24 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--num-epochs", type=int, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
-    # accepted for flag parity with the JAX package; not ported yet
     parser.add_argument("--push-to-hub", action="store_true")
-    parser.add_argument("--hf-repo", type=str, default=None)
+    parser.add_argument("--hf-repo", type=str, default="btsee/oron-tts")
+    parser.add_argument("--hf-token", type=str, default=None)
+    parser.add_argument("--hub-private", action="store_true")
+    parser.add_argument("--hub-upload-interval", type=int, default=1)
+    # accepted for flag parity with the JAX package; not ported yet
     parser.add_argument("--mesh", type=str, default=None)
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--num-gpus", type=int, default=None)
     args = parser.parse_args(argv)
+    args.hf_token = resolve_hf_token(args.hf_token)
+    if args.hub_upload_interval < 1:
+        parser.error("--hub-upload-interval must be >= 1")
 
-    for flag, given, item in (("--push-to-hub", args.push_to_hub, HUB_ITEM),
-                              ("--hf-repo", args.hf_repo, HUB_ITEM),
-                              ("--mesh", args.mesh, MESH_ITEM),
-                              ("--multihost", args.multihost, MESH_ITEM),
-                              ("--num-gpus", args.num_gpus is not None, MESH_ITEM)):
+    for flag, given in (("--mesh", args.mesh), ("--multihost", args.multihost),
+                        ("--num-gpus", args.num_gpus is not None)):
         if given:
-            parser.error(NOT_PORTED.format(flag=flag) + item)
+            parser.error(NOT_PORTED.format(flag=flag) + MESH_ITEM)
 
     import torch
 
@@ -284,6 +296,8 @@ def main(argv: list[str] | None = None) -> None:
     trainer = F5Trainer(
         config=config, model=model, train_loader=train_loader, val_loader=val_loader,
         log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir,
+        hub_repo_id=args.hf_repo if args.push_to_hub else None, hub_token=args.hf_token,
+        hub_private=args.hub_private, hub_upload_interval=args.hub_upload_interval,
     )
     if args.pretrain_ckpt:
         path = Path(args.pretrain_ckpt)
@@ -313,10 +327,22 @@ def main(argv: list[str] | None = None) -> None:
 
     num_epochs = args.num_epochs or config.get("num_epochs", 500)
     trainer.install_signal_handlers()  # SIGTERM → checkpoint, then TrainingPreempted
+    completed = False
     try:
         trainer.train(num_epochs=num_epochs, save_interval=config.get("save_interval", 5))
+        completed = True
     except TrainingPreempted as exc:
         print(f"[WARN] {exc} — resume with --resume")
+    finally:
+        if args.push_to_hub:
+            try:
+                url = trainer.push_to_hub(args.hf_repo, token=args.hf_token,
+                                          private=args.hub_private)
+                print(f"Model and logs pushed to: {url}")
+            except Exception as exc:
+                if completed:
+                    raise
+                print(f"[WARN] Final HF upload skipped after interrupted run: {exc}")
 
 
 if __name__ == "__main__":

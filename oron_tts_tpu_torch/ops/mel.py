@@ -5,7 +5,8 @@ Same contract as the JAX package's ``ops/mel.py``: reflect-pad by n_fft/2
 n_fft, onesided DFT magnitude (power 1), HTK mel filterbank without norm
 (torchaudio's defaults), and ``log(max(mel, 1e-5))``. The window and
 filterbank are built on the host in numpy, once per configuration, and
-copied to each device once.
+copied to each device once. ``frame_signal`` and ``log_mel_numpy`` are the
+JAX module's framing and host-side log-mel (``oron_tts_tpu/ops/mel.py:98,141``).
 """
 
 from __future__ import annotations
@@ -120,3 +121,36 @@ def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     mel = torch.matmul(mag, fb)  # [N, frames, n_mels]
     out = torch.log(torch.clamp(mel, min=cfg.log_clip)).transpose(-1, -2)
     return out.reshape(*lead, cfg.n_mels, out.shape[-1])
+
+
+@functools.lru_cache(maxsize=16)
+def hann_tensor(n_fft: int, device: str) -> torch.Tensor:
+    """``hann_window(n_fft)`` on ``device``, copied once."""
+    return torch.from_numpy(hann_window(n_fft)).to(device)
+
+
+def frame_signal(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Centre-pad (numpy's reflect) and slice: [..., L] → [..., 1 + L // hop, n_fft]."""
+    idx = reflect_index(audio.shape[-1], n_fft // 2, audio.device)
+    return audio[..., idx].unfold(-1, n_fft, hop)
+
+
+def stft_magnitude_eps(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """[..., L] → ``sqrt(re² + im² + 1e-9)`` [..., 1 + L // hop, n_fft // 2 + 1] (Hann,
+    centred): the magnitude the vocoder losses and the MRD take, safe to
+    differentiate at a zero bin."""
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * hann_tensor(n_fft, str(x.device)), dim=-1)
+    return torch.sqrt(spec.real * spec.real + spec.imag * spec.imag + 1e-9)
+
+
+def log_mel_numpy(audio: np.ndarray, cfg: MelConfig) -> np.ndarray:
+    """Host-side (numpy) log-mel [..., n_mels, 1 + L // hop], as the JAX package computes it."""
+    window, fb = mel_constants(cfg)
+    audio = np.asarray(audio, dtype=np.float32)
+    pad = cfg.n_fft // 2
+    padded = np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(pad, pad)], mode="reflect")
+    n_frames = 1 + audio.shape[-1] // cfg.hop_length
+    idx = np.arange(n_frames)[:, None] * cfg.hop_length + np.arange(cfg.n_fft)[None, :]
+    mag = np.abs(np.fft.rfft(padded[..., idx] * window, axis=-1)).swapaxes(-1, -2)
+    mel = np.einsum("...ft,fm->...mt", mag, fb)
+    return np.log(np.clip(mel, cfg.log_clip, None)).astype(np.float32)

@@ -8,10 +8,16 @@ are written in the flax layout (``utils/weights.to_flax_params``), so
 either package reads the other's parameters and EMA
 (``oron_tts_tpu/train/checkpoint.py:100-142``).
 
-The optimizer tree is the port's own: ``opt/mu/<flax path>`` and
-``opt/nu/<flax path>`` (the AdamW moments, laid out like the parameters)
-and ``opt/count`` (the number of applied updates). The JAX package writes
-optax's nested state there instead; reading that is not supported yet.
+The F5 trainer's optimizer tree is the port's own: ``opt/mu/<flax path>``
+and ``opt/nu/<flax path>`` (the AdamW moments, laid out like the parameters)
+and ``opt/count`` (the number of applied updates); it also reads the JAX
+package's optax state. The vocoder trainer writes optax's nested state
+itself (``train/vocoder.py`` ``OptaxAdamW.optax_state``), so the JAX
+package resumes it.
+
+``push_to_hub``/``pull_from_hub`` mirror a checkpoint directory to a
+HuggingFace model repository. They import ``huggingface_hub`` when called
+and need the network.
 
 bf16 leaves (the first moment by default) are stored as uint16 and listed
 under ``__bf16__`` in the meta record, as the JAX package stores them; on
@@ -104,6 +110,12 @@ def write_npz(path: str | Path, flat: Mapping[str, np.ndarray]) -> None:
     tmp.replace(path)
 
 
+def save_pytree_npz(path: str | Path, trees: Mapping[str, Any],
+                    meta: Mapping[str, Any] | None = None) -> None:
+    """trees: name → tree of host numpy leaves, e.g. {"params": ...}."""
+    write_npz(path, host_snapshot(trees, meta))
+
+
 def load_pytree_npz(path: str | Path) -> tuple[dict[str, Any], dict[str, Any]]:
     """Returns ({name: tree}, meta); bf16 leaves widened to f32."""
     with np.load(path) as data:
@@ -124,6 +136,15 @@ def load_pytree_npz(path: str | Path) -> tuple[dict[str, Any], dict[str, Any]]:
 
 def _is_step_checkpoint(name: str, model_name: str) -> bool:
     return re.fullmatch(rf"{re.escape(model_name)}_step_\d{{8}}\.npz", name) is not None
+
+
+def stale_remote_checkpoint_paths(
+    remote_paths: list[str], local_paths: list[str], model_name: str
+) -> list[str]:
+    """Remote step checkpoints no longer in the local rotation (for hub sync)."""
+    local = {Path(p).name for p in local_paths if _is_step_checkpoint(Path(p).name, model_name)}
+    return [p for p in remote_paths
+            if _is_step_checkpoint(Path(p).name, model_name) and Path(p).name not in local]
 
 
 class CheckpointManager:
@@ -188,9 +209,11 @@ class CheckpointManager:
         meta: dict[str, Any] = {"step": step, "loss": loss}
         if extra_state:
             meta.update(extra_state)
-        bf16 = ("opt/mu",) if opt_state and opt_state.get("mu_bf16") else ()
-        opt = None if opt_state is None else {
-            k: v for k, v in opt_state.items() if k != "mu_bf16"}
+        bf16 = ()
+        opt = opt_state
+        if isinstance(opt_state, Mapping):
+            bf16 = ("opt/mu",) if opt_state.get("mu_bf16") else ()
+            opt = {k: v for k, v in opt_state.items() if k != "mu_bf16"}
         flat = host_snapshot({"params": params, "opt": opt, "ema": ema_params}, meta, bf16)
         if config is not None:
             self.config_path().write_text(json.dumps(dict(config), indent=2))
@@ -210,7 +233,8 @@ class CheckpointManager:
         """Write the step file (and the best file), then rotate.
 
         ``params`` and ``ema_params`` are flax-layout trees of host numpy
-        arrays; ``opt_state`` is ``{"mu", "nu", "count", "mu_bf16"}``.
+        arrays; ``opt_state`` is ``{"mu", "nu", "count", "mu_bf16"}`` (the F5
+        trainer's) or an optax state of nested tuples (the vocoder trainer's).
         """
         path = self.step_path(step)
         flat = self._snapshot(step, params, opt_state, ema_params, loss, config, extra_state)
@@ -275,3 +299,76 @@ class CheckpointManager:
         ckpts = self._step_checkpoints()
         while len(ckpts) > self.max_checkpoints:
             ckpts.pop(0).unlink()
+
+    # ── hub mirroring ────────────────────────────────────────────────────
+
+    def push_to_hub(self, repo_id: str, token: str | None = None, private: bool = False,
+                    log_dir: str | Path | None = None) -> str:
+        """Upload the directory (and a model card) to ``repo_id``, drop remote step
+        files the local rotation no longer holds, then upload ``log_dir`` as
+        ``tb_logs``. Joins an in-flight write first."""
+        from huggingface_hub import HfApi
+
+        self.wait()  # never upload a half-written rotation
+        (self.checkpoint_dir / "README.md").write_text(self._model_card(), encoding="utf-8")
+        api = HfApi()
+        api.create_repo(repo_id=repo_id, token=token, private=private, exist_ok=True)
+        api.upload_folder(folder_path=str(self.checkpoint_dir), repo_id=repo_id, token=token)
+        self._cleanup_remote(api, repo_id, token)
+        if log_dir is not None and any(p.is_file() for p in Path(log_dir).rglob("*")):
+            api.upload_folder(folder_path=str(log_dir), repo_id=repo_id,
+                              path_in_repo="tb_logs", token=token)
+        return f"https://huggingface.co/{repo_id}"
+
+    def _cleanup_remote(self, api: Any, repo_id: str, token: str | None) -> None:
+        local = [p.name for p in self.checkpoint_dir.glob(f"{self.model_name}_step_*.npz")]
+        info = api.model_info(repo_id=repo_id, token=token, files_metadata=False)
+        remote = [s.rfilename for s in (info.siblings or [])]
+        stale = stale_remote_checkpoint_paths(remote, local, self.model_name)
+        if stale:
+            api.delete_files(
+                repo_id=repo_id, repo_type="model", delete_patterns=stale, token=token,
+                commit_message=f"Remove {len(stale)} stale {self.model_name} checkpoints")
+
+    def pull_from_hub(self, repo_id: str, filename: str = "f5tts_best.npz",
+                      token: str | None = None) -> Path:
+        from huggingface_hub import hf_hub_download
+
+        return Path(hf_hub_download(repo_id=repo_id, filename=filename, token=token,
+                                    local_dir=str(self.checkpoint_dir)))
+
+    def _model_card(self) -> str:
+        config = self.load_config() or {}
+        m = config.get("model", {})
+        return f"""---
+language:
+  - mn
+  - kk
+license: mit
+tags:
+  - tts
+  - text-to-speech
+  - mongolian
+  - kazakh
+  - flow-matching
+  - f5-tts
+  - pytorch
+library_name: pytorch
+pipeline_tag: text-to-speech
+---
+
+# OronTTS — F5-TTS for Mongolian & Kazakh (PyTorch)
+
+Non-autoregressive TTS based on F5-TTS (flow matching + DiT). The
+checkpoints are `.npz` files in the flax layout, which both the JAX and the
+PyTorch package load.
+
+| Parameter | Value |
+|-----------|-------|
+| dim | {m.get("dim", "?")} |
+| depth | {m.get("depth", "?")} |
+| heads | {m.get("heads", "?")} |
+| vocab_size | {m.get("vocab_size", 65)} |
+| sample_rate | {config.get("sample_rate", 24000)} Hz |
+| mel_bins | {config.get("n_mels", 100)} |
+"""

@@ -25,8 +25,11 @@ accumulation window are never read. Randomness (spans, times, CFG dropout,
 noise, dropout seeds) comes from one CPU ``torch.Generator`` per epoch,
 seeded ``seed + epoch``.
 
-Not ported: the XLA-specific machinery (AOT layouts, relayout, the
-compilation cache), meshes and ZeRO, and the hub push.
+With ``hub_repo_id`` the checkpoint directory is mirrored to a HuggingFace
+model repository after every ``hub_upload_interval``-th interval save
+(``CheckpointManager.push_to_hub``; a failed upload is logged and training
+goes on). Not ported: the XLA-specific machinery (AOT layouts, relayout,
+the compilation cache), meshes and ZeRO.
 """
 
 from __future__ import annotations
@@ -174,9 +177,10 @@ class TrainingPreempted(RuntimeError):
 
 
 class F5Trainer:
-    """Trainer facade with the JAX package's constructor arguments (hub and
-    mesh left out). It trains where ``model`` lives, and ``F5TTS`` refuses a
-    silent CPU, so there is no device argument here.
+    """Trainer facade with the JAX package's constructor arguments (the mesh
+    left out). It trains where ``model`` lives, and ``F5TTS`` refuses a
+    silent CPU, so there is no device argument here. One process, which is
+    the main one: it writes the logs and checkpoints and pushes to the hub.
     """
 
     def __init__(
@@ -187,6 +191,10 @@ class F5Trainer:
         val_loader: Any | None = None,
         log_dir: str = "logs",
         checkpoint_dir: str = "checkpoints",
+        hub_repo_id: str | None = None,
+        hub_token: str | None = None,
+        hub_private: bool = False,
+        hub_upload_interval: int = 1,
     ) -> None:
         self.config = config
         self.model = model
@@ -194,6 +202,9 @@ class F5Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.log_dir = log_dir
+        self.hub_repo_id, self.hub_token, self.hub_private = hub_repo_id, hub_token, hub_private
+        self.hub_upload_interval = max(1, hub_upload_interval)
+        self._upload_count = 0
 
         lr = config.get("learning_rate", 1e-4)
         self.betas = tuple(config.get("betas", [0.9, 0.999]))
@@ -528,6 +539,7 @@ class F5Trainer:
 
             if self.epoch % save_interval == 0:
                 self.save_checkpoint(is_best=is_best, loss=avg_loss)
+                self._maybe_push_to_hub()
             elif is_best and self.config.get("save_best_between_intervals", True):
                 # a best epoch between intervals still reaches disk:
                 # f5tts_best.npz only, no step file, no rotation
@@ -542,6 +554,28 @@ class F5Trainer:
             self.writer = None
         self._sync_working_set(self.state.params)
         self.model.params_loaded = True
+
+    # ── hub ──────────────────────────────────────────────────────────────
+
+    def _maybe_push_to_hub(self) -> None:
+        if self.hub_repo_id is None:
+            return
+        self._upload_count += 1
+        if self._upload_count < self.hub_upload_interval:
+            return
+        self._upload_count = 0
+        try:
+            url = self.push_to_hub(self.hub_repo_id, token=self.hub_token,
+                                   private=self.hub_private)
+            self.logger.info("Uploaded checkpoints and logs to %s", url)
+        except Exception as exc:  # an upload failure must not stop training
+            self.logger.warning("HuggingFace upload failed: %s", exc, exc_info=True)
+
+    def push_to_hub(self, repo_id: str, token: str | None = None, private: bool = False) -> str:
+        if self.writer:
+            self.writer.flush()
+        return self.checkpoint_manager.push_to_hub(
+            repo_id, token=token, private=private, log_dir=self.log_dir)
 
     # ── checkpointing ────────────────────────────────────────────────────
 

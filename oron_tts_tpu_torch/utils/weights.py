@@ -5,8 +5,9 @@ The port names its submodules after the flax parameter tree
 rename carries both the DiT and the vocoder across:
 
 - dense ``kernel`` [in, out]   → ``weight`` [out, in] (``nn.Linear``)
-- conv ``kernel`` [K, cin/g, C] → ``weight`` in the same layout (the port's
-  convs, the grouped-conv kernel included, read it as the JAX package does)
+- conv ``kernel`` [K, cin/g, C] or [kh, kw, cin, C] → ``weight`` in the same
+  layout (the port's convs, the grouped-conv kernel and the discriminators'
+  2-D convs included, read it as the JAX package does)
 - ``embedding`` and LayerNorm ``scale`` → ``weight``; everything else keeps
   its name and shape.
 - a quantized dense (``kernel_q`` int8 [in, out], ``scale`` f32 [out], ``bias``)
@@ -81,8 +82,8 @@ def from_flax_params(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
 def to_flax_params(state: dict[str, torch.Tensor]) -> dict[str, Any]:
     """The inverse of :func:`from_flax_params`: state dict → flax tree (numpy f32).
 
-    ``weight`` becomes ``kernel`` (2-D transposed back, 3-D conv weights as
-    they are), ``embedding`` under a module named ``embed``, or ``scale``
+    ``weight`` becomes ``kernel`` (2-D transposed back, 3-D and 4-D conv
+    weights as they are), ``embedding`` under a module named ``embed``, or ``scale``
     (1-D, a LayerNorm's); ``weight_q`` becomes ``kernel_q`` (int8, transposed back).
     """
     tree: dict[str, Any] = {}
@@ -108,17 +109,17 @@ def to_flax_params(state: dict[str, torch.Tensor]) -> dict[str, Any]:
     return tree
 
 
-def init_dit_params(config: ModelConfig, n_mels: int = 100, seed: int = 0) -> dict[str, Any]:
-    """A fresh DiT tree under the JAX package's initial scheme.
+def flax_init(
+    shapes: dict[str, Any], rng: np.random.Generator, zeroed: tuple[str, ...] = ()
+) -> dict[str, Any]:
+    """Fresh leaves for a flax-layout tree under flax's default initialisers.
 
     Dense and conv kernels LeCun-normal (truncated at ±2σ, variance
-    1/fan_in), embeddings N(0, 1/dim), biases and GRN 0, LayerNorm scales 1,
-    and the AdaLN projections and ``proj_out`` all zero, so the model starts
-    as the identity-gated stack the JAX package starts from. The scheme is
-    the same; the random stream is numpy's, not ``jax.random``'s.
+    1/fan_in, fan_in every axis but the last), embeddings N(0, 1/dim),
+    biases and GRN 0, LayerNorm scales 1; every leaf under a module named in
+    ``zeroed`` is 0. Only the leaves' shapes are read. The scheme is the
+    JAX package's; the random stream is numpy's, not ``jax.random``'s.
     """
-    rng = np.random.default_rng(seed)
-    zeroed = ("attn_norm", "norm_out", "proj_out")
 
     def trunc_normal(shape: tuple[int, ...], std: float) -> np.ndarray:
         out = rng.standard_normal(shape, dtype=np.float32)
@@ -144,7 +145,22 @@ def init_dit_params(config: ModelConfig, n_mels: int = 100, seed: int = 0) -> di
                 out[name] = trunc_normal(value.shape, 1.0 / math.sqrt(math.prod(value.shape[:-1])))
         return out
 
-    return redraw(seeded_dit_params(config, n_mels, seed), ())
+    return redraw(shapes, ())
+
+
+def init_module_params(module: torch.nn.Module, seed: int = 0) -> dict[str, Any]:
+    """A fresh flax-layout tree for ``module`` (a Vocos or a discriminator), seeded."""
+    return flax_init(to_flax_params(module.state_dict()), np.random.default_rng(seed))
+
+
+def init_dit_params(config: ModelConfig, n_mels: int = 100, seed: int = 0) -> dict[str, Any]:
+    """A fresh DiT tree under the JAX package's initial scheme (``flax_init``),
+    with the AdaLN projections and ``proj_out`` all zero, so the model starts
+    as the identity-gated stack the JAX package starts from.
+    """
+    rng = np.random.default_rng(seed)
+    return flax_init(seeded_dit_params(config, n_mels, seed), rng,
+                     zeroed=("attn_norm", "norm_out", "proj_out"))
 
 
 def seeded_dit_params(
