@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis, training, serving, attention, data and vocoder slices on one GPU.
+"""Drive the PyTorch port's synthesis, training, serving, attention, data, vocoder and mesh slices on one GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -75,7 +75,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``F5TTS.GROUP_FRAME_BUDGET`` was set from (an earlier sweep also ran 16
    rows and rows of 1,600 frames; PERF.md keeps its readings).
 10. serve: the HTTP server (``cli/serve.py``) in this process on 127.0.0.1 at
-    the Base width, from a seeded checkpoint written to a temporary
+    the Base width cut to 11 blocks (since the mesh phase; ``CUT_DEPTH``),
+    from a seeded checkpoint written to a temporary
     directory, three times: bf16, ``--quantize int8`` and ``--profile fast``.
     Each answers /healthz, a ref-free /synthesize, eight concurrent
     /synthesize that merge into one solve (each held against its solo
@@ -85,8 +86,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     launch counts are zeroed before its requests and read after them, and
     one merged solve of each server is traced by ``torch.profiler``; then
     int8 against bf16 on that solve (per-row time, kernel 9's device time).
-11. classic: the Base DiT rebuilt with ``attn_impl`` "flash" and "packed"
-    from the seeded tree: ``CFM.sample`` + the vocoder under ``bench.py``'s
+11. classic: the Base-width DiT at 11 blocks (``CUT_DEPTH``) rebuilt with
+    ``attn_impl`` "flash" and "packed" from the seeded tree: ``CFM.sample`` + the vocoder under ``bench.py``'s
     protocol (120 letters, 1,560 frames, bucket 1,600, 32 steps, CFG 2) with
     the noise of a lanes solve, held against it; five ``F5Trainer`` steps on
     "flash" at ``[12, 2048]`` (two warm-up, three timed), the first step's
@@ -111,7 +112,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     width, cut to 64 sentences (4 held out), 4 epochs and 8-step syntheses:
     bf16 training and synthesis on the card, the CERs each in [0, 1], the
     loss finite; launch counts are zeroed before and read after.
-14. interop: the seeded Base weights exported by ``cli.export`` to ``.pt``
+14. interop: the seeded Base-width weights at 11 blocks (``CUT_DEPTH``)
+    exported by ``cli.export`` to ``.pt``
     and ``.safetensors`` and loaded back through ``cli.infer.load_model`` on
     the card, each file's mel bit-equal to the ``.npz`` load's (same seed);
     ``griffin_lim`` on the card against the CPU (within 1e-3 of the
@@ -125,13 +127,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``gradient_checkpointing: auto``'s choice for each shipped config that
     sets it, and one step at runpod's worst padded batch ``[24, 2816]`` with
     that choice; fails if the estimate falls below a measured peak.
-16. serve_load: ``cli.bench_serve_load`` at its defaults (Base bf16, 32
-    clients, 96 mixed-length requests, 32 steps, batches of up to 16), which
+16. serve_load: ``cli.bench_serve_load`` at its defaults but the depth (Base
+    width at 11 blocks since the mesh phase, bf16, 32 clients, 96
+    mixed-length requests, 32 steps, batches of up to 16), which
     must shed nothing, then 128 requests of 8 steps at once against a wait
     ceiling of 1.5 default solve estimates, which must answer 429s; every
     request is served in both.
-17. streaming: ``cli.bench_streaming`` (Base bf16, a seeded Vocos installed by
-    ``set_vocoder``, 600 characters): time to first audio and total.
+17. streaming: ``cli.bench_streaming`` (Base width at 11 blocks, bf16, a
+    seeded Vocos installed by ``set_vocoder``, 600 characters): time to
+    first audio and total.
 18. prepare: 24 seeded clips of 1.5-6 s through ``cli.prepare``'s record
     path (decode, spectral-gate denoise, peak normalization, silence trim,
     WAV, metadata), a seeded local Common Voice tar of WAV clips through
@@ -156,6 +160,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
     of 4 × ``[3, 2048]`` pipelined, with a host read after every
     micro-batch, and with remat, beside the fused ``[12, 2048]`` step),
     launch counts zeroed before and read after.
+21. mesh: the ``("data", "model")`` mesh on the one card. A world of one
+    on NCCL through the entry points, under ``python -m
+    torch.distributed.run --nproc-per-node 1`` at Base bf16 from a seeded
+    checkpoint: ``cli.train --mesh 1x1`` (two steps of ``[12, T ≤ 2048]``
+    over 26 seeded clips; its step lines and parameters bit-equal to
+    ``cli.train``'s trainer without a mesh on the same state, batches and
+    generator seed, built in this process by the CLI's own helpers),
+    ``cli.infer --mesh 1x1`` (a ref-free WAV bit-equal to ``cli.infer``
+    without a mesh), ``cli.serve --mesh 1x1`` (/healthz with the mesh's
+    shape, one /synthesize, eight concurrent that merge, a drain), and the
+    step time at ``[12, 2048]`` (22 blocks) with a world-of-one mesh beside
+    none. One rank under ``torchrun`` runs the three entry points' mains in
+    turn (``chip_smoke.py --mesh-cli``), at 6 of the 22 blocks. Then two
+    processes sharing the card over a gloo group this script initialises
+    (NCCL refuses two ranks on one device): TP 2 (``make_mesh(1, 2)``: the
+    lanes kernels at 8 heads), DP 2 and DP 2 with ZeRO-1, two steps each at
+    a global ``[4, 2048]`` (Base bf16, dropout 0.1), the first step's loss
+    and gradient norm held against one process (rel 1e-2 and 5e-2: one bf16
+    forward and backward whose row-parallel sums or rows are split), each
+    rank's peak memory; and a TP-2 ref-free 4-step ``synthesize_mel`` against
+    one process (rel L2 0.1). Their step times are gloo staging through the
+    host, not scaling. Kernels 10/11 on column, row and 2 × 2 shards run in
+    the kernels phase (``kernel_shard``).
 
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -177,6 +204,10 @@ H100_BYTES = 3.35e12      # HBM3 bytes/s
 SERVE_STEPS = 32
 MN_TEXT = "Монгол хэл бол Төв Азийн өргөн уудам нутагт олон сая хүний ярьдаг хэл юм."
 REF_TEXT = "Өнөөдөр цаг агаар сайхан байна"
+# Since the mesh phase (21) the serve, classic, interop, serve_load and streaming
+# phases run the Base width at half its depth, to keep the whole script inside
+# its time limit; their full-depth readings stay in PERF.md
+CUT_DEPTH = 11
 
 
 def emit(obj: dict) -> None:
@@ -691,7 +722,47 @@ def check_train_kernels(torch, F, report) -> list[dict]:
             emit({"phase": "kernel", **row})
             if not rel <= ulp:
                 raise AssertionError(f"{name} ({dtype}) off by {rel} relative")
+    check_gelu_shards(torch, gen, dev, seed, rate)
     return rows
+
+
+# [rows, 4·dim] of a Base FFN at [12, 2048] frames; the shards a mesh rank holds
+GELU_SHARDS = {"column": (slice(None), slice(2048, 4096)),
+               "row": (slice(12288, 24576), slice(None)),
+               "2x2": (slice(12288, 24576), slice(0, 2048))}
+
+
+def check_gelu_shards(torch, gen, dev, seed: int, rate: float) -> None:
+    """Kernels 10/11 on shards placed by global index: bit-equal to the full call's slice.
+
+    A column shard (tensor parallelism), a row shard (data parallelism) and
+    a 2 × 2 shard of ``[24576, 4096]`` bf16, forward and backward; each
+    shard's output and mask equal the same slice of one call over the whole
+    tensor, bit for bit. The column shard runs the kernel's division path,
+    timed beside the whole call.
+    """
+    from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
+
+    shape = (TRAIN_B * TRAIN_T, 4096)
+    x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    full_y, full_dx = gelu_dropout_fwd(x, seed, rate), gelu_dropout_bwd(x, dy, seed, rate)
+    full_ms = cuda_ms(lambda: gelu_dropout_fwd(x, seed, rate))
+    for name, (rows, cols) in GELU_SHARDS.items():
+        xs, dys = x[rows, cols].contiguous(), dy[rows, cols].contiguous()
+        place = dict(row0=rows.start or 0, gcols=shape[1], col0=cols.start or 0)
+        y = gelu_dropout_fwd(xs, seed, rate, **place)
+        dx = gelu_dropout_bwd(xs, dys, seed, rate, **place)
+        same = (torch.equal(y, full_y[rows, cols]) and torch.equal(dx, full_dx[rows, cols])
+                and torch.equal(y == 0, full_y[rows, cols] == 0))
+        emit({"phase": "kernel_shard", "name": "gelu_dropout", "shard": name,
+              "shape": list(xs.shape), "place": place, "bit_equal_to_full_slice": same,
+              "ms": cuda_ms(lambda: gelu_dropout_fwd(xs, seed, rate, **place)),
+              "whole_call_ms": full_ms, "whole_shape": list(shape)})
+        if not same:
+            raise AssertionError(f"gelu_dropout on the {name} shard differs from the full "
+                                 "call's slice")
+    del x, dy, full_y, full_dx
 
 
 def check_kernels(torch, F) -> list[dict]:
@@ -2031,7 +2102,7 @@ def run_serve(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.train.checkpoint import flatten_tree, write_npz
 
     kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused, quantized_matmul)
-    cfg = F5Config()
+    cfg = F5Config.from_dict({"model": {"depth": CUT_DEPTH}})
     depth, hop, rate = cfg.model.depth, cfg.audio.hop_length, cfg.audio.sample_rate
     eight = [letters(60 + i % 5, salt=i) for i in range(8)]  # 780-832 frames: bucket 832
     seeds = [11 + 3 * i for i in range(8)]
@@ -2054,7 +2125,7 @@ def run_serve(torch, smi: str) -> dict[str, int]:
         t0 = time.perf_counter()
         write_npz(Path(tmp) / "f5tts_step_00000001.npz",
                   flatten_tree({"params": serve_params(cfg)}))
-        (Path(tmp) / "config.json").write_text("{}")  # every default: the Base model
+        (Path(tmp) / "config.json").write_text(json.dumps({"model": {"depth": depth}}))
         emit({"phase": "serve_checkpoint", "seconds": time.perf_counter() - t0,
               "bytes": (Path(tmp) / "f5tts_step_00000001.npz").stat().st_size})
 
@@ -2070,8 +2141,8 @@ def run_serve(torch, smi: str) -> dict[str, int]:
             loop = threading.Thread(target=server.serve_forever, name="serve-forever")
             loop.start()
             if not (model.device.type == "cuda" and model.dtype == torch.bfloat16
-                    and model.config.model.dim == 1024 and model.config.model.depth == 22):
-                raise AssertionError("the server did not load the Base model in bf16 on the card")
+                    and model.config.model.dim == 1024 and model.config.model.depth == depth):
+                raise AssertionError("the server did not load the Base width in bf16 on the card")
             for k in kernels:
                 k.launches = 0
             code, health = http_health(port)
@@ -2381,7 +2452,7 @@ def run_classic(torch, smi: str) -> dict[str, int]:
         for n, c in counts.items():
             totals[n] += c
 
-    cfg = F5Config()
+    cfg = F5Config.from_dict({"model": {"depth": CUT_DEPTH}})
     depth, hop, rate = cfg.model.depth, cfg.audio.hop_length, cfg.audio.sample_rate
     params = seeded_dit_params(cfg.model, seed=0)
     state = from_flax_params(params)
@@ -2833,13 +2904,13 @@ def run_interop(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.utils.weights import load_npz_tree, seeded_dit_params
 
     wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish)}
-    cfg = F5Config()
+    cfg = F5Config.from_dict({"model": {"depth": CUT_DEPTH}})
     mels, seconds, sizes = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp)
         write_npz(ckpt / "f5tts_step_00000001.npz",
                   flatten_tree({"params": seeded_dit_params(cfg.model, seed=0)}))
-        (ckpt / "config.json").write_text("{}")  # every default: the Base model
+        (ckpt / "config.json").write_text(json.dumps({"model": {"depth": CUT_DEPTH}}))
         for fmt in ("pt", "safetensors"):
             t0 = time.perf_counter()
             out = export.main(["--checkpoint", str(ckpt), "--output", str(ckpt / f"f5tts.{fmt}")])
@@ -2879,7 +2950,8 @@ def run_interop(torch, smi: str) -> dict[str, int]:
         voc_err = float(np.abs(wav_pt - wav_npz).max() / np.abs(wav_npz).max())
         del model
     same = {n: bool(np.array_equal(mels[n], mels["npz"])) for n in ("pt", "safetensors")}
-    emit({"phase": "interop", "config": "Base, bf16, seeded", "frames": mels["npz"].shape[-1],
+    emit({"phase": "interop", "config": f"Base width, {CUT_DEPTH} blocks, bf16, seeded",
+          "frames": mels["npz"].shape[-1],
           "bytes": sizes, "seconds": seconds, "mel_bit_equal_to_npz": same,
           "griffin_lim_frames": int(log_mel.shape[-1]), "griffin_lim_rel_err": gl_err,
           "vocos_torch_layout_rel_err": voc_err, "launches": counts, "card": smi})
@@ -3039,9 +3111,13 @@ def run_memory(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+SERVE_LOAD_DEPTH = ["--depth", str(CUT_DEPTH)]  # the full depth: SERVE_LOAD_h100.json
+
+
 def run_serve_load(torch, smi: str) -> dict[str, int]:
-    """``cli.bench_serve_load`` at its defaults (Base bf16, 32 clients, 96 requests, 32
-    steps), then once more with a wait ceiling low enough to shed.
+    """``cli.bench_serve_load`` at its defaults but the depth (Base width, 11 blocks, bf16,
+    32 clients, 96 requests, 32 steps), then once more with a wait ceiling low enough to
+    shed.
 
     The shed run sends 128 requests of 8 steps from 128 clients at once
     against a ceiling of 1.5 default solve estimates (32 steps): the fresh
@@ -3060,11 +3136,12 @@ def run_serve_load(torch, smi: str) -> dict[str, int]:
     keys = ("warmup_s", "wall_s", "req_per_s", "audio_s_per_s", "latency_ms",
             "latency_ms_by_chars", "merged_batches", "request_timeout_s", "responses_429",
             "responses_504", "shed_requests", "solve_estimate_s")
-    model = bench_serve_load.build_model(bench_serve_load.build_parser().parse_args([]))
+    model = bench_serve_load.build_model(
+        bench_serve_load.build_parser().parse_args(SERVE_LOAD_DEPTH))
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "serve_load.json")
         zero_counts(wrappers)
-        default = bench_serve_load.main(["--out", out], model=model)
+        default = bench_serve_load.main(["--out", out] + SERVE_LOAD_DEPTH, model=model)
         counts = read_counts(wrappers)
         emit({"phase": "serve_load", "run": "default", **{k: default[k] for k in keys},
               "launches": counts, "card": smi})
@@ -3073,7 +3150,7 @@ def run_serve_load(torch, smi: str) -> dict[str, int]:
         timeout = round(1.5 * default["solve_estimate_s"], 2)
         shed = bench_serve_load.main(["--out", out, "--request-timeout", str(timeout),
                                       "--clients", "128", "--requests", "128", "--steps", "8",
-                                      "--label", "shed"], model=model)
+                                      "--label", "shed"] + SERVE_LOAD_DEPTH, model=model)
         del model
         emit({"phase": "serve_load", "run": "shed", "clients": 128, "requests": 128, "steps": 8,
               **{k: shed[k] for k in keys}, "card": smi})
@@ -3085,14 +3162,15 @@ def run_serve_load(torch, smi: str) -> dict[str, int]:
 
 
 def run_streaming(torch, smi: str) -> dict[str, int]:
-    """``cli.bench_streaming``: Base bf16 with a seeded Vocos set by ``set_vocoder``."""
+    """``cli.bench_streaming``: Base width at 11 blocks, bf16, with a seeded Vocos set by
+    ``set_vocoder``."""
     from oron_tts_tpu_torch.cli import bench_streaming
     from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
 
     wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish)}
     zero_counts(wrappers)
-    payload = bench_streaming.main([])
+    payload = bench_streaming.main(SERVE_LOAD_DEPTH)
     counts = read_counts(wrappers)
     emit({"phase": "streaming", **payload, "launches": counts})
     if not (payload["pieces"] > 1 and 0 < payload["ttfa_s"] < payload["total_s"]):
@@ -3376,6 +3454,471 @@ def run_grad_accum(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+
+# --- phase 21: the mesh ---------------------------------------------------
+# Two ranks share the one card over a gloo group this script initialises (NCCL
+# refuses two ranks on one device; the port itself never picks gloo on CUDA).
+# Their step times are bound by gloo staging every collective through the
+# host: they are a functional check, not a scaling measurement.
+MESH_B, MESH_STEPS = 4, 2          # the global batch [4, 2048] of the two-rank runs
+MESH_LOSS_REL_TOL = 1e-2           # one bf16 forward of the same weights, batch and noise,
+                                   # with the row-parallel sums (TP) or the rows (DP) split
+MESH_NORM_REL_TOL = 5e-2           # the bf16 backward on top of it
+MESH_MEL_REL_L2_TOL = 0.1          # bf16, 4 steps x 22 blocks, TP's sums in another order
+MESH_CASES = (("tp2", 1, 2, False), ("dp2", 2, 1, False), ("dp2_zero1", 2, 1, True))
+# the world-of-one entry-point runs (cli.train/infer/serve under torchrun) take the
+# Base width at 6 of its 22 blocks: their check is bit-equality with no mesh, and a
+# full-depth checkpoint costs a 6 GB write; the step times stay at full depth
+MESH_CLI_DEPTH = 6
+MESH_SYNTH = dict(n_steps=4, seed=0)
+
+
+def mesh_batch(rows: int = MESH_B):
+    """A seeded global batch ``[rows, 100, 2048]``, rows of 2048 to 1500 frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return {"mel": rng.standard_normal((rows, 100, TRAIN_T)).astype(np.float32),
+            "text_ids": rng.integers(1, 65, (rows, TRAIN_T)).astype(np.int32),
+            "mel_lengths": np.resize(np.array([2048, 1800, 1500, 2048], np.int32), rows)}
+
+
+class _NoLoader:
+    dataset: list = []
+
+    def __len__(self) -> int:
+        return MESH_STEPS
+
+    def __iter__(self):
+        return iter(())
+
+
+def mesh_train_steps(torch, cfg, params, mesh, zero: bool, rows: int = MESH_B,
+                     steps: int = MESH_STEPS) -> dict:
+    """``steps`` bf16 F5Trainer steps (dropout 0.1) on this rank's rows of ``mesh_batch(rows)``."""
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.parallel.mesh import batch_rows
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
+
+    config = {"learning_rate": 1e-4, "warmup_steps": 2, "num_epochs": 1, "use_tqdm": False,
+              "log_interval": 10**9, "audio_sample_interval": 10**9,
+              "shard_opt_states": zero}
+    model = F5TTS(cfg, device=None if mesh is None else mesh.device)
+    model.load_params(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = F5Trainer(config, model, _NoLoader(), log_dir=f"{tmp}/l",
+                            checkpoint_dir=f"{tmp}/c", mesh=mesh)
+        batch = mesh_batch(rows)
+        local = {k: v[batch_rows(mesh, rows)] for k, v in batch.items()}
+        generator = torch.Generator().manual_seed(7)
+        out = {"loss": [], "grad_norm": [], "ok": [], "step_ms": []}
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.train_step(local, generator)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            for k in ("loss", "grad_norm", "ok"):
+                out[k].append(m[k])
+        out["moment_gb"] = sum(t.numel() * t.element_size()
+                               for t in trainer.state.mu + trainer.state.nu) / 1e9
+        out["rows"] = int(local["mel"].shape[0])
+        del trainer
+    del model
+    return out
+
+
+def mesh_rank_main(argv: list[str]) -> int:
+    """One of the two ranks that share the card (``--mesh-rank R PORT OUT CHECKPOINT``)."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    rank, port, out, ckpt = int(argv[0]), argv[1], Path(argv[2]), argv[3]
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on cuda:0
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.parallel.mesh import make_mesh
+    from oron_tts_tpu_torch.utils.weights import load_npz_tree
+
+    cfg = F5Config()  # Base: 16 heads of 64, dropout 0.1, 22 blocks
+    params = load_npz_tree(ckpt)["params"]  # the phase's seeded checkpoint
+    wrappers = kernel_wrappers()
+    result: dict = {"rank": rank}
+    for name, dp, tp, zero in MESH_CASES:
+        mesh = make_mesh(dp, tp, device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        res = mesh_train_steps(torch, cfg, params, mesh, zero)
+        res["launches"] = {n: c for n, c in read_counts(wrappers).items() if c}
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result[name] = res
+    mesh = make_mesh(1, 2, device="cuda")
+    model = F5TTS(cfg, device=mesh.device)
+    model.load_params(params)
+    model.set_mesh(mesh)
+    zero_counts(wrappers)
+    mel = model.synthesize_mel(MN_TEXT, **MESH_SYNTH)
+    result["tp2_synth"] = {"launches": {n: c for n, c in read_counts(wrappers).items() if c},
+                           "local_heads": model.backbone.local_heads,
+                           "attn_impl": model.backbone.attn_impl}
+    if rank == 0:
+        np.save(out / "tp2_mel.npy", mel)
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_corpus(root: Path, config: dict) -> tuple[Path, Path]:
+    """WAVs of ``train_clip_frames`` lengths and two more, their metadata, and a Base
+    bf16 config."""
+    import numpy as np
+    import yaml
+
+    from oron_tts_tpu_torch.data.wav import write_wav
+
+    data = root / "data"
+    data.mkdir()
+    rng = np.random.default_rng(6)
+    records = []
+    # 26 clips: the 90/10 split keeps 24, two [12, T ≤ 2048] batches an epoch
+    for i, f in enumerate(train_clip_frames() + [1200, 1300]):
+        path = data / f"clip{i:02d}.wav"
+        write_wav(path, (0.3 * rng.standard_normal((f - 1) * 256)).astype(np.float32), 24000)
+        records.append({"audio_path": str(path), "text": MN_TEXT, "lang": "mn"})
+    (data / "metadata.json").write_text(json.dumps(records))
+    cfg_path = root / "base.yaml"
+    cfg_path.write_text(yaml.safe_dump(config))
+    return data, cfg_path
+
+
+def run_cmd(argv: list[str], timeout: float, env: dict | None = None) -> tuple[str, float]:
+    """Run one entry point to its end; its output, and the wall seconds it took."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, **(env or {})})
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv[:6])} ... exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout + proc.stderr, seconds
+
+
+def torchrun(port: int) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+            "--master-addr", "127.0.0.1", "--master-port", str(port)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def step_lines(log: str) -> list[tuple[float, float]]:
+    import re
+
+    return [(float(a), float(b)) for a, b in
+            re.findall(r"Step \d+ \| loss=([-\d.naif]+) \| lr=\S+ \| grad_norm=([-\d.naif]+)", log)]
+
+
+def mesh_cli_main(argv: list[str]) -> int:
+    """``cli.train``, ``cli.infer`` and ``cli.serve`` with ``--mesh 1x1`` in this torchrun rank.
+
+    ``--mesh-cli ROOT``: the arguments come from ``ROOT/mesh_cli.json``, the
+    results go to ``ROOT/mesh_cli_out.json``. The server answers /healthz,
+    one /synthesize and eight concurrent requests that arrive while the
+    device is busy (the model lock held), so that they merge; then it drains.
+    """
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from oron_tts_tpu_torch.cli import infer, serve, train
+
+    root = Path(argv[0])
+    spec = json.loads((root / "mesh_cli.json").read_text())
+    seconds = {}
+    t0 = time.perf_counter()
+    train.main(spec["train"] + ["--mesh", "1x1"])
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infer.main(spec["infer"] + ["--mesh", "1x1"])
+    seconds["infer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server = serve.create_server(spec["serve"] + ["--mesh", "1x1", "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    health = http_health(port)[1]
+    code, _, _ = http_post(port, "/synthesize", {"text": MN_TEXT, "steps": 8, "seed": 0})
+    texts = [letters(60 + 5 * i, i) for i in range(8)]
+    batcher, submitted, submit = server.service.batcher, [], server.service.batcher.submit
+
+    def counted(*a, **k):
+        submitted.append(1)
+        return submit(*a, **k)
+
+    batcher.submit = counted
+    with ThreadPoolExecutor(8) as pool:
+        with server.service.model_lock:  # a busy device while all eight arrive
+            futures = [pool.submit(http_post, port, "/synthesize",
+                                   {"text": texts[i], "steps": 8, "seed": i}) for i in range(8)]
+            for _ in range(1200):
+                if len(submitted) == 8:
+                    break
+                time.sleep(0.05)
+            time.sleep(0.1)
+        burst = [f.result() for f in futures]
+    after = http_health(port)[1]
+    serve.begin_drain(server)
+    thread.join(timeout=120)
+    serve.close_server(server)  # the stop command: followers would end here
+    seconds["serve"] = time.perf_counter() - t0
+    (root / "mesh_cli_out.json").write_text(json.dumps({
+        "seconds": seconds,
+        "serve": {"healthz": health, "codes": [code] + [c for c, _, _ in burst],
+                  "merged_batches": after["merged_batches"],
+                  "drained": not thread.is_alive()}}))
+    return 0
+
+
+def cli_train_plain(torch, cfg_path: Path, data: Path, ckpt: Path, root: Path):
+    """``cli.train``'s trainer without a mesh, built by its own helpers, in this process.
+
+    The same config, corpus, split, loaders, fresh model and
+    ``--pretrain-ckpt`` weights as the CLI; one epoch, no checkpoint. Returns
+    (its step lines and whole parameters, each step's ms).
+    """
+    from oron_tts_tpu_torch.cli import train as cli_train
+    from oron_tts_tpu_torch.config import F5Config, load_config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.train.checkpoint import flatten_tree
+    from oron_tts_tpu_torch.train.trainer import F5Trainer
+    from oron_tts_tpu_torch.utils.weights import load_npz_tree
+
+    config = load_config(str(cfg_path))
+    dataset = cli_train.build_dataset(str(data), config)
+    train_loader, val_loader = cli_train.build_loaders(dataset, config)
+    model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
+    model.init_params(0)
+    trainer = F5Trainer(config, model, train_loader, val_loader,
+                        log_dir=str(root / "log_plain"), checkpoint_dir=str(root / "run_plain"))
+    trees = load_npz_tree(ckpt / "f5tts_step_00000001.npz")
+    trainer.set_params(trees.get("ema") or trees.get("params") or trees)
+    steps, step_ms, batches = [], [], []
+    train_step = trainer.train_step
+
+    def spy(batch, generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(f"{m['loss']:.4f}/{m['grad_norm']:.4f}")
+        batches.append(list(batch["mel"].shape))
+        return m
+
+    trainer.train_step = spy
+    trainer.train(num_epochs=1, save_interval=10**9)
+    params = flatten_tree(trainer._flax_tree(trainer.state.params))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"steps": steps, "params": params, "batches": batches}, step_ms
+
+
+def run_mesh(torch, smi: str) -> dict[str, int]:
+    """Phase 21: the mesh on one card (NCCL world of one; two gloo ranks sharing the card)."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.config import F5Config
+    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.parallel.mesh import make_mesh
+    from oron_tts_tpu_torch.train.checkpoint import flatten_tree, write_npz
+
+    t_phase = time.perf_counter()
+    cfg = F5Config()
+    totals: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # 1. NCCL with a world of one, through the entry points, at the Base width
+        # (MESH_CLI_DEPTH blocks) in bf16, from a seeded checkpoint
+        cli_model = {"depth": MESH_CLI_DEPTH}
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        write_npz(ckpt / "f5tts_step_00000001.npz", flatten_tree(
+            {"params": serve_params(F5Config.from_dict({"model": cli_model}))}))
+        (ckpt / "config.json").write_text(json.dumps({"model": cli_model}))
+        params = serve_params(cfg)  # the full Base tree: step times and the two ranks
+        full_ckpt = root / "base.npz"
+        write_npz(full_ckpt, flatten_tree({"params": params}))
+        config = {"model": cli_model, "batch_size": TRAIN_B, "num_epochs": 1,
+                  "learning_rate": 1e-4,
+                  "save_best_between_intervals": False,
+                  "warmup_steps": 2, "log_interval": 1, "save_interval": 1,
+                  "max_checkpoints": 1, "use_tqdm": False, "num_workers": 2,
+                  "audio_sample_interval": 10**9, "gradient_checkpointing": False,
+                  "mixed_precision": "bfloat16", "seed": 0}
+        data, cfg_path = mesh_corpus(root, config)
+        train_args = ["--config", str(cfg_path), "--from-local", "--data-dir", str(data),
+                      "--pretrain-ckpt", str(ckpt / "f5tts_step_00000001.npz")]
+        infer_args = ["--checkpoint", str(ckpt), "--text", MN_TEXT, "--steps", "8",
+                      "--seed", "0"]
+        (root / "mesh_cli.json").write_text(json.dumps({
+            "train": train_args + ["--checkpoint-dir", str(root / "run_mesh"),
+                                   "--log-dir", str(root / "log_mesh")],
+            "infer": infer_args + ["--output", str(root / "mesh.wav")],
+            "serve": ["--checkpoint", str(ckpt)]}))
+        # one rank under torchrun runs the three entry points' mains in turn (one
+        # process start and one NCCL world for all three, to fit the time limit)
+        log, wall = run_cmd(torchrun(free_port()) + [__file__, "--mesh-cli", str(root)], 600)
+        got = json.loads((root / "mesh_cli_out.json").read_text())
+        # the no-mesh trainer of the same state, batches and generator seed: cli.train's
+        # own steps, in this process, without its checkpoint write
+        plain, step_ms = cli_train_plain(torch, cfg_path, data, ckpt, root)
+        with np.load(root / "run_mesh" / "f5tts_step_00000002.npz") as npz:
+            same = all(np.array_equal(npz[f"params/{k}"], v) for k, v in plain["params"].items())
+            n_params = sum(1 for k in npz.files if k.startswith("params/"))
+        steps = step_lines(log)
+        emit({"phase": "mesh_train_1x1", "entry": "cli.train --mesh 1x1 (torchrun, NCCL)",
+              "steps_mesh": steps, "steps_plain": plain["steps"], "batches": plain["batches"],
+              "params_bit_equal": same and n_params == len(plain["params"]),
+              "nccl": "Device mesh: {'data': 1, 'model': 1}" in log,
+              "plain_step_ms": step_ms, "wall_s": {"torchrun_all_three": wall, **got["seconds"]},
+              "card": smi})
+        if not (same and n_params == len(plain["params"]) and len(steps) == 2
+                and [f"{a:.4f}/{b:.4f}" for a, b in steps] == plain["steps"]):
+            raise AssertionError("cli.train --mesh 1x1 differs from the trainer without a mesh")
+        del plain
+
+        from oron_tts_tpu_torch.cli import infer as cli_infer
+
+        t0 = time.perf_counter()
+        cli_infer.main(infer_args + ["--output", str(root / "plain.wav")])
+        plain_s = time.perf_counter() - t0
+        wavs = {m: (root / f"{m}.wav").read_bytes() for m in ("mesh", "plain")}
+        emit({"phase": "mesh_infer_1x1", "entry": "cli.infer --mesh 1x1 (torchrun, NCCL)",
+              "wav_bytes": len(wavs["mesh"]), "bit_equal": wavs["mesh"] == wavs["plain"],
+              "wall_s": {"mesh": got["seconds"]["infer"], "plain_in_process": plain_s},
+              "card": smi})
+        if wavs["mesh"] != wavs["plain"]:
+            raise AssertionError("cli.infer --mesh 1x1 differs from cli.infer without a mesh")
+        srv = got["serve"]
+        emit({"phase": "mesh_serve_1x1", "entry": "cli.serve --mesh 1x1 (torchrun, NCCL)",
+              **srv, "card": smi})
+        if not (srv["healthz"].get("mesh") == {"data": 1, "model": 1}
+                and srv["codes"] == [200] * 9 and srv["merged_batches"] >= 1
+                and srv["drained"]):
+            raise AssertionError(f"cli.serve --mesh 1x1: {srv}")
+
+        # the step time at [12, 2048] and 22 blocks with and without a world-of-one
+        # mesh, in this process; the first step of each is a warm-up
+        wrappers = kernel_wrappers()
+        times = {}
+        for mode in ("plain", "mesh"):
+            mesh = make_mesh(1, 1, device="cuda") if mode == "mesh" else None
+            zero_counts(wrappers)
+            times[mode] = mesh_train_steps(torch, cfg, params, mesh, False, rows=TRAIN_B,
+                                           steps=3)
+            times[mode]["launches"] = {n: c for n, c in read_counts(wrappers).items() if c}
+            add(times[mode]["launches"])
+            torch.cuda.empty_cache()
+        torch.distributed.destroy_process_group()
+        same_steps = (times["mesh"]["loss"] == times["plain"]["loss"]
+                      and times["mesh"]["grad_norm"] == times["plain"]["grad_norm"])
+        emit({"phase": "mesh_step_1x1", "batch": [TRAIN_B, TRAIN_T],
+              "step_ms_mesh": times["mesh"]["step_ms"],
+              "step_ms_plain": times["plain"]["step_ms"],
+              "mesh_over_plain": times["mesh"]["step_ms"][-1] / times["plain"]["step_ms"][-1],
+              "loss": times["mesh"]["loss"], "bit_equal": same_steps, "card": smi})
+        if not same_steps:
+            raise AssertionError(f"the world-of-one step differs: {times}")
+
+        # 2. two ranks sharing the card over gloo, at Base bf16, dropout 0.1
+        ref = mesh_train_steps(torch, cfg, params, None, False)
+        model = F5TTS(cfg)
+        model.load_params(params)
+        ref_mel = model.synthesize_mel(MN_TEXT, **MESH_SYNTH)
+        del model
+        torch.cuda.empty_cache()
+        gloo_port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r),
+                                   str(gloo_port), str(root), str(full_ckpt)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=900)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n{o[-4000:]}")
+        ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
+        for name, dp, tp, zero in MESH_CASES:
+            got = [rk[name] for rk in ranks]
+            loss_rel = abs(got[0]["loss"][0] - ref["loss"][0]) / abs(ref["loss"][0])
+            norm_rel = abs(got[0]["grad_norm"][0] - ref["grad_norm"][0]) / ref["grad_norm"][0]
+            agree = all(g["loss"] == got[0]["loss"] and g["grad_norm"] == got[0]["grad_norm"]
+                        for g in got)
+            for g in got:
+                add(g["launches"])
+            emit({"phase": "mesh_two_ranks", "case": name, "mesh": {"data": dp, "model": tp},
+                  "zero1": zero, "global_batch": [MESH_B, TRAIN_T], "rows_per_rank": got[0]["rows"],
+                  "loss": got[0]["loss"], "grad_norm": got[0]["grad_norm"],
+                  "single_loss": ref["loss"][0], "single_grad_norm": ref["grad_norm"][0],
+                  "loss_rel_err": loss_rel, "loss_tol": MESH_LOSS_REL_TOL,
+                  "grad_norm_rel_err": norm_rel, "grad_norm_tol": MESH_NORM_REL_TOL,
+                  "ranks_agree": agree, "peak_gb_by_rank": [g["peak_gb"] for g in got],
+                  "moment_gb_by_rank": [g["moment_gb"] for g in got],
+                  "step_ms_by_rank": [g["step_ms"] for g in got],
+                  "step_ms_note": "gloo staging through the host, two ranks on one card",
+                  "launches_by_rank": [g["launches"] for g in got], "card": smi})
+            if not (agree and all(all(g["ok"]) for g in got) and loss_rel <= MESH_LOSS_REL_TOL
+                    and norm_rel <= MESH_NORM_REL_TOL):
+                raise AssertionError(f"two-rank {name}: loss {loss_rel}, norm {norm_rel}, "
+                                     f"ranks agree {agree}")
+        mel = np.load(root / "tp2_mel.npy")
+        mel_rel = float(np.linalg.norm(mel - ref_mel) / np.linalg.norm(ref_mel))
+        synth = [rk["tp2_synth"] for rk in ranks]
+        for s_ in synth:
+            add(s_["launches"])
+        emit({"phase": "mesh_two_ranks", "case": "tp2_synthesize_mel", "shape": list(mel.shape),
+              "mel_rel_l2": mel_rel, "tol": MESH_MEL_REL_L2_TOL,
+              "local_heads": synth[0]["local_heads"], "attn_impl": synth[0]["attn_impl"],
+              "launches_by_rank": [s_["launches"] for s_ in synth],
+              "seconds": time.perf_counter() - t0, "card": smi})
+        if not (mel.shape == ref_mel.shape and mel_rel <= MESH_MEL_REL_L2_TOL
+                and synth[0]["local_heads"] == 8 and synth[0]["attn_impl"] == "lanes"):
+            raise AssertionError(f"TP-2 synthesis: rel L2 {mel_rel}, {synth[0]}")
+    emit({"phase": "mesh_summary", "seconds": time.perf_counter() - t_phase,
+          "launches": totals, "card": smi})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3426,7 +3969,8 @@ def main() -> int:
                         ("widths", run_widths), ("align", run_align), ("interop", run_interop),
                         ("memory", run_memory), ("serve_load", run_serve_load),
                         ("streaming", run_streaming), ("prepare", run_prepare),
-                        ("vocoder", run_vocoder), ("grad_accum", run_grad_accum)):
+                        ("vocoder", run_vocoder), ("grad_accum", run_grad_accum),
+                        ("mesh", run_mesh)):
         for kernel, n in (timed(name, phase, torch, smi) or {}).items():
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})
@@ -3447,4 +3991,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one of the mesh phase's two ranks
+        sys.exit(mesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-cli"]:  # the mesh phase's torchrun rank
+        sys.exit(mesh_cli_main(sys.argv[2:]))
     sys.exit(main())

@@ -9,8 +9,13 @@ checkpoints (either package's) and the reference's torch ``.pt`` and
 bundled Vocos, a Vocos ``.npz`` or torch-layout file, or ``--vocoder
 griffin_lim``. It runs on the card unless ``--device cpu`` is given. A
 calibrated ``duration_stats`` table in ``config.json`` sets the length of
-every ref-free solve, as in the JAX package. ``--mesh`` is not ported yet
-(``ROADMAP.md``): it raises an error that says so.
+every ref-free solve, as in the JAX package.
+
+``--mesh DPxTP`` runs SPMD, one process per rank under ``torchrun``
+(``python -m torch.distributed.run --nproc-per-node N -m
+oron_tts_tpu_torch.cli.infer ... --mesh DPxTP``): every rank loads the
+checkpoint, shards the DiT (``F5TTS.set_mesh``) and runs the same texts
+and seeds; rank 0 writes the WAVs.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from oron_tts_tpu_torch.cli import validate_quantize_mesh
+from oron_tts_tpu_torch.cli import mesh_or_exit, validate_quantize_mesh
 
 
 def load_model(checkpoint_path: str, use_ema: bool = True, precision: str | None = None,
@@ -107,7 +112,7 @@ def parse_cfg_interval(parser: argparse.ArgumentParser, text: str | None):
 
 
 def main(argv: list[str] | None = None) -> None:
-    parser = argparse.ArgumentParser(description="OronTTS F5-TTS inference (PyTorch, one GPU)")
+    parser = argparse.ArgumentParser(description="OronTTS F5-TTS inference (PyTorch)")
     parser.add_argument("--checkpoint", type=str, required=True,
                         help="Path to an .npz/.pt/.safetensors checkpoint or a checkpoint "
                              "directory")
@@ -145,7 +150,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int8_dynamic"],
                         help="Serve the DiT projections in int8: 'int8' = w8a16 through the "
                              "hand-written kernel, 'int8_dynamic' = w8a8")
-    parser.add_argument("--mesh", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="Multi-GPU mesh as DPxTP (e.g. 2x2), one process per rank under "
+                             "torchrun: rows shard over DP, attention/FFN projections over TP")
     args = parser.parse_args(argv)
     validate_quantize_mesh(parser, args.quantize, args.mesh)
     cfg_interval = parse_cfg_interval(parser, args.cfg_interval)
@@ -158,15 +165,21 @@ def main(argv: list[str] | None = None) -> None:
     from oron_tts_tpu_torch.data.wav import write_wav
     from oron_tts_tpu_torch.models.f5tts import split_text_for_synthesis
 
+    mesh = mesh_or_exit(parser, args.mesh, args.device) if args.mesh else None
     model = load_model(args.checkpoint, use_ema=not args.no_ema,
-                       precision="float32" if args.fp32 else None,
-                       quantize=args.quantize, device=args.device)
+                       precision="float32" if args.fp32 else None, quantize=args.quantize,
+                       device=args.device if mesh is None else mesh.device)
     if args.vocoder:
         model.load_vocoder(args.vocoder)
+    if mesh is not None:
+        model.set_mesh(mesh)
+        print(f"Serving mesh: {mesh.shape} (rank {mesh.rank} of {mesh.world})")
+    main_rank = mesh is None or mesh.is_main
     print(f"Model loaded on {model.device}. Parameters: {model.num_params():,}")
 
     out = Path(args.output)
-    out.parent.mkdir(parents=True, exist_ok=True)
+    if main_rank:
+        out.parent.mkdir(parents=True, exist_ok=True)
     sampler = dict(
         lang=args.lang, n_steps=args.steps, cfg_strength=args.cfg_strength,
         sway_sampling_coef=args.sway_sampling_coef, speed=args.speed, seed=args.seed,
@@ -179,9 +192,10 @@ def main(argv: list[str] | None = None) -> None:
                  if line.strip()]
         print(f"Batch synthesis: {len(texts)} utterances [{args.lang}]")
         for i, wav in enumerate(model.synthesize_batch(texts, **sampler)):
-            path = out.with_name(f"{out.stem}_{i:03d}{out.suffix or '.wav'}")
-            write_wav(path, wav, model.sample_rate)
-            print(f"Saved: {path} ({len(wav) / model.sample_rate:.2f} s)")
+            if main_rank:
+                path = out.with_name(f"{out.stem}_{i:03d}{out.suffix or '.wav'}")
+                write_wav(path, wav, model.sample_rate)
+                print(f"Saved: {path} ({len(wav) / model.sample_rate:.2f} s)")
         return
 
     print(f"Synthesising [{args.lang}]: {args.text}")
@@ -191,8 +205,9 @@ def main(argv: list[str] | None = None) -> None:
             print(f"Long text split into {n_chunks} chunks "
                   f"(max {args.max_chars_per_chunk} chars each)")
     waveform = model.synthesize(text=args.text, target_duration_s=args.duration, **sampler)
-    write_wav(out, waveform, model.sample_rate)
-    print(f"Saved: {out} ({len(waveform) / model.sample_rate:.2f} s)")
+    if main_rank:
+        write_wav(out, waveform, model.sample_rate)
+        print(f"Saved: {out} ({len(waveform) / model.sample_rate:.2f} s)")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,10 @@
-"""HTTP server for synthesis with the PyTorch port (one GPU).
+"""HTTP server for synthesis with the PyTorch port (one GPU or a mesh).
 
     python -m oron_tts_tpu_torch.cli.serve --checkpoint <dir-or-.npz> \\
         [--port 8080] [--quantize int8|int8_dynamic] [--profile fast] [--device cpu]
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m oron_tts_tpu_torch.cli.serve --checkpoint <dir> --mesh 2x2
 
 POST /synthesize  {"text": "...", "lang": "mn", "steps": 32, "seed": 0,
                    "cfg_strength": 2.0, "speed": 1.0, "cfg_interval": [lo, hi],
@@ -35,9 +38,21 @@ dispatcher thread and the handler threads take turns, the kernels' launch
 counters (plain ints) are only ever bumped by the lock's holder, and the
 model's own methods run under ``torch.no_grad`` (which is per thread).
 
-Not ported, because they steer XLA or need a device mesh: ``--warmup-full``
-(it compiles executables), ``--no-scan-blocks``, the compilation cache and
-``--mesh`` (refused, see ``ROADMAP.md``).
+``--mesh DPxTP`` (one process per rank under ``torchrun``): rank 0 runs the
+HTTP server and the micro-batcher; every other rank runs :func:`follow`.
+Each model call on rank 0 (:class:`MeshModel`) first broadcasts a small
+command to every rank — the method, the texts (from which every rank
+derives the same token ids and durations), the row seeds and the solver
+settings (steps, CFG, sway, ``cfg_interval``, method), and a cloned
+request's reference WAV bytes — and then every rank runs the same solve on
+its shard (``F5TTS.set_mesh``). A drain or shutdown broadcasts a stop
+command; a 429 or a 504 broadcasts nothing, since no solve runs. Under a
+mesh /synthesize_stream solves every chunk before its first piece is sent
+(the ranks cannot wait on a client between solves). /healthz reports the
+mesh's shape.
+
+Not ported, because they steer XLA: ``--warmup-full`` (it compiles
+executables), ``--no-scan-blocks`` and the compilation cache.
 """
 
 from __future__ import annotations
@@ -59,7 +74,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any
 
-from oron_tts_tpu_torch.cli import validate_quantize_mesh
+from oron_tts_tpu_torch.cli import mesh_or_exit, validate_quantize_mesh
 from oron_tts_tpu_torch.data.wav import pcm16_bytes, wav_bytes, wav_stream_header
 
 # The solve-time estimate a fresh batcher starts from, before it has timed a
@@ -591,6 +606,86 @@ class Handler(BaseHTTPRequestHandler):
         _logger.info("%s %s", self.address_string(), fmt % fmt_args)
 
 
+def run_command(model, cmd: dict) -> Any:
+    """Run one broadcast command on this rank's model (a cloned request's
+    reference WAV is written to a temporary file for the call)."""
+    kwargs = dict(cmd["kwargs"])
+    ref = kwargs.pop("ref_audio_bytes", None)
+    tmp = None
+    try:
+        if ref is not None:
+            fd, tmp = tempfile.mkstemp(suffix=".wav")
+            with os.fdopen(fd, "wb") as f:
+                f.write(ref)
+            kwargs["ref_audio_path"] = tmp
+        if cmd["method"] == "synthesize_stream":
+            return list(model.synthesize_stream(**kwargs))
+        return getattr(model, cmd["method"])(**kwargs)
+    finally:
+        if tmp is not None:
+            os.unlink(tmp)
+
+
+class MeshModel:
+    """Rank 0's handle on a model sharded over a mesh.
+
+    Every synthesis call broadcasts its command to the followers first, then
+    runs it here; callers hold ``Service.model_lock``, so commands go out in
+    the order the solves run. Everything else is the model's.
+    """
+
+    def __init__(self, model, mesh) -> None:
+        self.model, self.mesh = model, mesh
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self.model, name)
+
+    def _call(self, entry: str, /, **kwargs: Any) -> Any:
+        from oron_tts_tpu_torch.parallel.mesh import broadcast_tree
+
+        path = kwargs.get("ref_audio_path")
+        if path is not None:
+            kwargs = dict(kwargs, ref_audio_bytes=Path(path).read_bytes())
+            del kwargs["ref_audio_path"]
+        cmd = {"method": entry, "kwargs": kwargs}
+        broadcast_tree(cmd, device=self.mesh.device)
+        return run_command(self.model, cmd)
+
+    def synthesize(self, **kwargs: Any):
+        return self._call("synthesize", **kwargs)
+
+    def synthesize_batch(self, texts: list[str], **kwargs: Any):
+        return self._call("synthesize_batch", texts=list(texts), **kwargs)
+
+    def synthesize_stream(self, **kwargs: Any) -> Iterator:
+        yield from self._call("synthesize_stream", **kwargs)
+
+    def stop(self) -> None:
+        from oron_tts_tpu_torch.parallel.mesh import broadcast_tree
+
+        broadcast_tree({"method": "stop"}, device=self.mesh.device)
+
+
+def follow(model, mesh) -> int:
+    """A follower rank's loop: run every broadcast command until a stop; returns the count.
+
+    A command that fails here failed on rank 0 too (the same validation
+    runs everywhere before any collective), which answers the client.
+    """
+    from oron_tts_tpu_torch.parallel.mesh import broadcast_tree
+
+    done = 0
+    while True:
+        cmd = broadcast_tree(None, device=mesh.device)
+        if cmd["method"] == "stop":
+            return done
+        try:
+            run_command(model, cmd)
+        except Exception as exc:  # noqa: BLE001 - rank 0 reports it
+            _logger.info("follower: %s: %s", type(exc).__name__, exc)
+        done += 1
+
+
 class DrainingHTTPServer(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` that finishes accepted requests when it closes.
 
@@ -639,7 +734,7 @@ def install_drain_handlers(server: DrainingHTTPServer) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="OronTTS HTTP server (PyTorch, one GPU)")
+    parser = argparse.ArgumentParser(description="OronTTS HTTP server (PyTorch)")
     parser.add_argument("--checkpoint", type=str, required=True)
     parser.add_argument("--vocoder", type=str, default=None)
     parser.add_argument("--host", type=str, default="127.0.0.1")
@@ -666,7 +761,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "hand-written kernel, 'int8_dynamic' = w8a8")
     parser.add_argument("--fp32", action="store_true",
                         help="Force float32 compute and parameters (default: bf16 on the card)")
-    parser.add_argument("--mesh", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="Multi-GPU mesh as DPxTP (e.g. 2x2), one process per rank under "
+                             "torchrun; rank 0 serves HTTP, the others follow")
     parser.add_argument("--auth-token", type=str, default=None,
                         help="Require 'Authorization: Bearer <token>' on the synthesis "
                              "endpoints (/healthz stays open); also ORON_SERVE_TOKEN")
@@ -677,7 +774,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def create_server(argv: list[str] | None = None) -> DrainingHTTPServer:
-    """Parse the flags, load the model and bind the socket; the caller serves."""
+    """Parse the flags, load the model and bind the socket; the caller serves.
+
+    Under ``--mesh`` a follower rank (not rank 0) gets no server: it runs
+    :func:`follow` here and returns None once rank 0 has stopped.
+    """
     from oron_tts_tpu_torch.cli.infer import load_model
 
     parser = build_parser()
@@ -692,13 +793,23 @@ def create_server(argv: list[str] | None = None) -> DrainingHTTPServer:
         print(f"[serve] profile=fast: {args.quantize} + cfg_interval"
               f"{FAST_PROFILE_CFG_INTERVAL} defaults")
     validate_quantize_mesh(parser, args.quantize, args.mesh)
+    mesh = mesh_or_exit(parser, args.mesh, args.device) if args.mesh else None
     model = load_model(args.checkpoint, use_ema=not args.no_ema,
-                       precision="float32" if args.fp32 else None,
-                       quantize=args.quantize, device=args.device)
+                       precision="float32" if args.fp32 else None, quantize=args.quantize,
+                       device=args.device if mesh is None else mesh.device)
     if args.quantize:
         meta["quantize"] = args.quantize
     meta["device"] = str(model.device)
     model.load_vocoder(args.vocoder)
+    if mesh is not None:
+        model.set_mesh(mesh)
+        meta["mesh"] = dict(mesh.shape)
+        print(f"[serve] mesh: {mesh.shape} (rank {mesh.rank} of {mesh.world})")
+        if not mesh.is_main:
+            n = follow(model, mesh)
+            print(f"[serve] follower rank {mesh.rank}: {n} commands, stopped")
+            return None
+        model = MeshModel(model, mesh)
     if args.warmup:
         print("[serve] warmup synthesis...")
         if args.no_batching:
@@ -716,9 +827,19 @@ def create_server(argv: list[str] | None = None) -> DrainingHTTPServer:
     return DrainingHTTPServer((args.host, args.port), service)
 
 
+def close_server(server: DrainingHTTPServer) -> None:
+    """Join the handlers, stop the batcher and, under a mesh, the followers."""
+    server.server_close()
+    server.service.close()
+    if isinstance(server.service.model, MeshModel):
+        server.service.model.stop()
+
+
 def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO, format="[serve] %(message)s")
     server = create_server(argv)
+    if server is None:  # a mesh follower, stopped by rank 0
+        return
     install_drain_handlers(server)
     host, port = server.server_address[:2]
     print(f"[serve] listening on http://{host}:{port}")
@@ -727,8 +848,7 @@ def main(argv: list[str] | None = None) -> None:
     finally:
         # after a drain, serve_forever has returned; server_close joins the
         # handler threads, so every accepted request is answered first
-        server.server_close()
-        server.service.close()
+        close_server(server)
     print("[serve] drained, exiting")
 
 

@@ -1,10 +1,13 @@
-"""Training CLI of the PyTorch port (local or HuggingFace data, one GPU).
+"""Training CLI of the PyTorch port (local or HuggingFace data, one GPU or a mesh).
 
     python -m oron_tts_tpu_torch.cli.train --config configs/test.yaml \\
         --from-local --data-dir data/processed [--device cpu]
 
     python -m oron_tts_tpu_torch.cli.train --config configs/runpod.yaml \\
         --dataset btsee/mbspeech_mn [--split train --text-column sentence_norm]
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m oron_tts_tpu_torch.cli.train --config configs/runpod.yaml --mesh 2x2
 
 Counterpart of the JAX package's ``cli/train.py``: ``--from-local`` data (a
 ``metadata.json`` of ``audio_path``/``text`` records) or a HuggingFace
@@ -19,21 +22,29 @@ another shape (an official checkpoint's text embedding) keep their fresh
 values and are printed. ``--push-to-hub`` mirrors the checkpoint directory
 to ``--hf-repo`` every ``--hub-upload-interval`` interval saves and once at
 the end (``huggingface_hub`` and the network; the token from ``--hf-token``
-or ``HF_TOKEN``). The device mesh is not ported yet (``ROADMAP.md``):
-``--mesh``, ``--multihost`` and ``--num-gpus`` are accepted and raise an
-error that says so.
+or ``HF_TOKEN``).
+
+``--mesh DPxTP`` trains on a ``("data", "model")`` mesh (``parallel/mesh.py``),
+one process per rank under ``torchrun``; a mesh whose size is not the
+world's raises and names the command. Under ``torchrun`` without ``--mesh``
+every rank is a data rank. In a world of more than one process the batches
+come from ``GlobalBatchSchedule`` (train and validation): each data rank
+loads its rows of every global batch at the globally agreed shape, and frame
+batches pad their rows to a multiple of ``lcm(8, DP)``. ``--multihost`` takes
+the ``torchrun --nnodes`` environment (it raises without it) and prints each
+process's place; ``--num-gpus`` is accepted and ignored, as in the JAX
+package: the world's size comes from ``torchrun``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 from pathlib import Path
 
-from oron_tts_tpu_torch.cli import NOT_PORTED
-
-MESH_ITEM = ", section 1 item 5 (multi-GPU)"
+from oron_tts_tpu_torch.cli import mesh_or_exit
 
 
 def resolve_hf_token(token: str | None = None) -> str | None:
@@ -157,18 +168,54 @@ class _Subset:
         return self.base[self.indices[i]]
 
 
-def make_collator(config: dict):
-    """The collator ``build_loaders`` pads batches with, as the JAX package's CLI sets it."""
+def make_collator(config: dict, n_data: int = 1):
+    """The collator ``build_loaders`` pads batches with, as the JAX package's CLI sets it:
+    frame batches pad their rows to a multiple of ``lcm(8, n_data)``."""
     from oron_tts_tpu_torch.data.dataset import TTSCollator
 
     frame_batches = config.get("batch_size_type", "sample") == "frame"
     return TTSCollator(
         pad_to_multiple=config.get("pad_to_multiple", 64), n_mels=config.get("n_mels", 100),
-        pad_batch_to_multiple=config.get("batch_pad_multiple", 0) or (8 if frame_batches else 1))
+        pad_batch_to_multiple=config.get("batch_pad_multiple", 0)
+        or math.lcm(8 if frame_batches else 1, n_data))
 
 
-def build_loaders(dataset, config: dict):
-    """Seeded 90/10 split, samplers and loaders, as the JAX package's CLI."""
+def global_schedules(train_subset, val_subset, config: dict, mesh):
+    """``GlobalBatchSchedule`` for train and validation: this data rank's rows."""
+    from oron_tts_tpu_torch.data.dataset import GlobalBatchSchedule, frames_for_duration
+
+    sample_rate = config.get("sample_rate", 24000)
+    hop_length = config.get("hop_length", 256)
+
+    def est_frames(subset):
+        return [frames_for_duration(d, sample_rate, hop_length) for d in subset.durations]
+
+    if not train_subset.durations:
+        raise SystemExit("a mesh run needs per-sample durations for the global batch "
+                         "schedule (metadata.json audio must be readable WAV, or use an "
+                         "HF dataset)")
+    common = dict(num_hosts=mesh.n_data, host_id=mesh.data_rank,
+                  pad_to_multiple=config.get("pad_to_multiple", 64),
+                  rows_multiple_per_host=1, seed=config.get("seed", 0))
+    batch_size = config.get("batch_size", 16)
+    if config.get("batch_size_type", "sample") == "frame":
+        sampler = GlobalBatchSchedule(
+            est_frames(train_subset), frames_threshold=config.get("frames_threshold", 6000),
+            max_samples=config.get("max_samples", 0), **common)
+    else:
+        sampler = GlobalBatchSchedule(est_frames(train_subset), batch_size=batch_size, **common)
+    val_sampler = (GlobalBatchSchedule(est_frames(val_subset), batch_size=batch_size,
+                                       shuffle=False, **common)
+                   if val_subset is not None else None)
+    return sampler, val_sampler
+
+
+def build_loaders(dataset, config: dict, mesh=None):
+    """Seeded 90/10 split, samplers and loaders, as the JAX package's CLI.
+
+    Under a mesh of more than one process both splits stay global and
+    ``GlobalBatchSchedule`` hands each data rank its rows.
+    """
     import numpy as np
 
     from oron_tts_tpu_torch.data.dataset import DynamicBatchSampler, FixedBatchSampler
@@ -184,7 +231,13 @@ def build_loaders(dataset, config: dict):
     batch_size = config.get("batch_size", 16)
     frame_batches = config.get("batch_size_type", "sample") == "frame"
     num_workers = config.get("num_workers", 4)
-    collator = make_collator(config)
+    collator = make_collator(config, 1 if mesh is None else mesh.n_data)
+    if mesh is not None and mesh.world > 1:
+        sampler, val_sampler = global_schedules(train_subset, val_subset, config, mesh)
+        return (DataLoader(train_subset, sampler, collator, num_workers=num_workers),
+                DataLoader(val_subset, val_sampler, collator,
+                           num_workers=max(num_workers // 2, 1))
+                if val_sampler is not None else None)
     if frame_batches and train_subset.durations:
         sampler = DynamicBatchSampler(
             durations=train_subset.durations,
@@ -207,7 +260,7 @@ def build_loaders(dataset, config: dict):
 
 
 def main(argv: list[str] | None = None) -> None:
-    parser = argparse.ArgumentParser(description="Train OronTTS F5-TTS (PyTorch, one GPU)")
+    parser = argparse.ArgumentParser(description="Train OronTTS F5-TTS (PyTorch)")
     parser.add_argument("--config", type=str, default="configs/runpod.yaml")
     parser.add_argument("--data-dir", type=str, default="data/processed")
     parser.add_argument("--from-local", action="store_true",
@@ -240,29 +293,52 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--hf-token", type=str, default=None)
     parser.add_argument("--hub-private", action="store_true")
     parser.add_argument("--hub-upload-interval", type=int, default=1)
-    # accepted for flag parity with the JAX package; not ported yet
-    parser.add_argument("--mesh", type=str, default=None)
-    parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--num-gpus", type=int, default=None)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="Device mesh as DPxTP (e.g. 4x1, 2x2), one process per rank "
+                             "under torchrun")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Join a multi-node run from the torchrun --nnodes environment")
+    parser.add_argument("--num-gpus", type=int, default=None,
+                        help="(compat) accepted and ignored; torchrun sets the world")
     args = parser.parse_args(argv)
     args.hf_token = resolve_hf_token(args.hf_token)
     if args.hub_upload_interval < 1:
         parser.error("--hub-upload-interval must be >= 1")
-
-    for flag, given in (("--mesh", args.mesh), ("--multihost", args.multihost),
-                        ("--num-gpus", args.num_gpus is not None)):
-        if given:
-            parser.error(NOT_PORTED.format(flag=flag) + MESH_ITEM)
+    if args.num_gpus is not None:
+        print(f"--num-gpus {args.num_gpus} is ignored: launch one process per GPU with "
+              f"python -m torch.distributed.run --nproc-per-node N and pass --mesh DPxTP")
 
     import torch
+    import torch.distributed as dist
+
+    from oron_tts_tpu_torch.parallel import mesh as pmesh
+
+    if args.multihost:
+        if "RANK" not in os.environ or "MASTER_ADDR" not in os.environ:
+            parser.error("--multihost needs the torchrun environment: python -m "
+                         "torch.distributed.run --nnodes N --nproc-per-node G "
+                         "--rdzv-endpoint HOST:PORT -m oron_tts_tpu_torch.cli.train ... "
+                         "--multihost")
+        pmesh.init_from_env(pmesh.local_device(args.device))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        print(f"Process {dist.get_rank()}/{dist.get_world_size()}, {local} local devices")
+    # mesh before loaders: the data size fixes the row multiple and the schedule
+    mesh = None
+    if args.mesh:
+        mesh = mesh_or_exit(parser, args.mesh, args.device)
+    elif pmesh._env_world() > 1 or dist.is_initialized():
+        mesh = pmesh.make_mesh(None, 1, device=args.device)
+    if mesh is not None:
+        print(f"Device mesh: {mesh.shape} (rank {mesh.rank} of {mesh.world}, {mesh.device})")
 
     from oron_tts_tpu_torch.config import F5Config, load_config
     from oron_tts_tpu_torch.models.f5tts import F5TTS
     from oron_tts_tpu_torch.train.trainer import F5Trainer, TrainingPreempted
     from oron_tts_tpu_torch.utils.device import resolve_device
-    from oron_tts_tpu_torch.utils.weights import load_npz_tree, to_flax_params
+    from oron_tts_tpu_torch.utils.weights import load_npz_tree
 
-    device = resolve_device(args.device)  # raises without CUDA unless --device cpu
+    # raises without CUDA unless --device cpu; a mesh rank runs on cuda:LOCAL_RANK
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     config = load_config(args.config)
     if args.num_epochs:
         config["num_epochs"] = args.num_epochs
@@ -283,7 +359,7 @@ def main(argv: list[str] | None = None) -> None:
             config["duration_stats"] = stats
             print(f"Duration calibration: global "
                   f"{stats['global']:.2f} frames/token over {stats['n']} clips")
-    train_loader, val_loader = build_loaders(dataset, config)
+    train_loader, val_loader = build_loaders(dataset, config, mesh)
     if config.get("gradient_checkpointing") == "auto":
         config["gradient_checkpointing"] = decide_gradient_checkpointing(config, device)
 
@@ -298,6 +374,7 @@ def main(argv: list[str] | None = None) -> None:
         log_dir=args.log_dir, checkpoint_dir=args.checkpoint_dir,
         hub_repo_id=args.hf_repo if args.push_to_hub else None, hub_token=args.hf_token,
         hub_private=args.hub_private, hub_upload_interval=args.hub_upload_interval,
+        mesh=mesh,
     )
     if args.pretrain_ckpt:
         path = Path(args.pretrain_ckpt)
@@ -317,7 +394,7 @@ def main(argv: list[str] | None = None) -> None:
             # non-strict: a leaf of another shape (an official F5-TTS text
             # embedding against the 65-token vocabulary) keeps its fresh init
             merged, skipped = merge_compatible(
-                to_flax_params(dict(zip(trainer.state.names, trainer.state.params))), converted)
+                trainer._flax_tree(trainer.state.params), converted)  # whole under a mesh
             trainer.set_params(merged)
             if skipped:
                 print(f"[WARN] Shape-skipped pretrained keys (first 5): {skipped[:5]}")
@@ -334,7 +411,7 @@ def main(argv: list[str] | None = None) -> None:
     except TrainingPreempted as exc:
         print(f"[WARN] {exc} — resume with --resume")
     finally:
-        if args.push_to_hub:
+        if args.push_to_hub and trainer.is_main_process:
             try:
                 url = trainer.push_to_hub(args.hf_repo, token=args.hf_token,
                                           private=args.hub_private)

@@ -7,12 +7,19 @@
 // never exists in device memory.
 //
 // The mask is the TPU kernel's, bit for bit: a pure function of the seed and
-// the element's index in the flattened [rows, feat] tensor, in uint32
+// the element's index in the flattened global [rows, gcols] tensor, in uint32
 // wrap-around arithmetic:
 //   z = idx * 2654435761 + seed;  z ^= z >> 16;  z *= 0x85EBCA6B;
 //   z ^= z >> 13;  z *= 0xC2B2AE35;  z ^= z >> 16;  keep = z >= threshold
 // with threshold = min(round(rate * 2^32), 2^32 - 1); threshold 0 is plain
-// GELU. GELU and its derivative are computed in f32 whatever the storage
+// GELU. A call may hold a shard of the global tensor (a mesh rank's rows, or
+// its columns under tensor parallelism): local row r, column c of a shard
+// [rows, cols] placed at global row row0 and column col0 has the index
+// (row0 + r) * gcols + col0 + c, so a shard draws the slice of the mask one
+// call over the whole tensor draws. Whole rows (cols == gcols) need no
+// division: the index is row0 * gcols + i. A column shard divides once per
+// 16-byte vector. A single call over the whole tensor has base 0 and the
+// flat index, as before. GELU and its derivative are computed in f32 whatever the storage
 // type, and rounded once at the store.
 //
 // Bound on the H100: bytes. Each element is read once (twice in the
@@ -55,15 +62,23 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
 
 // One 16-byte vector per thread and step: 8 bf16 or 4 f32. BWD reads dy too.
 // n may exceed 2^32: the hash index wraps, as on the TPU.
-template <typename T, bool BWD>
+// COLS: the call holds a column shard (cols < gcols), and a local index
+// maps to its global one through one division per vector.
+template <typename T, bool BWD, bool COLS>
 __global__ void __launch_bounds__(256)
 gelu_dropout_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                     T* __restrict__ out, size_t n, uint32_t seed,
-                    uint32_t threshold, float inv_keep) {
+                    uint32_t threshold, float inv_keep, uint32_t base,
+                    size_t cols, uint32_t gcols) {
   constexpr int VEC = 16 / sizeof(T);
   const size_t stride = (size_t)gridDim.x * blockDim.x * VEC;
   for (size_t i0 = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC; i0 < n;
        i0 += stride) {
+    size_t r = 0, c = 0;
+    if (COLS) {
+      r = i0 / cols;
+      c = i0 - r * cols;
+    }
     __align__(16) T xv[VEC];
     __align__(16) T gv[VEC];
     __align__(16) T ov[VEC];
@@ -81,10 +96,18 @@ gelu_dropout_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const float xf = to_f32(xv[j]);
-      float r = BWD ? to_f32(gv[j]) * dgelu_f32(xf) : gelu_f32(xf);
-      if (threshold > 0u)
-        r = keep_at((uint32_t)(i0 + j), seed, threshold) ? r * inv_keep : 0.f;
-      from_f32(&ov[j], r);
+      float v = BWD ? to_f32(gv[j]) * dgelu_f32(xf) : gelu_f32(xf);
+      if (threshold > 0u) {
+        uint32_t idx;
+        if (COLS) {
+          idx = base + (uint32_t)r * gcols + (uint32_t)c;
+          if (++c == cols) { c = 0; ++r; }
+        } else {
+          idx = base + (uint32_t)(i0 + j);
+        }
+        v = keep_at(idx, seed, threshold) ? v * inv_keep : 0.f;
+      }
+      from_f32(&ov[j], v);
     }
     if (full) {
       *reinterpret_cast<uint4*>(out + i0) = *reinterpret_cast<const uint4*>(ov);
@@ -96,37 +119,59 @@ gelu_dropout_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 template <typename T, bool BWD>
 int launch(const void* x, const void* dy, void* out, size_t n, uint32_t seed,
-           uint32_t threshold, float inv_keep, cudaStream_t st) {
+           uint32_t threshold, float inv_keep, uint32_t base, size_t cols,
+           uint32_t gcols, cudaStream_t st) {
   if (n == 0) return 0;
   constexpr int VEC = 16 / sizeof(T);
   const size_t vecs = (n + VEC - 1) / VEC;
   size_t blocks = (vecs + 255) / 256;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond that
-  gelu_dropout_kernel<T, BWD><<<(unsigned)blocks, 256, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(out), n,
-      seed, threshold, inv_keep);
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* op = static_cast<T*>(out);
+  if (threshold > 0u && cols != (size_t)gcols)
+    gelu_dropout_kernel<T, BWD, true><<<(unsigned)blocks, 256, 0, st>>>(
+        xp, dyp, op, n, seed, threshold, inv_keep, base, cols, gcols);
+  else
+    gelu_dropout_kernel<T, BWD, false><<<(unsigned)blocks, 256, 0, st>>>(
+        xp, dyp, op, n, seed, threshold, inv_keep, base, cols, gcols);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out (and dy) are contiguous and 16-byte aligned; n elements in all.
+// x, out (and dy) are contiguous and 16-byte aligned; n elements in all, rows
+// of cols. The shard sits at global row row0 and column col0 of a tensor
+// gcols wide; a whole tensor is row0 = col0 = 0, gcols = cols.
+static uint32_t global_base(long long row0, long long gcols, long long col0) {
+  return (uint32_t)((unsigned long long)row0 * (unsigned long long)gcols +
+                    (unsigned long long)col0);
+}
+
 extern "C" int gelu_dropout_fwd(const void* x, void* out, long long n,
                                 unsigned int seed, unsigned int threshold,
-                                float inv_keep, int is_bf16, void* stream) {
+                                float inv_keep, int is_bf16, long long cols,
+                                long long row0, long long gcols, long long col0,
+                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t base = global_base(row0, gcols, col0);
   if (is_bf16)
     return launch<__nv_bfloat16, false>(x, nullptr, out, (size_t)n, seed, threshold,
-                                        inv_keep, st);
-  return launch<float, false>(x, nullptr, out, (size_t)n, seed, threshold, inv_keep, st);
+                                        inv_keep, base, (size_t)cols, (uint32_t)gcols, st);
+  return launch<float, false>(x, nullptr, out, (size_t)n, seed, threshold, inv_keep, base,
+                              (size_t)cols, (uint32_t)gcols, st);
 }
 
 extern "C" int gelu_dropout_bwd(const void* x, const void* dy, void* dx, long long n,
                                 unsigned int seed, unsigned int threshold,
-                                float inv_keep, int is_bf16, void* stream) {
+                                float inv_keep, int is_bf16, long long cols,
+                                long long row0, long long gcols, long long col0,
+                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t base = global_base(row0, gcols, col0);
   if (is_bf16)
     return launch<__nv_bfloat16, true>(x, dy, dx, (size_t)n, seed, threshold, inv_keep,
-                                       st);
-  return launch<float, true>(x, dy, dx, (size_t)n, seed, threshold, inv_keep, st);
+                                       base, (size_t)cols, (uint32_t)gcols, st);
+  return launch<float, true>(x, dy, dx, (size_t)n, seed, threshold, inv_keep, base,
+                             (size_t)cols, (uint32_t)gcols, st);
 }

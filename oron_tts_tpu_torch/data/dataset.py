@@ -13,7 +13,12 @@ host in f32 by the native audiokit library (``native/``), or by this
 package's ``ops/mel.py`` where the library cannot be built; which one ran
 is logged once.
 
-Not ported yet: ``GlobalBatchSchedule`` (multi-host).
+``GlobalBatchSchedule`` plans the batches of a mesh run: every rank builds
+the same global plan, takes its rows of each global batch and pads to the
+globally agreed shape. The JAX package's "host" drives several chips and a
+torch rank drives one, so here ``num_hosts`` is the mesh's data size,
+``host_id`` the rank's data coordinate and ``rows_multiple_per_host`` 1;
+the model peers of a data rank load the same rows.
 """
 
 from __future__ import annotations
@@ -331,6 +336,13 @@ class TTSCollator:
 
     Text ids pad with −1 (the filler after the +1 shift); batch-axis padding
     rows carry ``mel_length`` 0 and add nothing to the masked loss.
+
+    ``pad_t_to`` / ``pad_rows_to`` (per call, from
+    :class:`GlobalBatchSchedule` through the loader) replace the locally
+    derived bucket with the globally agreed one, which every rank of a mesh
+    must share. An item longer than ``pad_t_to`` is cropped (frame estimates
+    can be off by one); with a scheduled shape, an all-failed batch is pure
+    padding (``n_mels`` rows of it).
     """
 
     def __init__(self, pad_to_multiple: int = 64, pad_batch_to: int | None = None,
@@ -340,24 +352,28 @@ class TTSCollator:
         self.pad_batch_to_multiple = max(1, pad_batch_to_multiple)
         self.n_mels = n_mels
 
-    def __call__(self, batch: list[dict[str, Any]]) -> dict[str, np.ndarray]:
-        if not batch:
-            raise ValueError("cannot collate an empty batch")
+    def __call__(self, batch: list[dict[str, Any]], pad_t_to: int | None = None,
+                 pad_rows_to: int | None = None) -> dict[str, np.ndarray]:
         n = len(batch)
-        n_pad = self.pad_batch_to or round_up(n, self.pad_batch_to_multiple)
+        n_pad = pad_rows_to or self.pad_batch_to or round_up(n, self.pad_batch_to_multiple)
         if n_pad < n:
             raise ValueError("pad_batch_to smaller than batch")
-        t_bucket = round_up(max(b["mel"].shape[-1] for b in batch), self.pad_to_multiple)
-        n_mels = batch[0]["mel"].shape[0]
+        if pad_t_to is not None:
+            t_bucket = pad_t_to
+        elif batch:
+            t_bucket = round_up(max(b["mel"].shape[-1] for b in batch), self.pad_to_multiple)
+        else:
+            raise ValueError("cannot collate an empty batch without pad_t_to")
+        n_mels = batch[0]["mel"].shape[0] if batch else self.n_mels
         mels = np.zeros((n_pad, n_mels, t_bucket), dtype=np.float32)
         text_ids = np.full((n_pad, t_bucket), -1, dtype=np.int32)
         masks = np.zeros((n_pad, t_bucket), dtype=bool)
         mel_lengths = np.zeros(n_pad, dtype=np.int32)
         for i, item in enumerate(batch):
-            T = item["mel"].shape[-1]
-            mels[i, :, :T] = item["mel"]
-            text_ids[i, :T] = item["text_ids"]
-            masks[i, :T] = item["mask"]
+            T = min(item["mel"].shape[-1], t_bucket)
+            mels[i, :, :T] = item["mel"][:, :T]
+            text_ids[i, :T] = item["text_ids"][:T]
+            masks[i, :T] = item["mask"][:T]
             mel_lengths[i] = T
         return {"mel": mels, "text_ids": text_ids, "mask": masks, "mel_lengths": mel_lengths}
 
@@ -400,6 +416,114 @@ class DynamicBatchSampler:
 
     def __len__(self) -> int:
         return len(self.batches)
+
+
+class GlobalBatchSchedule:
+    """One batch plan for every rank of a mesh, each taking its rows.
+
+    The JAX package's schedule, bit for bit. Every rank builds the identical
+    plan (same frame estimates, same epoch seed), takes its interleaved
+    row slice of each global batch and the globally agreed pad targets.
+    Iterating yields ``(local_indices, {"pad_t_to": t_bucket, "pad_rows_to":
+    rows_per_host})``, which the loader forwards to the collator. Each global
+    batch is padded to a multiple of ``num_hosts · rows_multiple_per_host``
+    by wrap-around duplication (DistributedSampler's ``drop_last=False``), so
+    every rank holds the same number of real rows. The frame-budget packing
+    mirrors :class:`DynamicBatchSampler` (sort by length, greedy fill,
+    epoch-seeded shuffle, nothing dropped); ``batch_size`` switches to
+    fixed-size batches over an epoch-seeded permutation.
+
+    In a torch mesh ``num_hosts`` is the data size and ``host_id`` the
+    rank's data coordinate (module docstring).
+    """
+
+    def __init__(
+        self,
+        frames: list[int],
+        num_hosts: int,
+        host_id: int,
+        frames_threshold: int = 0,
+        batch_size: int = 0,
+        max_samples: int = 0,
+        pad_to_multiple: int = 64,
+        rows_multiple_per_host: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+    ) -> None:
+        if not (0 <= host_id < num_hosts):
+            raise ValueError(f"host_id {host_id} not in [0, {num_hosts})")
+        if bool(frames_threshold) == bool(batch_size):
+            raise ValueError("pass exactly one of frames_threshold/batch_size")
+        self.frames = [int(f) for f in frames]
+        self.num_hosts, self.host_id = num_hosts, host_id
+        self.frames_threshold, self.batch_size = frames_threshold, batch_size
+        self.max_samples = max_samples
+        self.pad_to_multiple = pad_to_multiple
+        self.rows_multiple = max(1, rows_multiple_per_host)
+        self.shuffle, self.seed = shuffle, seed
+        self.epoch = 0
+        # the plan is a function of (seed, epoch): built once per epoch
+        self._plan_cache: tuple[int, list[list[int]]] | None = None
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _global_batches(self) -> list[list[int]]:
+        if self._plan_cache is None or self._plan_cache[0] != self.epoch:
+            self._plan_cache = (self.epoch, self._build_global_batches())
+        return self._plan_cache[1]
+
+    def _build_global_batches(self) -> list[list[int]]:
+        n = len(self.frames)
+        if self.frames_threshold:
+            order = sorted(range(n), key=lambda i: self.frames[i])
+            batches: list[list[int]] = []
+            batch: list[int] = []
+            acc = 0
+            for idx in order:
+                f = self.frames[idx]
+                fits = (acc + f <= self.frames_threshold) and (
+                    self.max_samples == 0 or len(batch) < self.max_samples)
+                if fits:
+                    batch.append(idx)
+                    acc += f
+                else:
+                    if batch:
+                        batches.append(batch)
+                    batch, acc = [idx], f
+            if batch:
+                batches.append(batch)
+            if self.shuffle:
+                rng = np.random.default_rng(self.seed + self.epoch)
+                batches = [batches[int(i)] for i in rng.permutation(len(batches))]
+            return batches
+        idx = np.arange(n)
+        if self.shuffle:
+            idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
+        return [[int(j) for j in idx[i: i + self.batch_size]]
+                for i in range(0, n, self.batch_size)]
+
+    def _entries(self) -> list[tuple[list[int], dict[str, int]]]:
+        out = []
+        row_quantum = self.num_hosts * self.rows_multiple
+        for batch in self._global_batches():
+            rows_global = round_up(len(batch), row_quantum)
+            padded = list(batch)
+            while len(padded) < rows_global:
+                padded.extend(batch[: rows_global - len(padded)])
+            local = padded[self.host_id:: self.num_hosts]
+            t_bucket = round_up(max(self.frames[i] for i in batch), self.pad_to_multiple)
+            out.append((local, {"pad_t_to": t_bucket,
+                                "pad_rows_to": rows_global // self.num_hosts}))
+        return out
+
+    def __iter__(self):
+        return iter(self._entries())
+
+    def __len__(self) -> int:
+        if self.frames_threshold:
+            return len(self._global_batches())
+        return -(-len(self.frames) // self.batch_size)
 
 
 class FixedBatchSampler:

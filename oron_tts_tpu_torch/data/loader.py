@@ -2,7 +2,11 @@
 
 Counterpart of the JAX package's ``data/loader.py``: decoding and mel
 extraction run in a thread pool while the device works on the previous
-batch; a sample that fails to load is skipped with a warning.
+batch; a sample that fails to load is skipped with a warning. A sampler
+entry is a list of indices, or ``(indices, collate_kwargs)`` from
+``GlobalBatchSchedule``, whose kwargs (the globally agreed pad targets) go
+to the collator; with a scheduled shape even an all-failed batch is
+emitted, as pure padding, since the other ranks expect the step.
 """
 
 from __future__ import annotations
@@ -33,19 +37,27 @@ class DataLoader:
     def __len__(self) -> int:
         return len(self.batch_sampler)  # type: ignore[arg-type]
 
-    def _build(self, indices: list[int]) -> dict | None:
+    @staticmethod
+    def _split_entry(entry) -> tuple[list[int], dict]:
+        if isinstance(entry, tuple) and len(entry) == 2 and isinstance(entry[1], dict):
+            return list(entry[0]), entry[1]
+        return list(entry), {}
+
+    def _build(self, indices: list[int], collate_kwargs: dict) -> dict | None:
         items = []
         for i in indices:
             try:
                 items.append(self.dataset[i])
             except Exception as exc:  # one bad sample must not stop an epoch
                 _logger.warning("Skipping sample %d: %s", i, exc)
-        return self.collate_fn(items) if items else None
+        if not items and not collate_kwargs.get("pad_t_to"):
+            return None
+        return self.collate_fn(items, **collate_kwargs)
 
     def __iter__(self) -> Iterator[dict]:
         if self.num_workers == 0:
-            for indices in self.batch_sampler:
-                batch = self._build(list(indices))
+            for entry in self.batch_sampler:
+                batch = self._build(*self._split_entry(entry))
                 if batch is not None:
                     yield batch
             return
@@ -57,11 +69,11 @@ class DataLoader:
             while True:
                 while not exhausted and len(pending) < self.num_workers + self.prefetch:
                     try:
-                        indices = next(it)
+                        entry = next(it)
                     except StopIteration:
                         exhausted = True
                         break
-                    pending.append(pool.submit(self._build, list(indices)))
+                    pending.append(pool.submit(self._build, *self._split_entry(entry)))
                 if not pending:
                     break
                 batch = pending.popleft().result()

@@ -12,6 +12,19 @@ span fractions, span starts, times, the two drop decisions, ``x0``, and one
 the middle fraction, no dropout). The streams differ from ``jax.random``'s;
 parity tests pass ``x0`` in.
 
+Under a mesh (``self.mesh``, set by ``F5TTS.set_mesh``) a data rank holds
+its block of the global batch's rows (``mesh.batch_rows``). Every per-row
+draw is then made for the whole global batch from the one generator and
+this rank's rows are kept, so a data-parallel step sees the single-process
+spans, times and noise; the per-block dropout seeds are drawn identically
+on every rank, since every rank's generator has the same seed and draws in
+the same order. The loss is the masked mean over the global batch: the
+numerator's value and the denominator are summed over the data group and
+divided once (a mean of per-rank means would weigh ranks with fewer span
+frames wrongly); its gradient on a rank is that of its own numerator over
+the global denominator, so summing the gradients over the data group gives
+the single-process gradient.
+
 ``CFM.sample``: sway-warped time grid, classifier-free guidance as one doubled-batch
 forward per step (``pred + (pred − null)·cfg``), AdaLN projections hoisted
 over the whole schedule before the loop, and the conditioning region
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from oron_tts_tpu_torch.models.dit import DiT, precompute_t_mods
+from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:
@@ -139,6 +153,7 @@ class CFM:
         self.audio_drop_prob = audio_drop_prob
         self.cond_drop_prob = cond_drop_prob
         self.frac_lengths_mask = frac_lengths_mask
+        self.mesh = None
 
     def loss(
         self,
@@ -152,13 +167,19 @@ class CFM:
         """Scalar CFM loss (f32). mel: [B, n_mels, T] or [B, T, n_mels].
 
         ``generator`` is a CPU generator and is required when ``train``;
-        ``x0`` overrides the drawn noise.
+        ``x0`` overrides the drawn noise (this rank's rows under a mesh).
         """
         if mel.ndim == 3 and mel.shape[1] == self.n_mels:
             mel = mel.transpose(1, 2)
         x1 = mel.float()
         device = x1.device
         batch, seq_len = x1.shape[0], x1.shape[1]
+        data_group = None if self.mesh is None else self.mesh.data_group
+        # this rank's rows [row0, row0 + batch) of a global batch of g_batch
+        g_batch, row0 = batch, 0
+        if data_group is not None:
+            g_batch, row0 = batch * self.mesh.n_data, batch * self.mesh.data_rank
+        rows = slice(row0, row0 + batch)
         if lens is None:
             lens = torch.full((batch,), seq_len, dtype=torch.int32)
         lens = lens.to(device=device, dtype=torch.int32)
@@ -168,7 +189,7 @@ class CFM:
         if train:
             if generator is None:
                 raise ValueError("a training loss needs a torch.Generator")
-            draws = torch.rand((3, batch), generator=generator)
+            draws = torch.rand((3, g_batch), generator=generator)[:, rows]
             frac = (lo + (hi - lo) * draws[0]).to(device)
             span = span_mask_from_fracs(lens, frac, draws[1].to(device), seq_len) & mask
             t = draws[2].to(device)
@@ -177,7 +198,7 @@ class CFM:
             drop_text = bool(drop_t)
             drop_audio = bool(drop_a) or drop_text
             if x0 is None:
-                x0 = torch.randn(x1.shape, generator=generator)
+                x0 = torch.randn((g_batch, *x1.shape[1:]), generator=generator)[rows]
             seeds = torch.randint(
                 -2**31, 2**31, (self.backbone.depth, 2), generator=generator).tolist()
             dropout_seeds = [tuple(pair) for pair in seeds]
@@ -190,7 +211,8 @@ class CFM:
             t = torch.full((batch,), 0.5, device=device)
             drop_audio = drop_text = False
             if x0 is None:
-                x0 = torch.randn(x1.shape, generator=torch.Generator().manual_seed(0))
+                x0 = torch.randn((g_batch, *x1.shape[1:]),
+                                 generator=torch.Generator().manual_seed(0))[rows]
         x0 = x0.to(device=device, dtype=torch.float32)
 
         cond = torch.where(span[..., None], 0.0, x1)
@@ -199,13 +221,19 @@ class CFM:
         flow = x1 - x0
         pred = self.backbone(
             phi, cond, text_ids.to(device), t, mask=mask, drop_audio_cond=drop_audio,
-            drop_text=drop_text, dropout_seeds=dropout_seeds,
+            drop_text=drop_text, dropout_seeds=dropout_seeds, batch0=row0,
         )
         se = torch.square(pred.float() - flow)
         weight = span[..., None].to(se.dtype)
         # mean over the span's frames × mel bins
         denom = weight.sum() * se.shape[-1]
-        return (se * weight).sum() / torch.clamp(denom, min=1.0)
+        if data_group is None:
+            return (se * weight).sum() / torch.clamp(denom, min=1.0)
+        denom = all_reduce_sum(denom.detach().clone(), data_group)
+        local = (se * weight).sum() / torch.clamp(denom, min=1.0)
+        total = all_reduce_sum(local.detach().clone(), data_group)
+        # the global loss's value, this rank's share of its gradient
+        return local + (total - local.detach())
 
     @torch.no_grad()
     def sample(

@@ -19,6 +19,13 @@ are plain arguments, so the recomputation draws the same masks. The JAX
 package's ``scan_blocks``, ``remat_policy`` and AOT layouts steer XLA and
 have no counterpart here.
 
+Under a mesh (``parallel/mesh.py``) :meth:`DiT.shard` keeps this rank's
+slice of every block's attention and FFN projections (Megatron TP over the
+model group) and :meth:`DiT.unshard` gathers them back; everything else
+(AdaLN, the text and input embeddings with the conv position embedding,
+``norm_out``, ``proj_out``) stays whole on every rank. ``batch0``, the
+global index of the batch's first row, places a data rank's dropout masks.
+
 For int8 serving, ``quantize_dit_params`` swaps the six attention and FFN
 projections of every block for ``QDense`` after load; ``DiT(quant=mode)``
 builds them so from the start, to load a tree that is already quantized.
@@ -36,11 +43,14 @@ from oron_tts_tpu_torch.models.layers import (
     ConvPositionEmbedding,
     DiTBlock,
     QDense,
+    TensorParallel,
     TimestepEmbedding,
     heads_rope,
     lanes_rope,
+    resolve_attn_impl,
 )
 from oron_tts_tpu_torch.models.text_embed import TextEmbedding
+from oron_tts_tpu_torch.parallel import mesh as pmesh
 
 
 class InputEmbedding(nn.Module):
@@ -79,8 +89,10 @@ class DiT(nn.Module):
     ) -> None:
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
+        self.ff_mult = ff_mult
         self.dropout, self.gradient_checkpointing = dropout, gradient_checkpointing
         self.quant = quant
+        self.mesh = None  # set by shard()
         self.time_embed = TimestepEmbedding(dim)
         self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
         self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
@@ -96,6 +108,47 @@ class DiT(nn.Module):
     def blocks(self) -> list[DiTBlock]:
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
+    def shard(self, mesh) -> None:
+        """Keep this rank's Megatron slice of every block (a no-op at TP 1).
+
+        Refuses a head count or FFN width the model axis does not divide,
+        before anything is sliced.
+        """
+        if self.mesh is not None:
+            raise RuntimeError("the DiT is already sharded; unshard it first")
+        tp = TensorParallel(mesh.model_rank, mesh.n_model, mesh.model_group)
+        tp.split(self.heads, "heads")
+        tp.split(self.ff_mult * self.dim, "ff_mult*dim")
+        if mesh.n_model > 1:
+            for blk in self.blocks:
+                blk.shard(tp)
+            self.attn_impl = self.block0.attn.impl if self.depth else None
+        self.mesh = mesh
+
+    def unshard(self) -> None:
+        """Gather every sharded tensor back (a collective over the model group)."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is None or mesh.n_model == 1:
+            return
+        for name, t in list(self.named_parameters()) + list(self.named_buffers()):
+            spec = pmesh.spec_for_name(name)
+            if "model" not in spec:
+                continue
+            parent = self.get_submodule(name.rsplit(".", 1)[0])
+            leaf = name.rsplit(".", 1)[1]
+            whole = pmesh.gather_tensor(t.detach(), spec, mesh)
+            setattr(parent, leaf, nn.Parameter(whole, requires_grad=t.requires_grad)
+                    if isinstance(t, nn.Parameter) else whole)
+        for blk in self.blocks:
+            blk.attn.heads, blk.attn.tp, blk.ff.tp = self.heads, None, None
+            blk.attn.impl = resolve_attn_impl(self.heads, self.dim_head, *blk.attn._impl_choice)
+        self.attn_impl = self.block0.attn.impl if self.depth else None
+
+    @property
+    def local_heads(self) -> int:
+        """Heads this rank computes: ``heads / TP`` once sharded."""
+        return self.block0.attn.heads if self.depth else self.heads
+
     def embed_text(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False) -> torch.Tensor:
         """Hoistable text embedding (once per CFG branch, reused every step)."""
         return self.text_embed(text_ids, seq_len, drop_text=drop_text)
@@ -104,10 +157,10 @@ class DiT(nn.Module):
         """Hoistable timestep embedding: [S] → [S, dim]."""
         return self.time_embed(time)
 
-    def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None):
+    def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None, batch0=0):
         B, T, _ = h.shape
         if self.attn_impl == "lanes":
-            rope = lanes_rope(T, self.dim_head, self.heads, str(h.device), h.dtype)
+            rope = lanes_rope(T, self.dim_head, self.local_heads, str(h.device), h.dtype)
         else:
             rope = heads_rope(T, self.dim_head, str(h.device), h.dtype)
         kv_lens = (
@@ -118,7 +171,7 @@ class DiT(nn.Module):
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             args = (h, t, mask, rope, None if block_mods is None else block_mods[i],
-                    kv_lens, None if dropout_seeds is None else dropout_seeds[i])
+                    kv_lens, None if dropout_seeds is None else dropout_seeds[i], batch0)
             h = checkpoint(blk, *args, use_reentrant=False) if remat else blk(*args)
         return self.proj_out(self.norm_out(h, t, mods=final_mods))
 
@@ -134,11 +187,13 @@ class DiT(nn.Module):
         text_embed: torch.Tensor | None = None,
         t_mods: tuple[torch.Tensor, torch.Tensor] | None = None,
         dropout_seeds: list[tuple[int, int]] | None = None,
+        batch0: int = 0,
     ) -> torch.Tensor:
         """Velocity [B, T, mel_dim] for noised mel x and conditioning cond.
 
         ``drop_audio_cond`` and ``drop_text`` are one decision for the whole
-        batch, as in the JAX package's CFG dropout.
+        batch, as in the JAX package's CFG dropout; ``batch0`` is the global
+        index of ``x``'s first row (where a data rank's dropout masks start).
         """
         t = None
         if t_mods is None:
@@ -148,7 +203,8 @@ class DiT(nn.Module):
         if text_embed is None:
             text_embed = self.embed_text(text_ids, x.shape[1], drop_text=drop_text)
         h = self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
-        return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds)
+        return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds,
+                                 batch0=batch0)
 
     def forward_cfg(
         self,

@@ -16,6 +16,16 @@ DiT to int8 weights in memory.
 Runs on the card unless ``device="cpu"`` is given; without CUDA and
 without that request it raises.
 
+Multi-GPU serving (``set_mesh``): every rank of a ``DP × TP`` mesh
+(``parallel/mesh.py``) calls the same method with the same arguments. The
+DiT's attention and FFN projections shard over the model group (Megatron
+TP), the vocoder stays whole on every rank. ``synthesize_batch`` pads each
+length group to a multiple of the data size and each data rank solves and
+decodes its block of rows; the waveforms are gathered over the data group,
+so every rank returns the whole answer. A solve whose rows the data size
+does not divide (a one-chunk ``synthesize``) runs whole on every data rank,
+with TP still sharding its math.
+
 Precision. The backbone computes in ``dtype`` (bf16 on the card): its
 parameters are a working set in that type. Training (``train/trainer.py``)
 keeps f32 master weights, moments and EMA outside the module and copies the
@@ -42,6 +52,7 @@ from oron_tts_tpu_torch.models.cfm import CFM
 from oron_tts_tpu_torch.models.dit import DiT, quantize_dit_params
 from oron_tts_tpu_torch.models.vocos import VocosDecoder, convert_vocos_state_dict
 from oron_tts_tpu_torch.ops.audio import AudioProcessor
+from oron_tts_tpu_torch.parallel import mesh as pmesh
 from oron_tts_tpu_torch.text import TextCleaner, validate_language
 from oron_tts_tpu_torch.text.align import stretch_text_to_len
 from oron_tts_tpu_torch.utils.device import default_dtype, resolve_device
@@ -173,6 +184,34 @@ class F5TTS:
         # per-token duration calibration (data/duration_stats.py), fitted on
         # the training corpus and carried in config.json; None keeps chars·13
         self.duration_stats: dict[str, Any] | None = None
+        self.mesh: pmesh.Mesh | None = None
+
+    # ── multi-GPU (TP over "model", DP over "data") ──────────────────────
+
+    def set_mesh(self, mesh: pmesh.Mesh | None) -> None:
+        """Shard the loaded DiT over ``mesh``'s model group; ``None`` gathers it back.
+
+        The rules are the trainer's (``parallel/mesh.py``); the vocoder stays
+        whole. w8a16 ``int8`` is single-device, as in the JAX package.
+        """
+        if mesh is not None and self.quant_mode == "int8":
+            raise NotImplementedError(
+                "w8a16 int8 serving is single-device (its kernel has no sharded "
+                "form); use mode='int8_dynamic' — a plain s8 product that shards "
+                "like any matmul — or reload full-precision weights before set_mesh")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the model's {self.device}")
+        if self.mesh is not None:
+            self.backbone.unshard()
+        self.mesh = mesh
+        self.cfm.mesh = mesh
+        if mesh is not None:
+            self.backbone.shard(mesh)
+
+    @property
+    def _row_multiple(self) -> int:
+        """``synthesize_batch`` groups are padded to a multiple of the data size."""
+        return 1 if self.mesh is None else self.mesh.n_data
 
     def set_duration_stats(self, stats: dict[str, Any] | None) -> None:
         """Install (or clear) the calibrated ref-free duration table."""
@@ -201,9 +240,17 @@ class F5TTS:
         return sum(t.numel() * t.element_size() for t in self.backbone.state_dict().values())
 
     def load_params(self, flax_params: dict[str, Any]) -> None:
-        """Load a DiT parameter tree in the JAX package's flax layout."""
+        """Load a DiT parameter tree in the JAX package's flax layout.
+
+        Under a mesh each rank keeps its shards of the whole tree it is given.
+        """
+        mesh = self.mesh
+        if mesh is not None:
+            self.set_mesh(None)
         self.backbone.load_state_dict(from_flax_params(flax_params), strict=True)
         self.params_loaded = True
+        if mesh is not None:
+            self.set_mesh(mesh)
 
     def load_checkpoint(self, path: str | Path) -> None:
         """Load a DiT ``.npz`` checkpoint written by the JAX package."""
@@ -222,8 +269,17 @@ class F5TTS:
         """
         if not self.params_loaded:
             raise RuntimeError("load or init params before quantizing")
+        if self.mesh is not None and mode == "int8":
+            raise NotImplementedError(
+                "w8a16 int8 serving is single-device (its kernel has no sharded "
+                "form); use 'int8_dynamic' under a mesh, or call set_mesh(None) first")
+        mesh = self.mesh
+        if mesh is not None:  # per-channel scales over whole rows, then the shards
+            self.set_mesh(None)
         quantize_dit_params(self.backbone, mode)  # raises on an unknown mode
         self.quant_mode = mode
+        if mesh is not None:
+            self.set_mesh(mesh)
 
     def _bucket(self, n: int) -> int:
         """Round a frame count up to the bucket multiple."""
@@ -425,7 +481,7 @@ class F5TTS:
             target_duration_s, max_chars_per_chunk=None, pause_s=0.0,
         )
         plan = self._plan_chunks(chunks, lang, ref_audio_path, ref_text, speed, chunk_durs)
-        mel = self._solve_group(
+        mel, _ = self._solve_group(
             [0], plan, _chunk_seeds(seed, 1),
             self._sampler(n_steps, cfg_strength, sway_sampling_coef, cfg_interval, method))
         return mel[0, : plan.target_lens[0]].T.float().cpu().numpy()
@@ -527,10 +583,15 @@ class F5TTS:
     # stops there: 8 rows of the default 832-frame bucket, 4 of 1,600.
     GROUP_FRAME_BUDGET = 6656
 
+    @staticmethod
+    def _pad_rows(n: int, row_multiple: int = 1) -> int:
+        """Rows a group of ``n`` solves: a multiple of the data size under a mesh."""
+        return -(-n // row_multiple) * row_multiple
+
     @classmethod
     def _length_groups(
         cls, target_lens: list[int], pad_to_multiple: int, max_batch: int,
-        tolerance: float = 1.3,
+        tolerance: float = 1.3, row_multiple: int = 1,
     ) -> list[list[int]]:
         """Group row indices by similar target length.
 
@@ -539,16 +600,21 @@ class F5TTS:
         greedy grouping bounds that waste, and a merge pass then joins
         neighbouring groups whenever rows × bucket shrinks. A group holds at
         most ``GROUP_FRAME_BUDGET // bucket`` rows (and ``max_batch``): short
-        utterances batch widely, full-length chunks solve nearly alone.
+        utterances batch widely, full-length chunks solve nearly alone. Under
+        a mesh (``row_multiple``, the data size) the budget is per data rank
+        and a cap is a multiple of the data size.
         """
         def bucket(g: list[int]) -> int:
             return -(-max(target_lens[i] for i in g) // pad_to_multiple) * pad_to_multiple
 
         def cap(b: int) -> int:
-            return min(max_batch, max(1, cls.GROUP_FRAME_BUDGET // b))
+            rows = max(1, cls.GROUP_FRAME_BUDGET * row_multiple // b)
+            if row_multiple > 1:
+                rows = max(row_multiple, rows - rows % row_multiple)
+            return min(max_batch, rows)
 
         def cost(g: list[int]) -> int:
-            return len(g) * bucket(g)
+            return cls._pad_rows(len(g), row_multiple) * bucket(g)
 
         order = sorted(range(len(target_lens)), key=lambda i: target_lens[i])
         groups: list[list[int]] = []
@@ -644,7 +710,7 @@ class F5TTS:
             chunk_texts, lang, ref_audio_path, ref_text, speed, [None] * len(chunk_texts),
             row_seeds, self._sampler(n_steps, cfg_strength, sway_sampling_coef, cfg_interval,
                                      method),
-            max_batch=max_batch,
+            max_batch=max_batch, row_multiple=self._row_multiple,
         )
         return [
             concat_with_pause([w for w, o in zip(chunk_wavs, owner) if o == i],
@@ -703,17 +769,23 @@ class F5TTS:
 
     @torch.no_grad()
     def _solve_group(self, group: list[int], plan: "_Plan", row_seeds: list[int],
-                     sampler: dict[str, Any]) -> torch.Tensor:
-        """One solve for the chunks ``group``: generated mels [rows, T_gen, n_mels].
+                     sampler: dict[str, Any], row_multiple: int = 1,
+                     ) -> tuple[torch.Tensor, slice | None]:
+        """One solve for the chunks ``group``: (generated mels [rows, T_gen, n_mels], rows).
 
-        Exactly ``len(group)`` rows are solved, at the group's bucket. All rows
-        share the reference mel, so the generated region starts at the same
-        frame on every row; ``T_gen`` is the longest target of the group.
+        ``len(group)`` rows padded to ``row_multiple`` are solved, at the
+        group's bucket (a padding row is a short filler solve that nobody
+        reads). All rows share the reference mel, so the generated region
+        starts at the same frame on every row; ``T_gen`` is the longest target
+        of the group. Under a mesh whose data size divides the rows, this rank
+        solves its block of them and ``rows`` says which; otherwise ``rows``
+        is None and every row is solved here.
         """
         ref_len = plan.ref_len
         totals = [ref_len + plan.target_lens[i] for i in group]
         bucket = self._bucket(max(totals))
-        text_arr = np.full((len(group), bucket), -1, dtype=np.int64)
+        n_rows = self._pad_rows(len(group), row_multiple)
+        text_arr = np.full((n_rows, bucket), -1, dtype=np.int64)
         for row, i in enumerate(group):
             if ref_len > 0:
                 ids = (stretch_text_to_len(plan.ref_ids, ref_len)
@@ -721,15 +793,23 @@ class F5TTS:
             else:
                 ids = stretch_text_to_len(plan.id_lists[i], totals[row])
             text_arr[row, : totals[row]] = ids
-        cond = torch.zeros((len(group), bucket, self.n_mels), dtype=torch.float32,
+        filler = min(bucket, max(ref_len + 1, 50))
+        durations = totals + [filler] * (n_rows - len(group))
+        seeds = [row_seeds[i] for i in group] + [0] * (n_rows - len(group))
+        rows = None
+        if self.mesh is not None and self.mesh.n_data > 1 and n_rows % self.mesh.n_data == 0:
+            rows = pmesh.batch_rows(self.mesh, n_rows)
+            text_arr, durations, seeds = text_arr[rows], durations[rows], seeds[rows]
+        n_local = len(seeds)
+        cond = torch.zeros((n_local, bucket, self.n_mels), dtype=torch.float32,
                            device=self.device)
         if plan.ref_mel is not None:
             cond[:, :ref_len] = plan.ref_mel.T.float()
         mel, _ = self.cfm.sample(
-            cond, torch.from_numpy(text_arr).to(self.device), torch.tensor(totals),
-            torch.tensor([ref_len] * len(group)), seed=[row_seeds[i] for i in group], **sampler,
+            cond, torch.from_numpy(text_arr).to(self.device), torch.tensor(durations),
+            torch.tensor([ref_len] * n_local), seed=seeds, **sampler,
         )
-        return mel[:, ref_len: max(totals)]
+        return mel[:, ref_len: max(totals)], rows
 
     def _fetch_rows(self, group, decoded: torch.Tensor, target_lens) -> dict[int, np.ndarray]:
         """A group's waveforms on the host, each cut to its own length, by chunk index."""
@@ -739,7 +819,7 @@ class F5TTS:
 
     def _synthesize_chunks(
         self, chunks, lang, ref_audio_path, ref_text, speed, chunk_durs, row_seeds,
-        sampler: dict[str, Any], max_batch: int = 16,
+        sampler: dict[str, Any], max_batch: int = 16, row_multiple: int = 1,
     ) -> list[np.ndarray]:
         """Solve chunks in length-grouped batches; chunk i draws from ``row_seeds[i]``.
 
@@ -749,7 +829,7 @@ class F5TTS:
         """
         target_lens, pending = self._dispatch_chunk_groups(
             chunks, lang, ref_audio_path, ref_text, speed, chunk_durs, row_seeds, sampler,
-            max_batch,
+            max_batch, row_multiple=row_multiple,
         )
         wavs: dict[int, np.ndarray] = {}
         for group, decoded in list(pending):
@@ -759,6 +839,7 @@ class F5TTS:
     def _dispatch_chunk_groups(
         self, chunks, lang, ref_audio_path, ref_text, speed, chunk_durs, row_seeds,
         sampler: dict[str, Any], max_batch: int = 16, isolate_first: bool = False,
+        row_multiple: int = 1,
     ) -> tuple[list[int], Iterator[tuple[list[int], torch.Tensor]]]:
         """Plan the chunk groups now; solve and decode each when it is asked for.
 
@@ -771,21 +852,31 @@ class F5TTS:
         consumer fetches each group before it launches the next.
 
         ``isolate_first`` puts chunk 0 in a group of its own, first.
+        ``row_multiple`` pads every group's rows to a multiple of it (the data
+        size under a mesh, where each data rank decodes its block of rows and
+        the waveforms are gathered over the data group).
         """
         plan = self._plan_chunks(chunks, lang, ref_audio_path, ref_text, speed, chunk_durs)
         totals = [plan.ref_len + tl for tl in plan.target_lens]
         if isolate_first and len(chunks) > 1:
-            rest = self._length_groups(totals[1:], self.pad_to_multiple, max_batch)
+            rest = self._length_groups(totals[1:], self.pad_to_multiple, max_batch,
+                                       row_multiple=row_multiple)
             groups = [[0]] + [[i + 1 for i in g] for g in rest]
         else:
-            groups = self._length_groups(totals, self.pad_to_multiple, max_batch)
+            groups = self._length_groups(totals, self.pad_to_multiple, max_batch,
+                                         row_multiple=row_multiple)
         groups.sort(key=min)
 
         def solve_all() -> Iterator[tuple[list[int], torch.Tensor]]:
             for group in groups:
-                gen = self._solve_group(group, plan, row_seeds, sampler)
-                yield group, self._decode_mel_group(
-                    gen.transpose(1, 2), [plan.target_lens[i] for i in group])
+                gen, rows = self._solve_group(group, plan, row_seeds, sampler, row_multiple)
+                lens = [plan.target_lens[i] for i in group]
+                lens += [lens[0]] * (self._pad_rows(len(group), row_multiple) - len(group))
+                decoded = self._decode_mel_group(
+                    gen.transpose(1, 2), lens if rows is None else lens[rows])
+                if rows is not None:
+                    decoded = pmesh.all_gather_rows(decoded, self.mesh.data_group)
+                yield group, decoded
 
         return plan.target_lens, solve_all()
 

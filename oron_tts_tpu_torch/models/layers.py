@@ -24,8 +24,21 @@ plain versions.
 
 Dropout has no module state: a block is deterministic unless it is handed
 ``seeds = (attention seed, FFN seed)``, two ints drawn by the caller from
-its ``torch.Generator``. Both masks are pure functions of their seed, so a
-rematerialised block redraws the same ones.
+its ``torch.Generator``. Both masks are pure functions of their seed and of
+each element's place in the global batch (``batch0``, the global index of
+the first row a rank holds), so a rematerialised block redraws the same
+ones and a mesh rank draws its slice of the single-process masks.
+
+Tensor parallelism (Megatron, ``parallel/mesh.py``): after
+:meth:`Attention.shard` and :meth:`FeedForward.shard` a module holds
+``heads/TP`` heads and ``ff_mult·dim/TP`` hidden features of the
+column-parallel ``to_q``/``to_k``/``to_v`` and ``in_proj``, and the matching
+input columns of the row-parallel ``to_out`` and ``out_proj``. The input of
+the column-parallel projections passes :class:`CopyToModel` (its gradient
+is summed over the model group in the backward); the row-parallel products
+are summed over the model group by :class:`SumOverModel` and their bias is
+added once, after the sum. The attention impl is resolved again on the
+local head count.
 """
 
 from __future__ import annotations
@@ -54,13 +67,14 @@ from oron_tts_tpu_torch.ops.quantized_matmul import (
     quantized_matmul,
     w8a8_matmul,
 )
+from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope", "apply_rope_lanes",
     "text_position_table", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
     "AdaLayerNormFinal", "QDense", "make_dense", "ATTN_IMPLS", "resolve_attn_impl",
-    "Attention", "FeedForward", "DiTBlock",
+    "Attention", "FeedForward", "DiTBlock", "CopyToModel", "SumOverModel", "TensorParallel",
 ]
 
 
@@ -331,12 +345,95 @@ class QDense(nn.Module):
             return y + self.bias.to(y.dtype)
         return quantized_matmul(x, self.weight_q, self.scale, bias=self.bias)
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias: a row-parallel shard's partial sum.
+
+        ``int8_dynamic`` only (the w8a16 kernel has no sharded form); its
+        per-token activation scale is then taken over this shard's columns.
+        """
+        if self.mode != "int8_dynamic":
+            raise NotImplementedError("w8a16 int8 serving is single-device; use int8_dynamic")
+        return w8a8_matmul(x.to(self.bias.dtype), self.weight_q, self.scale)
+
 
 def make_dense(in_features: int, out_features: int, quant: str | None = None) -> nn.Module:
     """``nn.Linear``, or :class:`QDense` when a quant mode is set (serving only)."""
     if quant:
         return QDense(in_features, out_features, quant)
     return nn.Linear(in_features, out_features)
+
+
+class CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input gradient over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous().clone(), ctx.group), None
+
+
+class SumOverModel(torch.autograd.Function):
+    """Sums the row-parallel partial products over the model group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class TensorParallel:
+    """This module's place in the model group: rank, size and the group."""
+
+    def __init__(self, rank: int, size: int, group) -> None:
+        self.rank, self.size, self.group = rank, size, group
+
+    def split(self, n: int, what: str) -> int:
+        if n % self.size:
+            raise ValueError(f"{what} ({n}) does not split over {self.size} model ranks")
+        return n // self.size
+
+
+def _take(param: torch.Tensor, axis: int, tp: TensorParallel) -> nn.Parameter | torch.Tensor:
+    size = param.shape[axis] // tp.size
+    part = param.detach().narrow(axis, tp.rank * size, size).clone()
+    if isinstance(param, nn.Parameter):
+        return nn.Parameter(part, requires_grad=param.requires_grad)
+    return part
+
+
+def _shard_dense(layer: nn.Module, axis: int, tp: TensorParallel) -> None:
+    """Keep this rank's slice of a projection: axis 0 column-, 1 row-parallel."""
+    if isinstance(layer, QDense):
+        layer.weight_q = _take(layer.weight_q, axis, tp)
+        if axis == 0:
+            layer.scale = _take(layer.scale, 0, tp)
+    else:
+        layer.weight = _take(layer.weight, axis, tp)
+    if axis == 0:
+        layer.bias = _take(layer.bias, 0, tp)
+
+
+def _column_input(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    return x if tp is None else CopyToModel.apply(x, tp.group)
+
+
+def _row_parallel(layer: nn.Module, x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """``layer(x)``; under TP the partial products summed, then the bias once."""
+    if tp is None:
+        return layer(x)
+    if isinstance(layer, QDense):
+        y = layer.product(x)
+    else:
+        y = F.linear(x, layer.weight)
+    y = SumOverModel.apply(y, tp.group)
+    return y + layer.bias.to(y.dtype)
 
 
 ATTN_IMPLS = ("einsum", "lanes", "flash", "packed", "skip")
@@ -382,12 +479,23 @@ class Attention(nn.Module):
                  attn_impl: str | None = None) -> None:
         super().__init__()
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self._impl_choice = (use_flash, attn_impl)
         self.impl = resolve_attn_impl(heads, dim_head, use_flash, attn_impl)
         inner = heads * dim_head
         self.to_q = make_dense(dim, inner, quant)
         self.to_k = make_dense(dim, inner, quant)
         self.to_v = make_dense(dim, inner, quant)
         self.to_out = make_dense(inner, dim, quant)
+        self.tp: TensorParallel | None = None
+
+    def shard(self, tp: TensorParallel) -> None:
+        """Keep ``heads/TP`` heads (Megatron): q/k/v by rows, ``to_out`` by columns."""
+        heads = tp.split(self.heads, "heads")
+        for layer in (self.to_q, self.to_k, self.to_v):
+            _shard_dense(layer, 0, tp)
+        _shard_dense(self.to_out, 1, tp)
+        self.heads, self.tp = heads, tp
+        self.impl = resolve_attn_impl(heads, self.dim_head, *self._impl_choice)
 
     def forward(
         self,
@@ -396,10 +504,13 @@ class Attention(nn.Module):
         rope: tuple[torch.Tensor, torch.Tensor] | None = None,
         kv_lens: torch.Tensor | None = None,
         seed: int | None = None,
+        batch0: int = 0,
     ) -> torch.Tensor:
-        """``rope`` is ``lanes_rope``'s tables for "lanes", ``heads_rope``'s otherwise."""
+        """``rope`` is ``lanes_rope``'s tables for "lanes", ``heads_rope``'s otherwise;
+        ``batch0`` is the global index of ``x``'s first row (the dropout mask's place)."""
         B, T, _ = x.shape
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        xc = _column_input(x, self.tp)
+        q, k, v = self.to_q(xc), self.to_k(xc), self.to_v(xc)
         if kv_lens is None:
             kv_lens = (
                 mask.sum(dim=-1, dtype=torch.int32) if mask is not None
@@ -427,9 +538,9 @@ class Attention(nn.Module):
                 probs = torch.softmax(logits, dim=-1).to(q.dtype)
                 out = torch.matmul(probs, v)
             out = out.transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
-        out = self.to_out(out)
+        out = _row_parallel(self.to_out, out, self.tp)
         if seed is not None:
-            out = hash_dropout(out, seed, self.dropout)
+            out = hash_dropout(out, seed, self.dropout, row0=batch0 * T)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
@@ -446,14 +557,27 @@ class FeedForward(nn.Module):
                  quant: str | None = None) -> None:
         super().__init__()
         self.dropout = dropout
+        self.hidden = dim * mult
         self.in_proj = make_dense(dim, dim * mult, quant)
         self.out_proj = make_dense(dim * mult, dim, quant)
+        self.tp: TensorParallel | None = None
 
-    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
-        h = self.in_proj(x)
+    def shard(self, tp: TensorParallel) -> None:
+        """Keep ``ff_mult·dim/TP`` hidden features: ``in_proj`` by rows, ``out_proj`` by columns."""
+        tp.split(self.hidden, "ff_mult*dim")
+        _shard_dense(self.in_proj, 0, tp)
+        _shard_dense(self.out_proj, 1, tp)
+        self.tp = tp
+
+    def forward(self, x: torch.Tensor, seed: int | None = None, batch0: int = 0) -> torch.Tensor:
+        h = self.in_proj(_column_input(x, self.tp))
         if seed is not None and self.dropout > 0:
-            return self.out_proj(gelu_dropout(h, seed, self.dropout))
-        return self.out_proj(F.gelu(h, approximate="tanh"))
+            col0 = 0 if self.tp is None else self.tp.rank * h.shape[-1]
+            h = gelu_dropout(h, seed, self.dropout, row0=batch0 * x.shape[1],
+                             gcols=self.hidden, col0=col0)
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return _row_parallel(self.out_proj, h, self.tp)
 
 
 class DiTBlock(nn.Module):
@@ -465,10 +589,15 @@ class DiTBlock(nn.Module):
         self.attn = Attention(dim, heads, dim_head, dropout, quant, use_flash, attn_impl)
         self.ff = FeedForward(dim, ff_mult, dropout, quant)
 
-    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None):
+    def shard(self, tp: TensorParallel) -> None:
+        self.attn.shard(tp)
+        self.ff.shard(tp)
+
+    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None,
+                batch0=0):
         attn_seed, ff_seed = seeds if seeds is not None else (None, None)
         normed, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t, mods=tmods)
         x = x + gate_msa[:, None] * self.attn(
-            normed, mask=mask, rope=rope, kv_lens=kv_lens, seed=attn_seed)
+            normed, mask=mask, rope=rope, kv_lens=kv_lens, seed=attn_seed, batch0=batch0)
         ff_in = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        return x + gate_mlp[:, None] * self.ff(ff_in, seed=ff_seed)
+        return x + gate_mlp[:, None] * self.ff(ff_in, seed=ff_seed, batch0=batch0)

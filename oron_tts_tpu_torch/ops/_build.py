@@ -74,10 +74,10 @@ SIGNATURES = {
         "flash_classic_bwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _I, _P),
     },
     "gelu_dropout": {
-        # x, out, n, seed, threshold, inv_keep, is_bf16, stream
-        "gelu_dropout_fwd": (_P, _P, _L, _U, _U, _F, _I, _P),
-        # x, dy, dx, n, seed, threshold, inv_keep, is_bf16, stream
-        "gelu_dropout_bwd": (_P, _P, _P, _L, _U, _U, _F, _I, _P),
+        # x, out, n, seed, threshold, inv_keep, is_bf16, cols, row0, gcols, col0, stream
+        "gelu_dropout_fwd": (_P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
+        # x, dy, dx, n, seed, threshold, inv_keep, is_bf16, cols, row0, gcols, col0, stream
+        "gelu_dropout_bwd": (_P, _P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
     },
     "grouped_conv": {
         # x, w, bias(f32), y, B, T, C, groups, K, is_bf16, stream

@@ -29,7 +29,28 @@ With ``hub_repo_id`` the checkpoint directory is mirrored to a HuggingFace
 model repository after every ``hub_upload_interval``-th interval save
 (``CheckpointManager.push_to_hub``; a failed upload is logged and training
 goes on). Not ported: the XLA-specific machinery (AOT layouts, relayout,
-the compilation cache), meshes and ZeRO.
+the compilation cache).
+
+Mesh (``mesh=``, or the model's ``set_mesh``; ``parallel/mesh.py``). Each
+rank trains its shards: the masters, moments and EMA of the attention and
+FFN projections are this rank's Megatron slices. After the backward the
+gradients are summed over the data group in buckets of one flat buffer
+(``CFM.loss`` gives each rank its share of the global loss's gradient), and
+the clip uses the global norm: squares of model-sharded tensors summed over
+the model group, replicated ones counted once, so ``ok``, the clip and the
+skip agree on every rank by construction. With ``shard_opt_states: true``
+(ZeRO-1) the moments of a tensor hold only this data rank's block along the
+axis ``opt_specs`` names: the gradients are reduce-scattered into those
+blocks in flat buckets, each rank updates its block of the masters, and the blocks are
+all-gathered back; the EMA stays whole, as in the JAX trainer. Across ranks:
+the host-side mel guard is off (a one-sided skip would deadlock the step's
+collectives; a non-finite mel makes a non-finite loss, which the guard
+skips on every rank alike), validation sums ``(total, n)`` over all ranks,
+the SIGTERM flag is agreed at every optimizer step, and only rank 0 logs at
+INFO, writes TensorBoard, saves and pushes. ``save_checkpoint`` gathers the
+shards on every rank (a collective) before rank 0 writes the single-process
+layout; ``load_checkpoint`` reads on rank 0 and broadcasts the step, epoch,
+best loss and the trees by path, and every rank keeps its shards.
 """
 
 from __future__ import annotations
@@ -46,8 +67,11 @@ import numpy as np
 import torch
 
 from oron_tts_tpu_torch.models.f5tts import F5TTS
-from oron_tts_tpu_torch.train.checkpoint import CheckpointManager
+from oron_tts_tpu_torch.parallel import mesh as pmesh
+from oron_tts_tpu_torch.train.checkpoint import CheckpointManager, flatten_tree, unflatten_tree
 from oron_tts_tpu_torch.utils.weights import from_flax_params, to_flax_params
+
+GRAD_BUCKET_ELEMENTS = 1 << 26  # f32 elements one gradient all-reduce carries (256 MB)
 
 
 def make_lr_schedule(
@@ -122,13 +146,17 @@ def guarded_update(
     eps: float = 1e-8,
     extra_ok: bool = True,
     grad_norm: float | None = None,
+    params: list[torch.Tensor] | None = None,
+    after_update: Callable[[], None] | None = None,
 ) -> tuple[float, bool]:
     """Clip, AdamW, EMA, all skipped when the step is not finite.
 
     ``grads`` are f32 and may be modified. Returns (grad_norm, ok); when
     ``ok`` is false nothing in ``state`` has changed. Mirrors the JAX
     package's ``_guarded_update`` over ``optax.chain(clip_by_global_norm,
-    adamw)``.
+    adamw)``. ``params`` are the views of the masters the update writes
+    (ZeRO-1: this rank's blocks, which ``grads`` and the moments match);
+    ``after_update`` runs before the EMA reads the masters.
     """
     if grad_norm is None:
         grad_norm = float(torch.linalg.vector_norm(
@@ -151,7 +179,8 @@ def guarded_update(
     b1_lp = float(torch.tensor(b1).to(torch.bfloat16))
     clip = grad_norm >= max_grad_norm
 
-    for p, g, m, v, e in zip(state.params, grads, state.mu, state.nu, state.ema):
+    for p, g, m, v in zip(state.params if params is None else params, grads, state.mu,
+                          state.nu):
         if clip:
             g = (g / grad_norm) * max_grad_norm
         mu = g * (1.0 - b1)
@@ -164,6 +193,9 @@ def guarded_update(
         update.add_(p, alpha=weight_decay)
         p.add_(update.mul_(-lr))
         m.copy_(mu)
+    if after_update is not None:
+        after_update()
+    for p, e in zip(state.params, state.ema):
         e.mul_(decay).add_(p * one_minus_decay)
     state.count = count_inc
     state.step += 1
@@ -177,10 +209,11 @@ class TrainingPreempted(RuntimeError):
 
 
 class F5Trainer:
-    """Trainer facade with the JAX package's constructor arguments (the mesh
-    left out). It trains where ``model`` lives, and ``F5TTS`` refuses a
-    silent CPU, so there is no device argument here. One process, which is
-    the main one: it writes the logs and checkpoints and pushes to the hub.
+    """Trainer facade with the JAX package's constructor arguments. It trains
+    where ``model`` lives, and ``F5TTS`` refuses a silent CPU, so there is no
+    device argument here. Without a mesh the one process is the main one;
+    under a mesh rank 0 is, and it alone writes the logs and checkpoints and
+    pushes to the hub.
     """
 
     def __init__(
@@ -195,9 +228,14 @@ class F5Trainer:
         hub_token: str | None = None,
         hub_private: bool = False,
         hub_upload_interval: int = 1,
+        mesh: pmesh.Mesh | None = None,
     ) -> None:
         self.config = config
         self.model = model
+        if mesh is not None and model.mesh is not mesh:
+            model.set_mesh(mesh)
+        self.mesh = model.mesh
+        self.is_main_process = self.mesh is None or self.mesh.is_main
         self.device = model.device
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -229,6 +267,24 @@ class F5Trainer:
         mu_dtype = (torch.bfloat16 if config.get("adam_mu_dtype", "bfloat16") == "bfloat16"
                     else torch.float32)
         self.state = TrainState([n for n, _ in named], masters, mu_dtype)
+        mesh = self.mesh
+        self.specs = [pmesh.spec_for_name(n) for n in self.state.names]
+        self.model_sharded = [mesh is not None and mesh.n_model > 1 and "model" in spec
+                              for spec in self.specs]
+        # ZeRO-1: the axis of each moment split over "data" (None: whole)
+        self.zero_axes: list[int | None] = [None] * len(masters)
+        self.zero_specs: list[tuple] = list(self.specs)
+        if config.get("shard_opt_states", False) and mesh is not None and mesh.n_data > 1:
+            ospecs = pmesh.opt_specs(
+                {n: tuple(p.shape) for n, p in zip(self.state.names, masters)}, mesh.n_data)
+            self.zero_specs = [ospecs[n] for n in self.state.names]
+            self.zero_axes = [pmesh.axis_of(sp, "data") for sp in self.zero_specs]
+            st = self.state
+            for i, a in enumerate(self.zero_axes):
+                if a is not None:
+                    st.mu[i] = pmesh.shard_tensor(st.mu[i], self.zero_specs[i], mesh, "data")
+                    st.nu[i] = pmesh.shard_tensor(st.nu[i], self.zero_specs[i], mesh, "data")
+        self.zero = any(a is not None for a in self.zero_axes)
 
         self.epoch = 0
         self._best_val = float("inf")
@@ -250,7 +306,7 @@ class F5Trainer:
 
     def _setup_logger(self) -> logging.Logger:
         logger = logging.getLogger("F5Trainer")
-        logger.setLevel(logging.INFO)
+        logger.setLevel(logging.INFO if self.is_main_process else logging.WARNING)
         logger.handlers.clear()
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(
@@ -262,7 +318,12 @@ class F5Trainer:
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
+            self._tensorboard = False
             self.logger.warning("tensorboardX not installed — console logging only")
+            return None
+        # every rank knows whether rank 0 writes, so all join its audio syntheses
+        self._tensorboard = True
+        if not self.is_main_process:
             return None
         path = Path(self.log_dir).expanduser().resolve()
         path.mkdir(parents=True, exist_ok=True)
@@ -287,6 +348,116 @@ class F5Trainer:
             for w, s in zip(self.work, source):
                 w.copy_(s)
 
+    # ── the mesh's collectives ───────────────────────────────────────────
+
+    def _all_reduce_flat(self, tensors: list[torch.Tensor], group) -> None:
+        """Sum ``tensors`` in place over ``group``, in flat buckets."""
+        bucket: list[torch.Tensor] = []
+
+        def flush() -> None:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            pmesh.all_reduce_sum(flat, group)
+            for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+                t.copy_(part.view_as(t))
+            bucket.clear()
+
+        size = 0
+        for t in tensors:
+            bucket.append(t)
+            size += t.numel()
+            if size >= GRAD_BUCKET_ELEMENTS:
+                flush()
+                size = 0
+        if bucket:
+            flush()
+
+    def _reduce_grads(self, grads: list[torch.Tensor]) -> None:
+        """Sum the gradients over the data group, in place in ``grads``.
+
+        Under ZeRO-1 a split tensor's entry becomes this rank's block,
+        reduce-scattered in flat buckets; the whole gradient is dropped as its
+        bucket is done, so the blocks never coexist with all the whole ones.
+        """
+        mesh = self.mesh
+        if mesh is None or mesh.data_group is None:
+            return
+        whole = [g for g, a in zip(grads, self.zero_axes) if a is None]
+        if whole:
+            self._all_reduce_flat(whole, mesh.data_group)
+        n, bucket = mesh.n_data, []
+
+        def flush() -> None:
+            moved = [grads[i].movedim(self.zero_axes[i], 0) for i in bucket]
+            # [n, k]: row d holds block d of every tensor, so rank d's chunk is its blocks
+            flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1).reshape(-1)
+            mine = pmesh.reduce_scatter_flat(flat, mesh.data_group)
+            for i, m, part in zip(bucket, moved, mine.split([m.numel() // n for m in moved])):
+                block = part.view(m.shape[0] // n, *m.shape[1:])
+                grads[i] = block.movedim(0, self.zero_axes[i]).contiguous()
+            bucket.clear()
+
+        size = 0
+        for i, a in enumerate(self.zero_axes):
+            if a is None:
+                continue
+            bucket.append(i)
+            size += grads[i].numel()
+            if size >= GRAD_BUCKET_ELEMENTS:
+                flush()
+                size = 0
+        if bucket:
+            flush()
+
+    def _grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm (device scalar).
+
+        Without TP or ZeRO-1 every rank holds whole summed gradients and the
+        single-process formula applies. Otherwise squares of ZeRO-1 blocks are
+        summed over the data group, those of model-sharded tensors over the
+        model group, and replicated tensors count once.
+        """
+        mesh = self.mesh
+        if mesh is None or not (self.zero or mesh.n_model > 1):
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        sq = torch.stack([n.float() ** 2 for n in torch._foreach_norm(grads)])
+        zero = torch.tensor([a is not None for a in self.zero_axes], device=sq.device)
+        msh = torch.tensor(self.model_sharded, device=sq.device)
+        parts = torch.stack([(sq * (zero & msh)).sum(), (sq * (zero & ~msh)).sum()])
+        if self.zero:
+            pmesh.all_reduce_sum(parts, mesh.data_group)
+        sharded = parts[0] + (sq * (~zero & msh)).sum()
+        sharded = pmesh.all_reduce_sum(sharded.reshape(1), mesh.model_group)[0]
+        return torch.sqrt(sharded + parts[1] + (sq * (~zero & ~msh)).sum())
+
+    def _zero_views(self) -> list[torch.Tensor] | None:
+        """ZeRO-1: views of this rank's blocks of the masters (None: whole tensors)."""
+        if not self.zero:
+            return None
+        mesh, views = self.mesh, []
+        for p, a in zip(self.state.params, self.zero_axes):
+            if a is None:
+                views.append(p)
+            else:
+                size = p.shape[a] // mesh.n_data
+                views.append(p.narrow(a, mesh.data_rank * size, size))
+        return views
+
+    def _gather_zero_params(self) -> None:
+        """ZeRO-1: every rank's updated blocks of the masters, gathered back."""
+        mesh = self.mesh
+        for p, a, spec in zip(self.state.params, self.zero_axes, self.zero_specs):
+            if a is not None:
+                size = p.shape[a] // mesh.n_data
+                block = p.narrow(a, mesh.data_rank * size, size)
+                p.copy_(pmesh.gather_tensor(block, spec, mesh, "data"))
+
+    def _agreed(self, flag: bool) -> bool:
+        """True on every rank when it is true on any (a collective over all ranks)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0], device=self.device)
+        return bool(pmesh.all_reduce_sum(t, self.mesh.world_group).item() > 0)
+
     def _loss_and_grads(self, batch, generator) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """Training loss (device scalar, not read) and f32 gradients."""
         b = self._to_device(batch)
@@ -302,13 +473,16 @@ class F5Trainer:
 
     def _apply(self, grads, loss: torch.Tensor, extra_ok: torch.Tensor | None = None) -> dict:
         """One guarded update; the step's single host read happens here."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self._reduce_grads(grads)
+        norm = self._grad_norm(grads)
         flag = torch.ones((), device=norm.device) if extra_ok is None else extra_ok.float()
         loss_v, norm_v, flag_v = torch.stack([loss.float(), norm.float(), flag]).tolist()
         _, ok = guarded_update(
             self.state, grads, self.schedule, self.ema_decay, betas=self.betas,
             weight_decay=self.weight_decay, max_grad_norm=self.max_grad_norm,
             extra_ok=math.isfinite(loss_v) and flag_v > 0.5, grad_norm=norm_v,
+            params=self._zero_views(),
+            after_update=self._gather_zero_params if self.zero else None,
         )
         if ok:
             self._sync_working_set(self.state.params)
@@ -396,8 +570,11 @@ class F5Trainer:
                 iterator = pbar
 
         acc = None  # on-device window accumulator (grad_accum > 1)
+        # the host-side mel guard only in one process: a rank-local skip would
+        # deadlock the step's collectives
+        one_process = self.mesh is None or self.mesh.world == 1
         for accum_step, batch in enumerate(iterator):
-            if not np.isfinite(batch["mel"]).all():
+            if one_process and not np.isfinite(batch["mel"]).all():
                 self.logger.warning("Skipping batch due to non-finite mel values")
                 continue
             batch_size, mel_frames = int(batch["mel"].shape[0]), int(batch["mel"].shape[2])
@@ -452,12 +629,19 @@ class F5Trainer:
         finally:
             if use_ema:
                 self._sync_working_set(self.state.params)
+        if self.mesh is not None:  # agreed over every rank (a collective)
+            sums = torch.zeros(2, device=self.device)
+            if losses:
+                sums[0], sums[1] = torch.stack(losses).sum(), len(losses)
+            total, n = pmesh.all_reduce_sum(sums, self.mesh.world_group).tolist()
+            return total / n if n else 0.0
         if not losses:
             return 0.0
         return float(torch.stack(losses).mean())  # one host read
 
     def _log_audio_samples(self, epoch: int) -> None:
-        if not self.writer or epoch % self.config.get("audio_sample_interval", 10) != 0:
+        # every rank joins a sharded model's syntheses; rank 0 writes them
+        if not self._tensorboard or epoch % self.config.get("audio_sample_interval", 10) != 0:
             return
         samples = self.config.get(
             "audio_samples",
@@ -469,8 +653,10 @@ class F5Trainer:
                 tag = f"{lang}/{text[:20].replace(' ', '_')}"
                 try:
                     wav = self.model.synthesize(text, lang=lang, n_steps=16)
-                    self.writer.add_audio(
-                        f"audio/{tag}", wav[None, :], epoch, sample_rate=self.model.sample_rate)
+                    if self.writer:
+                        self.writer.add_audio(
+                            f"audio/{tag}", wav[None, :], epoch,
+                            sample_rate=self.model.sample_rate)
                 except Exception as exc:  # diagnostics must not stop training
                     self.logger.warning(
                         "Audio sample synthesis failed for %r: %s", text, exc, exc_info=True)
@@ -495,7 +681,8 @@ class F5Trainer:
         self._preempt_installed = True
 
     def _maybe_preempt(self) -> None:
-        if not self._preempt_installed or not self._preempt_requested:
+        # agreed over all ranks: a SIGTERM that reached one rank stops them all
+        if not self._preempt_installed or not self._agreed(self._preempt_requested):
             return
         self.logger.warning(
             "SIGTERM received — emergency checkpoint at step %d", self.global_step)
@@ -543,7 +730,9 @@ class F5Trainer:
             elif is_best and self.config.get("save_best_between_intervals", True):
                 # a best epoch between intervals still reaches disk:
                 # f5tts_best.npz only, no step file, no rotation
-                self.checkpoint_manager.save_best(**self._checkpoint_trees(avg_loss))
+                trees = self._checkpoint_trees(avg_loss)  # a collective under a mesh
+                if self.is_main_process:
+                    self.checkpoint_manager.save_best(**trees)
         self.finish()
 
     def finish(self) -> None:
@@ -558,7 +747,7 @@ class F5Trainer:
     # ── hub ──────────────────────────────────────────────────────────────
 
     def _maybe_push_to_hub(self) -> None:
-        if self.hub_repo_id is None:
+        if self.hub_repo_id is None or not self.is_main_process:
             return
         self._upload_count += 1
         if self._upload_count < self.hub_upload_interval:
@@ -579,7 +768,17 @@ class F5Trainer:
 
     # ── checkpointing ────────────────────────────────────────────────────
 
-    def _flax_tree(self, tensors: list[torch.Tensor]) -> dict[str, Any]:
+    def _flax_tree(self, tensors: list[torch.Tensor], moments: bool = False) -> dict[str, Any]:
+        """A flax-layout tree of whole tensors: under a mesh the shards (and,
+        for ``moments``, the ZeRO-1 blocks) are gathered first, a collective."""
+        mesh = self.mesh
+        if mesh is not None:
+            whole = []
+            for i, t in enumerate(tensors):
+                if moments and self.zero_axes[i] is not None:
+                    t = pmesh.gather_tensor(t, self.zero_specs[i], mesh, "data")
+                whole.append(pmesh.gather_tensor(t, self.specs[i], mesh, "model").cpu())
+            tensors = whole
         return to_flax_params(dict(zip(self.state.names, tensors)))
 
     def _checkpoint_trees(self, loss: float | None) -> dict[str, Any]:
@@ -588,7 +787,8 @@ class F5Trainer:
             "step": self.global_step,
             "params": self._flax_tree(st.params),
             "opt_state": {
-                "mu": self._flax_tree(st.mu), "nu": self._flax_tree(st.nu),
+                "mu": self._flax_tree(st.mu, moments=True),
+                "nu": self._flax_tree(st.nu, moments=True),
                 "count": np.asarray(st.count, np.int32),
                 "mu_bf16": st.mu[0].dtype == torch.bfloat16,
             },
@@ -606,18 +806,60 @@ class F5Trainer:
         set's precision; pretrained weights come through here.
         """
         flat = from_flax_params(flax_params)
-        for name, p, e in zip(self.state.names, self.state.params, self.state.ema):
-            p.copy_(flat[name].to(p.device))
+        for i, (name, p, e) in enumerate(zip(self.state.names, self.state.params,
+                                             self.state.ema)):
+            p.copy_(self._local(flat[name], i).to(p.device))
             e.copy_(p)
         self._sync_working_set(self.state.params)
         self.model.params_loaded = True
 
-    def save_checkpoint(self, is_best: bool = False, loss: float | None = None) -> Path:
-        return self.checkpoint_manager.save(is_best=is_best, **self._checkpoint_trees(loss))
+    def _local(self, whole: torch.Tensor, i: int, moment: bool = False) -> torch.Tensor:
+        """This rank's part of tensor ``i`` given whole: its TP shard (and ZeRO-1 block)."""
+        if self.mesh is None:
+            return whole
+        t = pmesh.shard_tensor(whole, self.specs[i], self.mesh, "model")
+        if moment and self.zero_axes[i] is not None:
+            t = pmesh.shard_tensor(t, self.zero_specs[i], self.mesh, "data")
+        return t
+
+    def save_checkpoint(self, is_best: bool = False, loss: float | None = None) -> Path | None:
+        # the gather is a collective under a mesh: every rank, before the rank gate
+        trees = self._checkpoint_trees(loss)
+        if not self.is_main_process:
+            return None
+        return self.checkpoint_manager.save(is_best=is_best, **trees)
+
+    def _sync_checkpoint_from_main(self, info: dict[str, Any]) -> dict[str, Any]:
+        """Rank 0's checkpoint on every rank (a collective; every rank calls it).
+
+        Only rank 0 reads (and writes) files. ``(found, step, epoch, best)``
+        goes first; the trees follow by path, in their flat on-disk form.
+        """
+        mesh = self.mesh
+        meta = {k: info.get(k) for k in ("step", "epoch", "best_val")}
+        meta["found"] = info.get("params") is not None
+        meta = pmesh.broadcast_tree(meta if mesh.is_main else None, device=mesh.device)
+        if not meta["found"]:
+            return {"params": None}
+        out = dict(meta)
+        for key in ("params", "ema", "opt"):
+            has = pmesh.broadcast_tree(info.get(key) is not None if mesh.is_main else None,
+                                       device=mesh.device)
+            if not has:
+                out[key] = None
+                continue
+            flat = (dict(sorted(flatten_tree(info[key]).items())) if mesh.is_main else None)
+            out[key] = unflatten_tree(pmesh.broadcast_tree(flat, device=mesh.device))
+        return out
 
     @torch.no_grad()
     def load_checkpoint(self, path: str | Path | None = None, load_best: bool = False) -> None:
-        info = self.checkpoint_manager.load(path=path, load_best=load_best)
+        if self.mesh is not None and self.mesh.world > 1:
+            info = (self.checkpoint_manager.load(path=path, load_best=load_best)
+                    if self.is_main_process else {})
+            info = self._sync_checkpoint_from_main(info)
+        else:
+            info = self.checkpoint_manager.load(path=path, load_best=load_best)
         if info.get("params") is None:
             self.logger.info("No checkpoint found — starting fresh")
             return
@@ -627,24 +869,24 @@ class F5Trainer:
         self._best_val = float(best) if best is not None else float("inf")
         st = self.state
 
-        def fill(dst: list[torch.Tensor], tree: dict[str, Any]) -> None:
+        def fill(dst: list[torch.Tensor], tree: dict[str, Any], moment: bool = False) -> None:
             flat = from_flax_params(tree)
-            for name, d in zip(st.names, dst):
-                d.copy_(flat[name].to(d.device))
+            for i, (name, d) in enumerate(zip(st.names, dst)):
+                d.copy_(self._local(flat[name], i, moment).to(d.device))
 
         fill(st.params, info["params"])
         fill(st.ema, info["ema"] if info.get("ema") is not None else info["params"])
         opt = info.get("opt")
         adam = _optax_adam_state(opt)
         if isinstance(opt, dict) and "mu" in opt and "nu" in opt:
-            fill(st.mu, opt["mu"])
-            fill(st.nu, opt["nu"])
+            fill(st.mu, opt["mu"], moment=True)
+            fill(st.nu, opt["nu"], moment=True)
             st.count = int(opt.get("count", step))
             st.resumed = True
         elif adam is not None:  # the JAX package's optax tree
             count, mu, nu = adam
-            fill(st.mu, mu)
-            fill(st.nu, nu)
+            fill(st.mu, mu, moment=True)
+            fill(st.nu, nu, moment=True)
             st.count = int(count)
             st.resumed = True
         else:

@@ -541,13 +541,19 @@ def test_create_server_plain_flags_on_the_cpu(checkpoint_dir):
 
 def test_serve_and_infer_refuse_what_is_not_ported(checkpoint_dir, tmp_path, monkeypatch,
                                                    capsys):
-    for argv in (["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--mesh", "2x4"],
-                 ["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--mesh", "2x4",
-                  "--quantize", "int8"]):
+    # --mesh 2x4 without a world of 8 is refused for the world (naming
+    # torchrun); with --quantize int8 it keeps the w8a16 refusal
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for argv, says in (
+            (["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--mesh", "2x4"],
+             "does not cover 1 process"),
+            (["--checkpoint", str(checkpoint_dir), "--device", "cpu", "--mesh", "2x4",
+              "--quantize", "int8"], "single-device")):
         with pytest.raises(SystemExit):
             serve.create_server(argv)
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "single-device" in err
+        err = capsys.readouterr().err
+        assert says in err and "ROADMAP.md" not in err
+    assert "torch.distributed.run --nproc-per-node 8" not in err  # the int8 refusal comes first
     # torch checkpoints are read since the torch_compat port: an unreadable one
     # is refused by its reader, a hub id or a missing file as a vocoder too
     (tmp_path / "model.safetensors").write_bytes(b"x")

@@ -655,25 +655,34 @@ def test_cli_trains_from_local_data_and_resumes(tmp_path, capsys):
     assert "skipped 1/6 samples" in out and "Resumed from step 2" in out
 
 
-# the HuggingFace dataset path (--dataset, and no --from-local) and the hub
-# push (--push-to-hub, --hf-repo) are ported: those flags parse, and the run
-# stops only at the missing corpus; the multi-GPU flags still raise, naming
-# ROADMAP item 5
+# the HuggingFace dataset path (--dataset, and no --from-local), the hub push
+# (--push-to-hub, --hf-repo) and --num-gpus (accepted and ignored, as in the
+# JAX package) parse, and the run stops only at the missing corpus; a mesh
+# that does not match the world (--mesh 4x1 in a world of one) and
+# --multihost without the torchrun environment raise, naming torchrun
 @pytest.mark.parametrize("flags", [["--push-to-hub"], ["--mesh", "4x1"], ["--hf-repo", "a/b"],
                                    ["--num-gpus", "2"], ["--multihost"]])
-def test_cli_names_what_is_not_ported(flags, capsys, tmp_path):
+def test_cli_names_what_is_not_ported(flags, capsys, tmp_path, monkeypatch):
     from oron_tts_tpu_torch.cli import train as cli_train
 
-    if flags[0] in ("--push-to-hub", "--hf-repo"):
+    for key in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(key, raising=False)
+    if flags[0] in ("--push-to-hub", "--hf-repo", "--num-gpus"):
         with pytest.raises(FileNotFoundError, match="metadata.json"):
             cli_train.main(["--device", "cpu"] + flags + ["--from-local", "--data-dir",
                                                           str(tmp_path)])
-        assert "ROADMAP.md" not in capsys.readouterr().err
+        captured = capsys.readouterr()
+        assert "ROADMAP.md" not in captured.err
+        if flags[0] == "--num-gpus":
+            assert "--num-gpus 2 is ignored" in captured.out
+            assert "torch.distributed.run --nproc-per-node" in captured.out
         return
     with pytest.raises(SystemExit):
         cli_train.main(["--device", "cpu"] + flags + ["--from-local"])
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 5" in err
+    assert "torch.distributed.run" in err and "ROADMAP.md" not in err
+    assert ("does not cover 1 process" in err) == (flags[0] == "--mesh")
+    assert not torch.distributed.is_initialized()
 
 
 # ── learning dynamics ───────────────────────────────────────────────────
