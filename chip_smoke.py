@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis, training, serving, attention, data, vocoder and mesh slices on one GPU.
+"""Drive the PyTorch port's synthesis, training, serving, attention, data, vocoder, lever and mesh slices on one GPU.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -160,7 +160,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
     of 4 × ``[3, 2048]`` pipelined, with a host read after every
     micro-batch, and with remat, beside the fused ``[12, 2048]`` step),
     launch counts zeroed before and read after.
-21. mesh: the ``("data", "model")`` mesh on the one card. A world of one
+21. levers: ``cli.bench_sampler_levers`` at its defaults (the Base DiT at
+    all 22 blocks, bf16, 120 letters in a bucket of 1,600, 32 Euler steps,
+    CFG 2): baseline, no-hoist (``hoist_t_mods=False``), the CFG interval
+    [0.10, 0.70], midpoint-16 with and without it, int8 w8a16, int8_dynamic
+    w8a8 with and without it; each timed cold and best of three, one more
+    solve of each traced; every mel finite, and no-hoist and the int8 cases
+    held against their bf16 case by relative L2 (``LEVER_REL_L2_TOL``). Then
+    ``cli.bench_quantized --e2e``: the three Base projections at M = 512,
+    3,200 and 16,384 in bf16, w8a16 (kernel 9, held against its plain
+    version at each shape) and w8a8, each from a CUDA graph, and Base
+    synthesis in bf16, ``int8`` and ``int8_dynamic``. Launch counts zeroed
+    before both and read after.
+22. mesh: the ``("data", "model")`` mesh on the one card. A world of one
     on NCCL through the entry points, under ``python -m
     torch.distributed.run --nproc-per-node 1`` at Base bf16 from a seeded
     checkpoint: ``cli.train --mesh 1x1`` (two steps of ``[12, T ≤ 2048]``
@@ -204,7 +216,7 @@ H100_BYTES = 3.35e12      # HBM3 bytes/s
 SERVE_STEPS = 32
 MN_TEXT = "Монгол хэл бол Төв Азийн өргөн уудам нутагт олон сая хүний ярьдаг хэл юм."
 REF_TEXT = "Өнөөдөр цаг агаар сайхан байна"
-# Since the mesh phase (21) the serve, classic, interop, serve_load and streaming
+# Since the mesh phase (22) the serve, classic, interop, serve_load and streaming
 # phases run the Base width at half its depth, to keep the whole script inside
 # its time limit; their full-depth readings stay in PERF.md
 CUT_DEPTH = 11
@@ -3455,7 +3467,55 @@ def run_grad_accum(torch, smi: str) -> dict[str, int]:
 
 
 
-# --- phase 21: the mesh ---------------------------------------------------
+# --- phase 21: the levers --------------------------------------------------
+# Relative L2 of a lever's mel (the generated frames) against its bf16 case on
+# the same noise. No-hoist runs the same math with the AdaLN products at 2 rows
+# in place of the schedule's 32, so bf16 rounds elsewhere: a tight bound. The
+# int8 cases take the serve phase's bounds (QUANT_MEL_REL_L2_TOL: 0.01 for
+# int8, the "fast" profile's 0.03 for int8_dynamic), each against the bf16 case
+# with the same interval setting. The CFG interval and midpoint cases are other
+# solvers of the same ODE: on random weights nothing bounds their distance, so
+# they are held to finiteness only (their distances are printed).
+LEVER_REL_L2_TOL = {"no-hoist": 1e-2, "int8 w8a16": QUANT_MEL_REL_L2_TOL["int8"],
+                    "int8_dynamic w8a8": QUANT_MEL_REL_L2_TOL["fast"],
+                    "int8_dynamic + interval": QUANT_MEL_REL_L2_TOL["fast"]}
+
+
+def run_levers(torch, smi: str) -> dict[str, int]:
+    """``cli.bench_sampler_levers`` and ``cli.bench_quantized --e2e`` at their defaults."""
+    from oron_tts_tpu_torch.cli import bench_quantized, bench_sampler_levers
+    from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
+    from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
+    from oron_tts_tpu_torch.ops.quantized_matmul import quantized_matmul
+
+    wrappers = {f.__name__: f for f in (flash_lanes_fwd, grouped_conv1d_mish, quantized_matmul)}
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    levers = bench_sampler_levers.main([])
+    levers_s = time.perf_counter() - t0
+    quant = bench_quantized.main(["--e2e"])
+    counts = read_counts(wrappers)
+    emit({"phase": "levers", **levers, "tol": LEVER_REL_L2_TOL, "seconds": levers_s, "card": smi})
+    emit({"phase": "quantized", **quant, "seconds": time.perf_counter() - t0 - levers_s,
+          "card": smi})
+    cases = levers["cases"]
+    if levers["model"]["depth"] != 22 or len(cases) != 8:
+        raise AssertionError(f"levers: expected 8 cases at 22 blocks, got {levers['model']}")
+    for label, row in cases.items():
+        tol = LEVER_REL_L2_TOL.get(label)
+        if not math.isfinite(row["mel_abs_mean"]) or (tol is not None and not row["rel_l2"] <= tol):
+            raise AssertionError(f"levers: {label} off its {row['vs']} case: {row}")
+    for row in quant["kernel"]:
+        if not row["w8a16_excess"] <= row["w8a16_tol"]:
+            raise AssertionError(f"quantized: kernel 9 off its plain version: {row}")
+    if len(quant["kernel"]) != 9 or len(quant["e2e"]) != 3:
+        raise AssertionError(f"quantized: rows {len(quant['kernel'])}, modes {len(quant['e2e'])}")
+    if not all(counts[n] > 0 for n in wrappers):
+        raise AssertionError(f"levers: launches {counts}")
+    return counts
+
+
+# --- phase 22: the mesh ---------------------------------------------------
 # Two ranks share the one card over a gloo group this script initialises (NCCL
 # refuses two ranks on one device; the port itself never picks gloo on CUDA).
 # Their step times are bound by gloo staging every collective through the
@@ -3741,7 +3801,7 @@ def cli_train_plain(torch, cfg_path: Path, data: Path, ckpt: Path, root: Path):
 
 
 def run_mesh(torch, smi: str) -> dict[str, int]:
-    """Phase 21: the mesh on one card (NCCL world of one; two gloo ranks sharing the card)."""
+    """Phase 22: the mesh on one card (NCCL world of one; two gloo ranks sharing the card)."""
     import numpy as np
 
     from oron_tts_tpu_torch.config import F5Config
@@ -3970,7 +4030,7 @@ def main() -> int:
                         ("memory", run_memory), ("serve_load", run_serve_load),
                         ("streaming", run_streaming), ("prepare", run_prepare),
                         ("vocoder", run_vocoder), ("grad_accum", run_grad_accum),
-                        ("mesh", run_mesh)):
+                        ("levers", run_levers), ("mesh", run_mesh)):
         for kernel, n in (timed(name, phase, torch, smi) or {}).items():
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "phase_seconds", **seconds, "total_s": time.perf_counter() - t0})

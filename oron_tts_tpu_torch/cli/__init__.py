@@ -2,8 +2,12 @@
 data preparation (``prepare``, ``clean_local_cv``), the smoke harness
 (``test_pipeline``), the tone-code eval (``make_tone_corpus``,
 ``eval_alignment``), vocoder training and its eval (``make_synthetic_speech``,
-``train_vocoder``, ``eval_vocoder``) and the benches (``bench_serve_load``,
-``bench_streaming``, ``bench_grad_accum`` among them).
+``train_vocoder``, ``eval_vocoder``), the denoiser's measurement
+(``measure_denoiser``: host-only numpy, no device) and the benches
+(``bench_serve_load``, ``bench_streaming``, ``bench_grad_accum``,
+``bench_sampler_levers`` and ``bench_quantized`` among them). The benches take
+the card unless given ``--device cpu`` (or ``--smoke``, a tiny CPU run where
+they have one), and raise without a card.
 
 ``train``, ``infer`` and ``serve`` take ``--mesh DPxTP`` and then run as one
 process per rank under ``torchrun``::

@@ -27,7 +27,8 @@ the single-process gradient.
 
 ``CFM.sample``: sway-warped time grid, classifier-free guidance as one doubled-batch
 forward per step (``pred + (pred − null)·cfg``), AdaLN projections hoisted
-over the whole schedule before the loop, and the conditioning region
+over the whole schedule before the loop (``hoist_t_mods=False`` runs them inside
+every forward instead, as the reference does), and the conditioning region
 re-substituted at the end. The ODE state stays f32 whatever the model's
 compute dtype, as in the JAX sampler. ``cfg_interval=(lo, hi)`` applies guidance only at
 the steps whose time lies in the interval (the others run one cond-only
@@ -249,6 +250,7 @@ class CFM:
         noise: torch.Tensor | None = None,
         return_trajectory: bool = False,
         max_duration: int = 65536,
+        hoist_t_mods: bool = True,
         cfg_interval: tuple[float, float] | None = None,
         method: str = "euler",
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -266,6 +268,12 @@ class CFM:
                 after every step (per step, for either method), on the device.
             max_duration: the most frames ``cond`` may hold; more raises
                 before anything runs on the device.
+            hoist_t_mods: compute the timestep MLP and every AdaLN projection
+                for the whole step schedule once, before the loop (the
+                default). ``False`` computes them inside each forward from the
+                step's time, the reference's shape and a bench lever
+                (``cli/bench_sampler_levers.py``); the two agree within f32
+                rounding.
             cfg_interval: optional ``(lo, hi)``: guidance (the doubled forward
                 and the guided combine) applies only at steps whose time lies
                 in ``[lo, hi]``; the others run one cond-only forward. ``None``
@@ -330,14 +338,18 @@ class CFM:
 
         grid = sway_timesteps_host(steps, sway_sampling_coef).astype(np.float32)
         t_dev = torch.from_numpy(grid).to(device)
-        hoist = t_dev[:-1]
-        if method == "midpoint":  # rows [steps, 2·steps) of the tables: the half steps
-            hoist = torch.cat([hoist, (t_dev[:-1] + t_dev[1:]) / 2])
-        block_mods, final_mods = precompute_t_mods(dit, dit.embed_time(hoist))
+        times = t_dev[:-1]
+        if method == "midpoint":  # rows [steps, 2·steps): the half steps, each in
+            # the JAX sampler's own f32 formula for its path
+            half = ((t_dev[:-1] + t_dev[1:]) / 2 if hoist_t_mods
+                    else t_dev[:-1] + (t_dev[1:] - t_dev[:-1]) / 2)
+            times = torch.cat([times, half])
+        if hoist_t_mods:
+            block_mods, final_mods = precompute_t_mods(dit, dit.embed_time(times))
 
         def velocity(x: torch.Tensor, row: int, guided: bool) -> torch.Tensor:
-            tm = (block_mods[:, row], final_mods[row])
-            t_b = hoist[row].expand(batch)
+            tm = (block_mods[:, row], final_mods[row]) if hoist_t_mods else None
+            t_b = times[row].expand(batch)
             if not guided:
                 return dit(x, step_cond, text_ids, t_b, mask=attn_mask,
                            text_embed=te_cond, t_mods=tm).float()
