@@ -37,6 +37,7 @@ from oron_tts_tpu_torch.data import wav as wavio
 from oron_tts_tpu_torch.ops.mel import MelConfig, log_mel_spectrogram
 from oron_tts_tpu_torch.text import TextCleaner
 from oron_tts_tpu_torch.text.align import stretch_text_to_len
+from oron_tts_tpu_torch.utils import trace
 
 _logger = logging.getLogger(__name__)
 
@@ -375,6 +376,9 @@ class TTSCollator:
             text_ids[i, :T] = item["text_ids"][:T]
             masks[i, :T] = item["mask"][:T]
             mel_lengths[i] = T
+        if trace.enabled():
+            trace.count("collate.frames_kept", int(mel_lengths.sum()))
+            trace.count("collate.frames_collated", n_pad * t_bucket)
         return {"mel": mels, "text_ids": text_ids, "mask": masks, "mel_lengths": mel_lengths}
 
 

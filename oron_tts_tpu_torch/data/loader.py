@@ -16,6 +16,8 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Iterator
 
+from oron_tts_tpu_torch.utils import trace
+
 _logger = logging.getLogger(__name__)
 
 
@@ -57,7 +59,8 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         if self.num_workers == 0:
             for entry in self.batch_sampler:
-                batch = self._build(*self._split_entry(entry))
+                with trace.span("loader.wait"):
+                    batch = self._build(*self._split_entry(entry))
                 if batch is not None:
                     yield batch
             return
@@ -76,6 +79,7 @@ class DataLoader:
                     pending.append(pool.submit(self._build, *self._split_entry(entry)))
                 if not pending:
                     break
-                batch = pending.popleft().result()
+                with trace.span("loader.wait"):
+                    batch = pending.popleft().result()
                 if batch is not None:
                     yield batch

@@ -50,6 +50,7 @@ import torch
 
 from oron_tts_tpu_torch.models.dit import DiT, precompute_t_mods
 from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
+from oron_tts_tpu_torch.utils import trace
 
 
 def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:
@@ -190,19 +191,21 @@ class CFM:
         if train:
             if generator is None:
                 raise ValueError("a training loss needs a torch.Generator")
-            draws = torch.rand((3, g_batch), generator=generator)[:, rows]
-            frac = (lo + (hi - lo) * draws[0]).to(device)
-            span = span_mask_from_fracs(lens, frac, draws[1].to(device), seq_len) & mask
-            t = draws[2].to(device)
-            drop_a, drop_t = (torch.rand(2, generator=generator) < torch.tensor(
-                [self.audio_drop_prob, self.cond_drop_prob])).tolist()
-            drop_text = bool(drop_t)
-            drop_audio = bool(drop_a) or drop_text
-            if x0 is None:
-                x0 = torch.randn((g_batch, *x1.shape[1:]), generator=generator)[rows]
-            seeds = torch.randint(
-                -2**31, 2**31, (self.backbone.depth, 2), generator=generator).tolist()
-            dropout_seeds = [tuple(pair) for pair in seeds]
+            with trace.span("cfm.draw"):
+                draws = torch.rand((3, g_batch), generator=generator)[:, rows]
+                frac = (lo + (hi - lo) * draws[0]).to(device)
+                span = span_mask_from_fracs(lens, frac, draws[1].to(device), seq_len) & mask
+                t = draws[2].to(device)
+                drop_a, drop_t = (torch.rand(2, generator=generator) < torch.tensor(
+                    [self.audio_drop_prob, self.cond_drop_prob])).tolist()
+                drop_text = bool(drop_t)
+                drop_audio = bool(drop_a) or drop_text
+                if x0 is None:
+                    x0 = torch.randn((g_batch, *x1.shape[1:]), generator=generator)[rows]
+                seeds = torch.randint(
+                    -2**31, 2**31, (self.backbone.depth, 2), generator=generator).tolist()
+                dropout_seeds = [tuple(pair) for pair in seeds]
+                x0 = x0.to(device=device, dtype=torch.float32)
         else:
             mid = (lo + hi) / 2
             span_len = (mid * lens).to(torch.int32)
@@ -214,7 +217,7 @@ class CFM:
             if x0 is None:
                 x0 = torch.randn((g_batch, *x1.shape[1:]),
                                  generator=torch.Generator().manual_seed(0))[rows]
-        x0 = x0.to(device=device, dtype=torch.float32)
+            x0 = x0.to(device=device, dtype=torch.float32)
 
         cond = torch.where(span[..., None], 0.0, x1)
         tb = t[:, None, None]

@@ -69,6 +69,7 @@ import torch
 from oron_tts_tpu_torch.models.f5tts import F5TTS
 from oron_tts_tpu_torch.parallel import mesh as pmesh
 from oron_tts_tpu_torch.train.checkpoint import CheckpointManager, flatten_tree, unflatten_tree
+from oron_tts_tpu_torch.utils import trace
 from oron_tts_tpu_torch.utils.weights import from_flax_params, to_flax_params
 
 GRAD_BUCKET_ELEMENTS = 1 << 26  # f32 elements one gradient all-reduce carries (256 MB)
@@ -460,38 +461,52 @@ class F5Trainer:
 
     def _loss_and_grads(self, batch, generator) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """Training loss (device scalar, not read) and f32 gradients."""
-        b = self._to_device(batch)
-        loss = self.model.cfm.loss(
-            b["mel"], b["text_ids"], b["mel_lengths"], generator, train=True)
-        loss.backward()
-        grads = []
-        for p in self.work:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads.append(g.float())
-            p.grad = None
+        step = self.state.step
+        with trace.span("train.h2d", step=step):
+            b = self._to_device(batch)
+        with trace.span("train.forward", step=step):
+            loss = self.model.cfm.loss(
+                b["mel"], b["text_ids"], b["mel_lengths"], generator, train=True)
+        with trace.span("train.backward", step=step):
+            loss.backward()
+        with trace.span("train.grads", step=step):
+            grads = []
+            for p in self.work:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                grads.append(g.float())
+                p.grad = None
         return loss.detach(), grads
 
     def _apply(self, grads, loss: torch.Tensor, extra_ok: torch.Tensor | None = None) -> dict:
         """One guarded update; the step's single host read happens here."""
         self._reduce_grads(grads)
-        norm = self._grad_norm(grads)
-        flag = torch.ones((), device=norm.device) if extra_ok is None else extra_ok.float()
-        loss_v, norm_v, flag_v = torch.stack([loss.float(), norm.float(), flag]).tolist()
-        _, ok = guarded_update(
-            self.state, grads, self.schedule, self.ema_decay, betas=self.betas,
-            weight_decay=self.weight_decay, max_grad_norm=self.max_grad_norm,
-            extra_ok=math.isfinite(loss_v) and flag_v > 0.5, grad_norm=norm_v,
-            params=self._zero_views(),
-            after_update=self._gather_zero_params if self.zero else None,
-        )
-        if ok:
-            self._sync_working_set(self.state.params)
+        step = self.state.step
+        with trace.span("train.read", step=step):
+            norm = self._grad_norm(grads)
+            flag = torch.ones((), device=norm.device) if extra_ok is None else extra_ok.float()
+            loss_v, norm_v, flag_v = torch.stack([loss.float(), norm.float(), flag]).tolist()
+        with trace.span("train.update", step=step):
+            _, ok = guarded_update(
+                self.state, grads, self.schedule, self.ema_decay, betas=self.betas,
+                weight_decay=self.weight_decay, max_grad_norm=self.max_grad_norm,
+                extra_ok=math.isfinite(loss_v) and flag_v > 0.5, grad_norm=norm_v,
+                params=self._zero_views(),
+                after_update=self._gather_zero_params if self.zero else None,
+            )
+            if ok:
+                self._sync_working_set(self.state.params)
         return {"loss": loss_v, "grad_norm": norm_v, "ok": ok}
 
     def train_step(self, batch: dict[str, np.ndarray], generator: torch.Generator) -> dict:
         """Fused step: loss, gradients, guarded update. Returns host metrics."""
-        loss, grads = self._loss_and_grads(batch, generator)
-        return self._apply(grads, loss)
+        with trace.span("train.step", step=self.state.step) as sp:
+            if sp is not None:
+                mel = np.asarray(batch["mel"])
+                sp.update(rows=int(mel.shape[0]),
+                          frames_kept=int(np.asarray(batch["mel_lengths"]).sum()),
+                          frames_collated=int(mel.shape[0] * mel.shape[2]))
+            loss, grads = self._loss_and_grads(batch, generator)
+            return self._apply(grads, loss)
 
     def _zero_accum(self) -> dict:
         dev = self.device
