@@ -51,7 +51,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    1 samples, as batches ``[8, 240000]`` (timed, with its bound) and
    ``[2, 3, 24000]`` in one launch each, at its other n_fft (256, 512 and
    2,048), on silence (log(1e-5)) and twice on one batch for identical
-   bits.
+   bits; the trainer's fused AdamW + EMA + working copy (row 13) over Base's
+   363 leaves, bit-equal to the eager update on one clipped step, timed with
+   its launches' host time beside the eager update and ``torch._fused_adamw_``.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -66,7 +68,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 7. train: ``F5Trainer`` at the Base width in bf16 (seeded weights, dropout
    0.1, no rematerialisation) over a seeded synthetic ``TTSDataset`` of 24
    clips in batches of ``[12, 2048]`` frames: a warm-up epoch through
-   ``train_epoch``, then timed steps with per-step launch counts, one more
+   ``train_epoch``, then timed steps with per-step launch counts (one fused
+   update a step), one more
    step under ``torch.profiler``, and a checkpoint written and read back.
 8. reference_serve: the small f32 model with int8 weights (``int8`` through
    the w8a16 kernel, ``int8_dynamic``) on the card against the CPU.
@@ -953,7 +956,83 @@ def check_kernels(torch, F) -> list[dict]:
     del audio, q, k, v, x
     torch.cuda.empty_cache()
     return (rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
-            + check_classic_kernels(torch, F, report))
+            + check_classic_kernels(torch, F, report) + check_fused_update(torch, report))
+
+
+FUSED_SRC = "oron_tts_tpu_torch/csrc/fused_adamw_ema.cu"
+# bytes a parameter of one pass over the update's state: f32 gradient (read), f32 master
+# (read, write), bf16 mu (read, write), f32 nu (read, write), f32 EMA (read, write), bf16
+# working copy (write); torch._fused_adamw_ moves 28: gradient, master, f32 mu and nu
+FUSED_BYTES, FUSED_LIBRARY_BYTES = 34, 28
+
+
+def check_fused_update(torch, report) -> list[dict]:
+    """Row 13: the trainer's AdamW + EMA + working copy over Base's 363 leaves in one
+    launch against the eager update on the same state (one clipped step, bit-equal),
+    then both timed, with the launches' host time, the bound and, as the yardstick,
+    ``torch._fused_adamw_`` on f32 moments (AdamW alone; the port never calls it)."""
+    import numpy as np
+
+    from oron_tts_tpu_torch.models.dit import DiT
+    from oron_tts_tpu_torch.ops import fused_update as fu
+
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in DiT().parameters()]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    masters = [0.05 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+    kern = {"masters": masters,
+            "grads": [1e-3 * torch.randn(s, generator=gen, device=dev) for s in shapes],
+            "mu": [(1e-4 * torch.randn(s, generator=gen, device=dev)).to(torch.bfloat16)
+                   for s in shapes],
+            "nu": [1e-8 * torch.rand(s, generator=gen, device=dev) for s in shapes],
+            "ema": [p + 1e-3 * torch.randn(s, generator=gen, device=dev)
+                    for p, s in zip(masters, shapes)],
+            "work": [p.to(torch.bfloat16) for p in masters]}
+    plain = {k: [t.clone() for t in v] for k, v in kern.items()}
+    f32 = np.float32
+    step = fu.Step(lr=float(f32(1e-4)), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+                   bc1=float(f32(1) - f32(0.9) ** f32(41)),
+                   bc2=float(f32(1) - f32(0.999) ** f32(41)), decay=float(f32(0.9999)),
+                   one_minus_decay=float(f32(1) - f32(0.9999)), max_grad_norm=1.0,
+                   clip_norm=2.5)
+
+    def args(d):
+        return d["masters"], d["grads"], d["mu"], d["nu"], d["ema"], d["work"], step
+
+    fu.adamw_ema(*args(kern))
+    fu.adamw_ema_plain(*args(plain))
+    torch.cuda.synchronize()
+    n = sum(math.prod(s) for s in shapes)
+    row = {"name": "adamw_ema", "dtype": "torch.bfloat16",
+           "shape": f"Base: {len(shapes)} leaves, {n} parameters",
+           "leaves_differing": sum(not torch.equal(a, b) for k in kern
+                                   for a, b in zip(kern[k], plain[k])),
+           "max_abs_err": max(float((a.float() - b.float()).abs().max()) for k in kern
+                              for a, b in zip(kern[k], plain[k])), "tol": 0.0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fu.adamw_ema(*args(kern))
+    host_ms = (time.perf_counter() - t0) * 1e2  # the launches' host side, no wait
+    b_ms, b_by = bound_ms(25.0 * n, H100_F32_FLOPS, FUSED_BYTES * n)
+    row.update(ms=cuda_ms(lambda: fu.adamw_ema(*args(kern))), host_ms=host_ms,
+               plain_ms=cuda_ms(lambda: fu.adamw_ema_plain(*args(plain)), iters=5),
+               bound_ms=b_ms, bound_by=b_by, route="cuda", source=FUSED_SRC,
+               replaces="none (XLA fuses optax's update)")
+    del plain
+    ps, gs = kern["masters"], kern["grads"]
+    m32, v32 = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]
+    counts = [torch.tensor(41.0, device=dev) for _ in ps]
+    row.update(library_ms=cuda_ms(lambda: torch._fused_adamw_(
+                   ps, gs, m32, v32, [], counts, lr=1e-4, beta1=0.9, beta2=0.999,
+                   weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)),
+               library="torch._fused_adamw_, f32 mu and nu, no EMA or working copy",
+               library_bound_ms=FUSED_LIBRARY_BYTES * n / H100_BYTES * 1e3)
+    report(row)
+    del kern, ps, gs, m32, v32
+    torch.cuda.empty_cache()
+    return [row]
 
 
 CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
@@ -1589,13 +1668,14 @@ def run_train(torch, smi: str) -> dict[str, int]:
         flash_lanes_fwd,
         flash_lanes_fwd_stats,
     )
+    from oron_tts_tpu_torch.ops.fused_update import adamw_ema
     from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
     kernels = (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd, gelu_dropout_fwd,
-               gelu_dropout_bwd, grouped_conv1d_mish)
+               gelu_dropout_bwd, grouped_conv1d_mish, adamw_ema)
     cfg = F5Config()  # Base: dim 1024, depth 22, heads 16, p_dropout 0.1, no remat
     depth = cfg.model.depth
     config = {"learning_rate": 1e-4, "warmup_steps": 2, "num_epochs": 4, "use_tqdm": False,
@@ -1634,7 +1714,7 @@ def run_train(torch, smi: str) -> dict[str, int]:
         totals = {k.__name__: 0 for k in kernels}
         want = {"flash_lanes_fwd": 0, "flash_lanes_fwd_stats": depth, "flash_lanes_bwd": depth,
                 "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth,
-                "grouped_conv1d_mish": 2}
+                "grouped_conv1d_mish": 2, "adamw_ema": 1}
         step_ms = []
         for epoch in (1, 2):
             loader.batch_sampler.set_epoch(epoch)
@@ -4041,7 +4121,8 @@ def main() -> int:
                                "library_ms")}
         | {"library": row.get("library"), "shape": row.get("shape")}
         | {k: row[k] for k in ("entry", "pass_a_ms", "pass_b_ms", "graph_ms", "library_graph_ms",
-                               "plain_graph_ms", "linear_bf16_ms", "linear_bf16_graph_ms")
+                               "plain_graph_ms", "linear_bf16_ms", "linear_bf16_graph_ms",
+                               "host_ms", "library_bound_ms")
            if k in row}
         for row in rows
     ], "card": smi})

@@ -1,10 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (eight of them: ``flash_lanes``, ``flash_lanes_bwd``,
+Each ``csrc/<name>.cu`` (nine of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
-``fused_mel``, ``qmm``; the attention sources share ``flash_fwd.cuh`` and
-``flash_bwd.cuh``, and they, ``qmm`` and ``grouped_conv`` share
-``wgmma.cuh``) exposes a plain C
+``fused_mel``, ``qmm``, ``fused_adamw_ema``; the attention sources share
+``flash_fwd.cuh`` and ``flash_bwd.cuh``, and they, ``qmm`` and
+``grouped_conv`` share ``wgmma.cuh``) exposes a plain C
 interface and becomes its own shared library,
 ``build/torch_kernels/lib<name>_<hash>.so`` under the repository
 root, compiled for ``sm_90a`` the first time a wrapper meets a CUDA tensor
@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("flash_lanes", "flash_lanes_bwd", "flash_classic", "flash_classic_bwd",
-           "gelu_dropout", "grouped_conv", "fused_mel", "qmm")
+           "gelu_dropout", "grouped_conv", "fused_mel", "qmm", "fused_adamw_ema")
 
 # C signatures: argument ctypes per entry point (all return int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -96,6 +96,12 @@ SIGNATURES = {
         "qmm_w8a16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         # bm: blocks of the bf16 kernel an SM holds
         "qmm_blocks_per_sm": (_I,),
+    },
+    "fused_adamw_ema": {
+        # leaf table (ops/fused_update.py leaf_table), leaves, chunk, chunks, -lr, b1,
+        # bf16(b1), 1 - b1, b2, 1 - b2, 1/bc1, 1/bc2, eps, weight decay, EMA decay,
+        # 1 - decay, 1/norm, max norm, flags, stream
+        "fused_adamw_ema": (_P, _I, _L, _L) + (_F,) * 14 + (_I, _P),
     },
 }
 

@@ -15,9 +15,10 @@ the working set in the compute dtype (bf16 on the card): forward and
 backward run there, the gradients are widened to f32, the update is applied
 to the masters, and the masters are copied back into the working set (in
 f32 compute too: one scheme, and validation can lend the working set to the
-EMA weights). The update itself is written out in tensor ops after optax's ``adamw``
-(``torch.optim.AdamW`` has no bf16 first moment), including optax's
-rounding of ``b1·mu`` in bf16.
+EMA weights). The update follows optax's ``adamw`` (``torch.optim.AdamW``
+has no bf16 first moment), including optax's rounding of ``b1·mu`` in bf16:
+on the card one multi-tensor kernel updates masters, moments, EMA and the
+working set (``ops/fused_update.py``), on the CPU its eager tensor ops.
 
 One host read per optimizer step (loss, gradient norm, and the window's
 finite flag when accumulating) decides the guard; micro-batches of an
@@ -67,6 +68,7 @@ import numpy as np
 import torch
 
 from oron_tts_tpu_torch.models.f5tts import F5TTS
+from oron_tts_tpu_torch.ops import fused_update
 from oron_tts_tpu_torch.parallel import mesh as pmesh
 from oron_tts_tpu_torch.train.checkpoint import CheckpointManager, flatten_tree, unflatten_tree
 from oron_tts_tpu_torch.utils import trace
@@ -149,15 +151,20 @@ def guarded_update(
     grad_norm: float | None = None,
     params: list[torch.Tensor] | None = None,
     after_update: Callable[[], None] | None = None,
+    work: list[torch.Tensor] | None = None,
 ) -> tuple[float, bool]:
     """Clip, AdamW, EMA, all skipped when the step is not finite.
 
     ``grads`` are f32 and may be modified. Returns (grad_norm, ok); when
-    ``ok`` is false nothing in ``state`` has changed. Mirrors the JAX
-    package's ``_guarded_update`` over ``optax.chain(clip_by_global_norm,
-    adamw)``. ``params`` are the views of the masters the update writes
-    (ZeRO-1: this rank's blocks, which ``grads`` and the moments match);
-    ``after_update`` runs before the EMA reads the masters.
+    ``ok`` is false nothing in ``state`` has changed and nothing is launched.
+    Mirrors the JAX package's ``_guarded_update`` over
+    ``optax.chain(clip_by_global_norm, adamw)``. ``params`` are the views of
+    the masters the update writes (ZeRO-1: this rank's blocks, which
+    ``grads`` and the moments match); ``after_update`` runs before the EMA
+    reads the masters; ``work``, when given, receives the updated masters
+    (the model's working parameters). The update is
+    ``ops/fused_update.py`` ``adamw_ema``: one kernel over every leaf on the
+    card, its plain eager version on the CPU.
     """
     if grad_norm is None:
         grad_norm = float(torch.linalg.vector_norm(
@@ -170,34 +177,19 @@ def guarded_update(
     b1, b2 = betas
     f32 = np.float32
     count_inc = state.count + 1
-    bc1 = float(f32(1) - f32(b1) ** f32(count_inc))
-    bc2 = float(f32(1) - f32(b2) ** f32(count_inc))
-    lr = float(f32(schedule(state.count)))
     n = state.ema_updates + 1
     decay = float(min(f32(ema_decay), f32(1.0 + n) / f32(10.0 + n)))
-    one_minus_decay = float(f32(1.0) - f32(decay))
-    # optax multiplies a bf16 moment by b1 in bf16: the constant is rounded too
-    b1_lp = float(torch.tensor(b1).to(torch.bfloat16))
-    clip = grad_norm >= max_grad_norm
-
-    for p, g, m, v in zip(state.params if params is None else params, grads, state.mu,
-                          state.nu):
-        if clip:
-            g = (g / grad_norm) * max_grad_norm
-        mu = g * (1.0 - b1)
-        if m.dtype == torch.float32 or exact_b1:
-            mu.add_(m.float() * b1)
-        else:
-            mu.add_((m * b1_lp).float())
-        v.mul_(b2).add_((g * g).mul_(1.0 - b2))
-        update = (mu / bc1).div_((v / bc2).sqrt_().add_(eps))
-        update.add_(p, alpha=weight_decay)
-        p.add_(update.mul_(-lr))
-        m.copy_(mu)
-    if after_update is not None:
-        after_update()
-    for p, e in zip(state.params, state.ema):
-        e.mul_(decay).add_(p * one_minus_decay)
+    step = fused_update.Step(
+        lr=float(f32(schedule(state.count))), betas=(b1, b2), eps=eps,
+        weight_decay=weight_decay,
+        bc1=float(f32(1) - f32(b1) ** f32(count_inc)),
+        bc2=float(f32(1) - f32(b2) ** f32(count_inc)),
+        decay=decay, one_minus_decay=float(f32(1.0) - f32(decay)),
+        max_grad_norm=max_grad_norm,
+        clip_norm=grad_norm if grad_norm >= max_grad_norm else None, exact_b1=exact_b1,
+    )
+    fused_update.adamw_ema(state.params, grads, state.mu, state.nu, state.ema, work, step,
+                           params=params, after_update=after_update)
     state.count = count_inc
     state.step += 1
     state.ema_updates += 1
@@ -491,10 +483,8 @@ class F5Trainer:
                 weight_decay=self.weight_decay, max_grad_norm=self.max_grad_norm,
                 extra_ok=math.isfinite(loss_v) and flag_v > 0.5, grad_norm=norm_v,
                 params=self._zero_views(),
-                after_update=self._gather_zero_params if self.zero else None,
+                after_update=self._gather_zero_params if self.zero else None, work=self.work,
             )
-            if ok:
-                self._sync_working_set(self.state.params)
         return {"loss": loss_v, "grad_norm": norm_v, "ok": ok}
 
     def train_step(self, batch: dict[str, np.ndarray], generator: torch.Generator) -> dict:

@@ -8,6 +8,8 @@
   moments, EMA);
 - the collator's counters and the loader's waits match what was collated and
   consumed, with and without worker threads;
+- the fused update's counters (``update.fused_leaves``,
+  ``update.fused_launches``) add its leaves and launches, one or two a call;
 - counters and span stacks stay right under many threads.
 """
 
@@ -150,6 +152,35 @@ def test_collator_counters_and_loader_waits(workers):
     waits = [sp for sp in out["spans"] if sp["name"] == "loader.wait"]
     assert len(waits) == len(batches) == len(out["spans"])
     assert all(sp["parent"] is None and sp["step"] is None for sp in waits)
+
+
+def test_fused_update_counters_are_named_and_summed(monkeypatch):
+    """``update.fused_leaves`` adds the leaves of each fused update and
+    ``update.fused_launches`` its launches: one on whole tensors, two in the
+    split form (ZeRO-1 views, then the EMA after ``after_update``)."""
+    from oron_tts_tpu_torch.ops import fused_update
+
+    launched = []
+    monkeypatch.setattr(fused_update, "_launch", lambda table, n_chunks, step, flags, device:
+                        launched.append(flags))
+    shapes = [(4, 6), (8,), (2, 4, 6)]
+    masters = [torch.randn(s) for s in shapes]
+
+    def like(dtype=torch.float32):
+        return [torch.zeros(s, dtype=dtype) for s in shapes]
+
+    step = fused_update.Step(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+                             bc1=0.1, bc2=0.001, decay=0.5, one_minus_decay=0.5,
+                             max_grad_norm=1.0)
+    work, mu = like(torch.bfloat16), like(torch.bfloat16)
+    trace.start()
+    for params, after in ((None, None), (None, lambda: None), (list(masters), None)):
+        fused_update._fused(masters, like(), mu, like(), like(), work, step, params, after,
+                            torch.device("cpu"))
+    out = trace.stop()
+    assert out["counters"] == {"update.fused_leaves": 3 * len(shapes),
+                               "update.fused_launches": 1 + 2 + 2}
+    assert len(launched) == 5 and out["spans"] == []
 
 
 def test_counters_and_span_stacks_under_many_threads():
