@@ -34,8 +34,8 @@ def main(argv: list[str] | None = None) -> int:
     root = Path.cwd()
     from portbench import run as prun
 
-    _, cell, cfg = prun.load_spec(root, args.workload)
     prun.cache_env(root)
+    _, cell, cfg = prun.load_spec(root, args.workload)
     import torch
 
     from portbench import check, serving

@@ -40,9 +40,10 @@ from pathlib import Path
 import numpy as np
 
 from portbench import audio
-from portbench.reference import dit as R
+from portbench.reference import architecture
 from portbench.reference import text as RT
 from portbench.reference import vocos as V
+from portbench.reference.layers import tf32
 from portbench.reference.mel import log_mel
 
 BUCKET = 64
@@ -90,18 +91,20 @@ def plan(traffic, i: int) -> list[dict]:
     return rows
 
 
-def solve_rows(P, rows: list[dict], buckets: dict[int, int], request: dict, device) -> list:
-    """Each row's reference mel (generated frames only) and its initial noise."""
+def solve_rows(sample, P, rows: list[dict], buckets: dict[int, int], request: dict,
+               device) -> list:
+    """Each row's reference mel (generated frames only) and its initial noise, by the
+    architecture's ``sample``."""
     import torch
 
     out = []
     for row in rows:
-        mel, noise = R.sample(P, row["ids"], torch.from_numpy(row["cond"]).to(device),
-                              row["ref_frames"], row["total"], row["seed"],
-                              int(request.get("steps", 32)),
-                              float(request.get("cfg_strength", 2.0)),
-                              request.get("sway_sampling_coef", -1.0),
-                              bucket=buckets.get(row["seed"]))
+        mel, noise = sample(P, row["ids"], torch.from_numpy(row["cond"]).to(device),
+                            row["ref_frames"], row["total"], row["seed"],
+                            int(request.get("steps", 32)),
+                            float(request.get("cfg_strength", 2.0)),
+                            request.get("sway_sampling_coef", -1.0),
+                            bucket=buckets.get(row["seed"]))
         rf = row["ref_frames"]
         out.append((mel[rf:], noise[rf:]))
     return out
@@ -135,12 +138,18 @@ def serving(cfg: dict, traffic, served, checked: list[int], mels: dict, seed: in
 
     from portbench.weights import dit_state
 
+    arch = architecture(cfg)
+    sample = getattr(arch, "sample", None)
+    if sample is None:
+        stem = arch.__name__.rsplit(".", 1)[-1]
+        raise LookupError(f"portbench/reference/{stem}.py has no sample(), which a serving "
+                          "cell's check needs")
     _no_tf32()
     root = root or Path.cwd()
     dtype = getattr(torch, cfg["dit_dtype"]) if str(device) != "cpu" else torch.float32
-    state = dit_state(shapes, seed, device, dtype)
-    P = R.Params(state, cfg["model"]["heads"], device)
-    Pc = R.Params(state, cfg["model"]["heads"], device, quant="fp8") if control else None
+    state = dit_state(shapes, seed, device, dtype, arch)
+    P = arch.params(state, cfg, device)
+    Pc = arch.params(state, cfg, device, quant="fp8") if control else None
     del state
     voc = V.load_vocos(root, device)
     request = traffic.mix["request"]
@@ -162,10 +171,10 @@ def serving(cfg: dict, traffic, served, checked: list[int], mels: dict, seed: in
             b = buckets[r["seed"]]
             if b % BUCKET or b < r["total"]:
                 problems.append(f"request {i}: padded to {b} frames for {r['total']}")
-        ref = solve_rows(P, rows, buckets, request, device)
+        ref = solve_rows(sample, P, rows, buckets, request, device)
         if control:
-            got = [m for m, _ in solve_rows(Pc, rows, buckets, request, device)]
-            got_wav = vocode_rows(voc, got, rnd=R.tf32)
+            got = [m for m, _ in solve_rows(sample, Pc, rows, buckets, request, device)]
+            got_wav = vocode_rows(voc, got, rnd=tf32)
         else:
             got = [c["mel"][r["ref_frames"]: r["total"]].to(device) for r, c in zip(rows, caps)]
             got_wav = audio.wav_pcm16(served.wav[i])[0]

@@ -5,7 +5,9 @@ texts (its own decode, peak normalisation, log-mel, token ids and
 collation: rows padded to a multiple of 8, frames to a multiple of 64),
 draws the same random numbers from a generator seeded alike, and takes three
 float32 steps of the CFM loss, clipping, AdamW and the EMA from the same
-initial weights. Four numbers compare the two, each by its worst case:
+initial weights, through the architecture that the configuration names
+(``portbench/reference/__init__.py``). Four numbers compare the two, each by
+its worst case:
 
 - ``loss_gap``: |loss − reference loss| / |reference loss|, over the three steps;
 - ``grad_gap``: the first step's gradient as the optimizer took it (clipped),
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from portbench import audio
-from portbench.reference import dit as R
+from portbench.reference import architecture
 from portbench.reference import text as RT
 from portbench.reference import train as RTrain
 from portbench.reference.mel import log_mel
@@ -65,10 +67,10 @@ def rows_per_block(T: int) -> int:
     return max(1, min(8, int(2.5e6 // (T * T))))
 
 
-def reference_steps(P: R.Params, cfg: dict, config: dict, meta: list[dict], clips: list,
+def reference_steps(arch, P, cfg: dict, config: dict, meta: list[dict], clips: list,
                     seed: int, names: list[str], device) -> dict:
-    """The reference's three steps: losses, the first clipped gradient, and the weights
-    and EMA before and after."""
+    """The reference's three steps of the architecture ``arch`` from its weights ``P``:
+    losses, the first clipped gradient, and the weights and EMA before and after."""
     import torch
 
     m = cfg["model"]
@@ -78,14 +80,16 @@ def reference_steps(P: R.Params, cfg: dict, config: dict, meta: list[dict], clip
     p0 = [p.detach().cpu().numpy().copy() for p in params]
     gen = torch.Generator().manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
     probs = (m["audio_drop_prob"], m["cond_drop_prob"])
+    pairs = arch.dropout_pairs(cfg)
     order = {n: k for k, n in enumerate(P.p)}
     losses, g1 = [], None
     for k, batch in enumerate(clips):
         mel, tid, lens = collate(meta, batch)
-        d = RTrain.draws(gen, mel.shape[0], mel.shape[2], mel.shape[1], m["depth"], probs)
+        d = RTrain.draws(gen, mel.shape[0], mel.shape[2], mel.shape[1], pairs, probs)
         loss, grads = RTrain.loss_and_grads(
             P, torch.from_numpy(mel).to(device), torch.from_numpy(tid), torch.from_numpy(lens),
-            d, tuple(m["frac_lengths_mask"]), m["p_dropout"], rows_per_block(mel.shape[2]))
+            d, tuple(m["frac_lengths_mask"]), m["p_dropout"], rows_per_block(mel.shape[2]),
+            velocity=arch.velocity)
         used = opt.step([grads[order[n]] for n in names])
         if k == 0:
             g1 = [g.cpu().numpy() for g in used]
@@ -122,12 +126,13 @@ def training(cfg: dict, config: dict, meta: list[dict], out: dict, seed: int, sh
 
     _no_tf32()
     dtype = getattr(torch, cfg["dit_dtype"]) if str(device) != "cpu" else torch.float32
-    heads = cfg["model"]["heads"]
+    arch = architecture(cfg)
     names = out["names"]
 
     def steps(quant):
-        P = R.Params(dit_state(shapes, seed, device, dtype), heads, device, quant=quant)
-        return reference_steps(P, cfg, config, meta, out["check_clips"], seed, names, device)
+        P = arch.params(dit_state(shapes, seed, device, dtype, arch), cfg, device, quant=quant)
+        return reference_steps(arch, P, cfg, config, meta, out["check_clips"], seed, names,
+                               device)
 
     ref = steps(None)
     if control:

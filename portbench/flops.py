@@ -1,4 +1,7 @@
-"""The yardstick's arithmetic: the card's peaks, model FLOPs, and kernels' bounds.
+"""The yardstick's arithmetic: the card's peaks and kernels' bounds.
+
+A model's FLOPs are its architecture's own count, beside its plain reference
+(``train_step_flops`` and ``solve_flops`` of ``portbench/reference/<backbone>.py``).
 
 Peaks are NVIDIA's data sheet for the H100 SXM (dense, no sparsity), at the
 full 700 W power limit. A kernel's bound is the larger of its operations over
@@ -49,45 +52,3 @@ def mel_bound_s(n_waves: int, n_samples: int, sr: int = 24000, n_fft: int = 1024
     per_frame = n_fft + 2.5 * n_fft * math.log2(n_fft) + 3.0 * n_freqs + 2.0 * filter_taps + n_mels
     nbytes = (n_waves * n_samples + frames * n_mels + n_fft + filter_taps) * 4
     return bound_s(frames * per_frame, nbytes, F32_FLOPS)
-
-
-# ── model FLOPs (products only; elementwise work counts nothing) ──────────
-
-
-def dit_frame_flops(m: dict) -> float:
-    """Products of one frame through the DiT, attention's key loop aside."""
-    dim, depth, ff, mel, td = m["dim"], m["depth"], m["ff_mult"], m["mel_dim"], m["text_dim"]
-    block = 8 * dim * dim + 4 * dim * dim * ff
-    inp = 2 * (2 * mel + td) * dim + 2 * (2 * dim * (dim // 16) * 31)
-    final = 2 * dim * mel
-    return depth * block + inp + final
-
-
-def dit_row_flops(m: dict, frames: int) -> float:
-    """One forward of one row of ``frames`` kept frames (attention over its own keys)."""
-    attn = 4 * frames * frames * m["dim"] * m["depth"]
-    return frames * dit_frame_flops(m) + attn
-
-
-def text_embed_flops(m: dict, frames: int) -> float:
-    td = m["text_dim"]
-    return m["conv_layers"] * (2 * frames * td * 7 + 8 * frames * td * td)
-
-
-def solve_flops(m: dict, row_frames: list[int], steps: int, guided: bool = True) -> float:
-    """A CFG Euler solve: per step one forward of each row, two when guided; the text
-    embedding once a branch; the AdaLN tables once a solve."""
-    branches = 2 if guided else 1
-    per_step = sum(dit_row_flops(m, n) for n in row_frames)
-    adaln = steps * (m["depth"] * 2 * m["dim"] * 6 * m["dim"] + 2 * m["dim"] * 2 * m["dim"])
-    text = branches * sum(text_embed_flops(m, n) for n in row_frames)
-    return branches * steps * per_step + text + adaln
-
-
-def train_step_flops(m: dict, row_frames: list[int]) -> float:
-    """One training step: 3 × the forward of each row at its kept frames, with the
-    text embedding and each row's AdaLN (no recomputation counted)."""
-    fwd = sum(dit_row_flops(m, n) + text_embed_flops(m, n)
-              + m["depth"] * 2 * m["dim"] * 6 * m["dim"] + 2 * m["dim"] * 2 * m["dim"]
-              for n in row_frames if n > 0)
-    return 3.0 * fwd

@@ -1,4 +1,8 @@
-"""Plain float32 F5-TTS DiT, its CFG Euler sampler and the CFM training loss.
+"""Plain float32 F5-TTS DiT and its CFG Euler sampler: the architecture ``"DiT"``.
+
+A configuration whose ``model.backbone`` is ``"DiT"``, or absent, is found
+here (``portbench/reference/__init__.py`` holds the contract; its functions
+close this file, with the DiT's FLOP count).
 
 Written from the published architecture (F5-TTS, arXiv:2410.06885: a DiT
 with AdaLN-zero blocks, RoPE self-attention, a ConvNeXt-V2 text encoder and
@@ -23,13 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-EPS = 1e-6
-
-
-def fp8_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 with one scale a row (last axis), back in float32."""
-    scale = x.detach().abs().amax(dim=-1, keepdim=True).clamp(min=1e-30) / 448.0
-    return (x / scale).to(torch.float8_e4m3fn).float() * scale
+from portbench.reference.layers import (conv1d_same, fp8_rows, gelu_erf, gelu_tanh, layer_norm,
+                                        mish, silu)
 
 
 class Params:
@@ -54,56 +53,6 @@ class Params:
         if self.quant == "fp8":
             return torch.matmul(fp8_rows(x), fp8_rows(w).t()) + b
         return torch.matmul(x, w.t()) + b
-
-
-def layer_norm(x: torch.Tensor, weight=None, bias=None) -> torch.Tensor:
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    y = (x - mu) / torch.sqrt(var + EPS)
-    if weight is not None:
-        y = y * weight + bias
-    return y
-
-
-def gelu_erf(x: torch.Tensor) -> torch.Tensor:
-    return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
-
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x ** 3)))
-
-
-def mish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.tanh(F.softplus(x))
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to TF32 (10 mantissa bits, to nearest), back in float32."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def conv1d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int,
-                dilation: int = 1, rnd=None) -> torch.Tensor:
-    """[B, T, C] by a ``[K, cin/groups, C]`` kernel, zero-padded to keep T; ``rnd``
-    rounds both operands of the product."""
-    K, cin_g, C = w.shape
-    B, T, _ = x.shape
-    pad = dilation * (K // 2)
-    xp = F.pad(x, (0, 0, pad, dilation * (K - 1) - pad))
-    out_g = C // groups
-    xg = xp.reshape(B, -1, groups, cin_g)
-    wg = w.reshape(K, cin_g, groups, out_g)
-    if rnd is not None:
-        xg, wg = rnd(xg), rnd(wg)
-    acc = torch.zeros(B, T, groups, out_g, dtype=x.dtype, device=x.device)
-    for i in range(K):
-        acc = acc + torch.einsum("btgi,igo->btgo", xg[:, i * dilation: i * dilation + T], wg[i])
-    return acc.reshape(B, T, C) + b
 
 
 # ── embeddings ────────────────────────────────────────────────────────────
@@ -292,3 +241,74 @@ def sample(P: Params, ids: list[int], cond: torch.Tensor, ref_frames: int, total
         x = x + pred * float(grid[i + 1] - grid[i])
     x[0, :ref_frames] = cond
     return x[0, :total], noise[:total]
+
+
+# ── the architecture's contract (portbench/reference/__init__.py) ─────────
+
+
+def params(state: dict[str, torch.Tensor], cfg: dict, device="cpu",
+           quant: str | None = None) -> Params:
+    return Params(state, cfg["model"]["heads"], device, quant=quant)
+
+
+def velocity(P: Params, x, cond, ids, t, mask, drop_audio: bool, drop_text: bool,
+             dropout=None) -> torch.Tensor:
+    """The text embedding of ``ids`` at ``x``'s length, then the DiT's velocity."""
+    te = text_embedding(P, ids, x.shape[1], drop=drop_text)
+    return dit_forward(P, x, cond, te, t, mask, drop_audio=drop_audio, dropout=dropout)
+
+
+def dropout_pairs(cfg: dict) -> int:
+    """One (attention, FFN) seed pair a block."""
+    return cfg["model"]["depth"]
+
+
+# ── model FLOPs (products only; elementwise work counts nothing) ──────────
+
+
+def model_dims(cfg: dict) -> dict:
+    m = cfg["model"]
+    return {"dim": m["dim"], "depth": m["depth"], "heads": m["heads"], "ff_mult": m["ff_mult"],
+            "text_dim": m["text_dim"], "conv_layers": m["conv_layers"],
+            "mel_dim": cfg.get("n_mels", 100)}
+
+
+def dit_frame_flops(m: dict) -> float:
+    """Products of one frame through the DiT, attention's key loop aside."""
+    dim, depth, ff, mel, td = m["dim"], m["depth"], m["ff_mult"], m["mel_dim"], m["text_dim"]
+    block = 8 * dim * dim + 4 * dim * dim * ff
+    inp = 2 * (2 * mel + td) * dim + 2 * (2 * dim * (dim // 16) * 31)
+    final = 2 * dim * mel
+    return depth * block + inp + final
+
+
+def dit_row_flops(m: dict, frames: int) -> float:
+    """One forward of one row of ``frames`` kept frames (attention over its own keys)."""
+    attn = 4 * frames * frames * m["dim"] * m["depth"]
+    return frames * dit_frame_flops(m) + attn
+
+
+def text_embed_flops(m: dict, frames: int) -> float:
+    td = m["text_dim"]
+    return m["conv_layers"] * (2 * frames * td * 7 + 8 * frames * td * td)
+
+
+def solve_flops(cfg: dict, row_frames: list[int], steps: int, guided: bool = True) -> float:
+    """A CFG Euler solve: per step one forward of each row, two when guided; the text
+    embedding once a branch; the AdaLN tables once a solve."""
+    m = model_dims(cfg)
+    branches = 2 if guided else 1
+    per_step = sum(dit_row_flops(m, n) for n in row_frames)
+    adaln = steps * (m["depth"] * 2 * m["dim"] * 6 * m["dim"] + 2 * m["dim"] * 2 * m["dim"])
+    text = branches * sum(text_embed_flops(m, n) for n in row_frames)
+    return branches * steps * per_step + text + adaln
+
+
+def train_step_flops(cfg: dict, row_frames: list[int]) -> float:
+    """One training step: 3 × the forward of each row at its kept frames, with the
+    text embedding and each row's AdaLN (no recomputation counted)."""
+    m = model_dims(cfg)
+    fwd = sum(dit_row_flops(m, n) + text_embed_flops(m, n)
+              + m["depth"] * 2 * m["dim"] * 6 * m["dim"] + 2 * m["dim"] * 2 * m["dim"]
+              for n in row_frames if n > 0)
+    return 3.0 * fwd

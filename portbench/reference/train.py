@@ -10,7 +10,8 @@ FFN's GELU, under a counter-hash mask (a murmur3 finaliser over each
 element's flat index and the block's seed). Every random number is drawn from
 one CPU ``torch.Generator`` in the served program's order: the span
 fractions, the span starts, the times, the two drop decisions, ``x0``, then
-one (attention, FFN) seed pair a block.
+the architecture's (attention, FFN) seed pairs (``dropout_pairs``). The
+velocity is the architecture's (``portbench/reference/__init__.py``).
 
 The optimizer: gradients clipped to a global norm of ``max_grad_norm``,
 AdamW (weight decay 0.01, f32 moments) under a linear warm-up from
@@ -23,8 +24,6 @@ import math
 
 import numpy as np
 import torch
-
-from portbench.reference import dit as R
 
 _M32 = 0xFFFFFFFF
 
@@ -40,22 +39,25 @@ def keep_mask(shape: tuple[int, ...], seed: int, rate: float, offset: int, devic
     return (z >= min(int(round(rate * 2 ** 32)), 2 ** 32 - 1)).reshape(shape)
 
 
-def draws(gen: torch.Generator, rows: int, frames: int, n_mels: int, depth: int,
+def draws(gen: torch.Generator, rows: int, frames: int, n_mels: int, pairs: int,
           probs: tuple[float, float]) -> dict:
-    """One step's random numbers, in the program's order."""
+    """One step's random numbers, in the program's order, with ``pairs`` dropout seed
+    pairs."""
     u = torch.rand((3, rows), generator=gen)
     drop = (torch.rand(2, generator=gen) < torch.tensor(list(probs))).tolist()
     x0 = torch.randn((rows, frames, n_mels), generator=gen)
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (depth, 2), generator=gen).tolist()
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (pairs, 2), generator=gen).tolist()
     return {"u": u, "drop_audio": bool(drop[0]) or bool(drop[1]), "drop_text": bool(drop[1]),
             "x0": x0, "seeds": seeds}
 
 
-def loss_and_grads(P: R.Params, mel: torch.Tensor, ids: torch.Tensor, lens: torch.Tensor,
-                   d: dict, frac_range: tuple[float, float], rate: float,
-                   rows_per_block: int) -> tuple[float, list[torch.Tensor]]:
+def loss_and_grads(P, mel: torch.Tensor, ids: torch.Tensor, lens: torch.Tensor, d: dict,
+                   frac_range: tuple[float, float], rate: float, rows_per_block: int,
+                   velocity) -> tuple[float, list[torch.Tensor]]:
     """The CFM loss of a collated batch (mel [B, M, T]) and its gradient for every
-    parameter of ``P`` (in ``P.p``'s order), accumulated over blocks of rows."""
+    parameter of ``P`` (in ``P.p``'s order), accumulated over blocks of rows.
+
+    ``P`` and ``velocity`` are an architecture's ``params`` and ``velocity``."""
     dev = mel.device
     B, M, T = mel.shape
     x1 = mel.transpose(1, 2).float()
@@ -91,9 +93,8 @@ def loss_and_grads(P: R.Params, mel: torch.Tensor, ids: torch.Tensor, lens: torc
                 return x * keep.float() * (1.0 / (1.0 - rate))
             return drop
 
-        te = R.text_embedding(P, ids[sl].to(dev), T, drop=d["drop_text"])
-        pred = R.dit_forward(P, phi, cond, te, t[sl], mask[sl], drop_audio=d["drop_audio"],
-                             dropout=dropout)
+        pred = velocity(P, phi, cond, ids[sl].to(dev), t[sl], mask[sl], d["drop_audio"],
+                        d["drop_text"], dropout=dropout)
         num = (((pred - (x1[sl] - x0[sl])) ** 2) * span[sl][..., None]).sum()
         part = num / max(denom, 1.0)
         part.backward()

@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench.reference.dit import conv1d_same, gelu_erf, layer_norm
+from portbench.reference.layers import conv1d_same, gelu_erf, layer_norm
 
 LOG_MAG_CLIP = float(np.log(1e2))
 VOCODER_NPZ = Path("oron_tts_tpu") / "assets" / "vocoder" / "vocos_default.npz"

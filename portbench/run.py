@@ -2,20 +2,39 @@
 
     python3 -m portbench.run --workload base.train.48k --seed 7 --seconds 51 --trace 0
 
-Reads ``BENCHMARK.json`` at the checkout's root, finds the cell's
-configuration (``portbench/configs/<config>.json``), traffic mix
+Reads ``BENCHMARK.json`` at the checkout's root and finds, by name, the
+cell's configuration (``portbench/configs/<config>.json``), traffic mix
 (``portbench/traffic/<mix>.json``), limits (``portbench/limits/<cell>.json``)
 and, with ``--trace 1``, each per-layer metric's reader
-(``portbench/metrics/<metric>.py``) by name. It makes the inputs and weights
-from ``--seed``, sets the cell up (weights on the device, the kernels built
-or loaded from ``build/`` inside the checkout, the cell's shapes warmed),
-measures for ``--seconds``, then checks the answers against the plain
-reference. The last line of standard output is the result:
-``{"correct", "attempted", "failed", "metrics", "device"[, "breakdown"]}``;
-the numbers compared, each beside its limit, are the last lines of standard
-error and the line's last key. Without a card, or with fewer cards than the
-cell asks for, it exits 2 and prints no result; if JAX or the JAX package
-was loaded, it exits 3.
+(``portbench/metrics/<metric>.py``). The configuration's ``model.backbone``
+(``"DiT"`` where it is absent), lower-cased, names its architecture:
+``portbench/reference/<backbone>.py``, the plain reference with its FLOP count
+and weight rules (the contract is ``portbench/reference/__init__.py``). An
+unknown backbone stops the run there, before any set-up, naming the missing
+file.
+
+It makes the inputs and weights from ``--seed``, sets the cell up (weights
+on the device, the kernels built or loaded from ``build/`` inside the
+checkout, the cell's shapes warmed), measures for ``--seconds``, then checks
+the answers against the plain reference. The last line of standard output is
+the result: ``{"correct", "attempted", "failed", "metrics", "device"[,
+"breakdown"]}``; the numbers compared, each beside its limit, are the last
+lines of standard error and the line's last key. Without a card, or with
+fewer cards than the cell asks for, it exits 2 and prints no result; if JAX
+or the JAX package was loaded, it exits 3.
+
+A configuration of a new architecture comes in as new files and entries
+only: ``portbench/configs/<config>.json`` (naming its ``backbone``),
+``portbench/reference/<backbone>.py``, ``portbench/limits/<cell>.json``, a
+reader ``portbench/metrics/<metric>.py`` for each per-layer metric it adds
+with its test case ``portbench/tests/metric_cases/<metric>.json``, and in
+``BENCHMARK.json`` its ``configs`` entry, the cell's ``workloads`` entry,
+those ``per_layer`` entries, and an ``end_to_end`` entry for each quantity
+it reports besides ``setup_s`` (a new traffic mix adds
+``portbench/traffic/<mix>.json``). An accepted metric's ``workloads`` list
+stays as it is: the new entry is named ``<quantity>.<suffix>``, as
+``train_frames_per_s.e2``, lists the new cell, takes its own bound, and
+reads the record's ``<quantity>`` (``end_to_end``).
 """
 
 from __future__ import annotations
@@ -56,12 +75,19 @@ def loaded_forbidden() -> list[str]:
 
 
 def load_spec(root: Path, workload: str) -> tuple[dict, dict, dict]:
+    """The benchmark, the cell and its configuration, whose architecture is found here."""
+    from portbench.reference import architecture
+
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cell = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if cell is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     cfg = json.loads((root / conf["file"]).read_text())
+    try:
+        architecture(cfg)
+    except LookupError as exc:
+        raise SystemExit(f"config {conf['name']!r}: {exc}") from None
     return bench, cell, cfg
 
 
@@ -82,11 +108,16 @@ def run_cell(root: Path, bench: dict, cell: dict, cfg: dict, seed: int, seconds:
 
 
 def end_to_end(bench: dict, cell: dict, rec: dict) -> dict:
+    """The cell's end-to-end metrics. A metric is the record's quantity of its own name
+    or, where the record has none, of its name's stem before the first dot: an entry
+    ``train_frames_per_s.<suffix>`` whose ``workloads`` lists a cell added later reads
+    ``train_frames_per_s`` there, with no accepted entry edited."""
     out = {}
     for m in bench["end_to_end"]:
         if "workloads" in m and cell["name"] not in m["workloads"]:
             continue
-        out[m["name"]] = {"value": float(rec[m["name"]]), "unit": m["unit"]}
+        key = m["name"] if m["name"] in rec else m["name"].split(".", 1)[0]
+        out[m["name"]] = {"value": float(rec[key]), "unit": m["unit"]}
     return out
 
 
@@ -135,8 +166,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     root = Path.cwd()
-    bench, cell, cfg = load_spec(root, args.workload)
     cache_env(root)
+    bench, cell, cfg = load_spec(root, args.workload)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):

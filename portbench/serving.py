@@ -25,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from portbench import audio, flops, record
+from portbench.reference import architecture
 from portbench.traffic import Traffic, check_set
 
 DRAIN_S = 60.0  # how long answers due in the window are waited for once it closes
@@ -47,7 +48,8 @@ def build_model(cfg: dict, seed: int, device: str):
     dtype = getattr(torch, cfg["dit_dtype"]) if device != "cpu" else torch.float32
     model = F5TTS.from_config(F5Config.from_dict(port_config(cfg)), device=device, dtype=dtype)
     shapes = {k: tuple(v.shape) for k, v in model.backbone.state_dict().items()}
-    model.backbone.load_state_dict(dit_state(shapes, seed, model.device, dtype), strict=True)
+    model.backbone.load_state_dict(dit_state(shapes, seed, model.device, dtype,
+                                             architecture(cfg)), strict=True)
     model.params_loaded = True
     model.load_vocoder()
     return model, shapes
@@ -345,6 +347,7 @@ class Stack:
     def __init__(self, cfg: dict, seed: int, device: str, server: dict) -> None:
         from oron_tts_tpu_torch.cli import serve
 
+        self.arch = architecture(cfg)
         self.model, self.shapes = build_model(cfg, seed, device)
         self.service = serve.Service(self.model, max_batch=int(server.get("max_batch", 16)),
                                      max_queue=int(server.get("max_queue", 64)))
@@ -358,7 +361,8 @@ class Stack:
         from portbench.weights import dit_state
 
         m = self.model
-        m.backbone.load_state_dict(dit_state(self.shapes, seed, m.device, m.dtype), strict=True)
+        m.backbone.load_state_dict(dit_state(self.shapes, seed, m.device, m.dtype, self.arch),
+                                   strict=True)
 
     def close(self) -> None:
         self.httpd.shutdown()
@@ -520,7 +524,7 @@ def _trace_record(prof, box: dict, probe: record.Probe, window: dict, cfg: dict,
     waits = [c["t0"] - submits[s] for c in probe.calls["batch"] if w0 <= c["t0"] < w1
              for s in c["seeds"] if s in submits]
     waits += [sp["t1"] - sp["t0"] for sp in in_window if sp["name"] == "model lock wait"]
-    m = model_dims(cfg)
+    arch = architecture(cfg)
     solves = [sp for sp in in_window if sp["name"] == "solve"]
     return {
         "busy_s": dev["busy_s"], "window_s": (t1 - t0) / 1e9, "seconds": seconds,
@@ -529,7 +533,7 @@ def _trace_record(prof, box: dict, probe: record.Probe, window: dict, cfg: dict,
         "batch_rows": [c["rows"] for c in probe.calls["batch"] if w0 <= c["t0"] < w1],
         "solves": [{"s": (sp["t1"] - sp["t0"]) / 1e9, "steps": sp["steps"], "frames": sp["frames"],
                     "bucket": sp["bucket"], "guided": sp["guided"]} for sp in solves],
-        "solve_flops": sum(flops.solve_flops(m, sp["frames"], sp["steps"], sp["guided"])
+        "solve_flops": sum(arch.solve_flops(cfg, sp["frames"], sp["steps"], sp["guided"])
                            for sp in solves),
         "vocoder_s": sum((sp["t1"] - sp["t0"]) / 1e9 for sp in in_window
                          if sp["name"] == "vocoder"),
@@ -540,10 +544,3 @@ def _trace_record(prof, box: dict, probe: record.Probe, window: dict, cfg: dict,
         "mel_bound_s": sum(flops.mel_bound_s(c["waves"], c["samples"])
                            for c in probe.calls["log_mel"] if c["traced"]),
     }
-
-
-def model_dims(cfg: dict) -> dict:
-    m = cfg["model"]
-    return {"dim": m["dim"], "depth": m["depth"], "heads": m["heads"], "ff_mult": m["ff_mult"],
-            "text_dim": m["text_dim"], "conv_layers": m["conv_layers"],
-            "mel_dim": cfg.get("n_mels", 100)}

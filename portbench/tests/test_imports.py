@@ -27,17 +27,30 @@ run.per_layer(run.Path("."), json.load(open("BENCHMARK.json")),
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
+# every module under portbench/reference/, so that an architecture's reference added
+# later is held to the same rule
 REFERENCE = """
-import json, sys
-from portbench.reference import dit, mel, text, train, vocos
+import importlib, json, pathlib, sys
+import portbench.reference as ref
+imported = []
+for path in sorted(pathlib.Path(ref.__file__).parent.glob("*.py")):
+    name = "portbench.reference" + ("" if path.stem == "__init__" else "." + path.stem)
+    importlib.import_module(name)
+    imported.append(name)
+print(json.dumps(imported))
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 
-def loaded(code: str) -> set[str]:
+def printed(code: str) -> list:
+    """The JSON of each line that ``code`` prints, run in a fresh interpreter."""
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=600, check=True)
-    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+    return [json.loads(line) for line in out.stdout.strip().splitlines()]
+
+
+def loaded(code: str) -> set[str]:
+    return set(printed(code)[-1])
 
 
 def test_the_harness_loads_no_jax_nor_the_jax_package():
@@ -47,8 +60,10 @@ def test_the_harness_loads_no_jax_nor_the_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    mods = loaded(REFERENCE)
-    bad = mods & (FORBIDDEN | {"oron_tts_tpu_torch"})
+    imported, mods = printed(REFERENCE)[-2:]
+    # the glob found the package, the DiT's architecture and the training step
+    assert {"portbench.reference.dit", "portbench.reference.train"} <= set(imported), imported
+    bad = set(mods) & (FORBIDDEN | {"oron_tts_tpu_torch"})
     assert not bad, bad
 
 

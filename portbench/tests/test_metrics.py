@@ -8,6 +8,7 @@ import json
 import pytest
 
 from portbench import flops, record
+from portbench.reference import architecture
 from portbench.tests.tiny import ROOT
 
 MS = 1_000_000  # ns
@@ -35,21 +36,42 @@ CASES = [
     ("dit_mfu.train", TRAIN, 20.0), ("device_idle_share.train", TRAIN, 20.0),
 ]
 
+CASE_FILES = ROOT / "portbench" / "tests" / "metric_cases"
 
-@pytest.mark.parametrize("name,trace,want", CASES, ids=[c[0] for c in CASES])
+
+def recorded_cases(folder=CASE_FILES) -> list[tuple[str, dict, float]]:
+    """``CASES``, and the case of each reader added later as a file of its own,
+    ``<folder>/<metric>.json`` holding ``{"trace": {...}, "want": <reading>}``, so that
+    a new per-layer metric comes in as new files only."""
+    found = []
+    for path in sorted(folder.glob("*.json")):
+        case = json.loads(path.read_text())
+        found.append((path.stem, case["trace"], case["want"]))
+    return CASES + found
+
+
+ALL = recorded_cases()
+
+
+@pytest.mark.parametrize("name,trace,want", ALL, ids=[c[0] for c in ALL])
 def test_reader_on_a_recorded_trace(name, trace, want):
     assert reader(name)(trace) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
+@pytest.mark.parametrize("name", [c[0] for c in ALL])
 def test_reader_that_finds_nothing_returns_none(name):
     assert reader(name)({"seconds": 40.0, "kernels": {}}) is None
+
+
+def test_a_case_file_adds_a_case(tmp_path):
+    (tmp_path / "dit_mfu.e2.json").write_text(json.dumps({"trace": TRAIN, "want": 20.0}))
+    assert recorded_cases(tmp_path) == CASES + [("dit_mfu.e2", TRAIN, 20.0)]
 
 
 def test_every_per_layer_metric_has_a_reader_and_a_tested_case():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     names = {m["name"] for m in bench["per_layer"]}
-    assert names == {c[0] for c in CASES}
+    assert names == {c[0] for c in ALL}
     readers = {p.name[:-3] for p in (ROOT / "portbench" / "metrics").glob("*.py")}
     assert readers == names  # a reader for every metric, and none without one
 
@@ -104,11 +126,14 @@ def test_bounds_by_operations_and_by_bytes():
 
 
 def test_model_flops_count_cfg_rows_and_steps():
-    m = {"dim": 1024, "depth": 22, "heads": 16, "ff_mult": 4, "text_dim": 512,
-         "conv_layers": 4, "mel_dim": 100}
-    one = flops.dit_row_flops(m, 500)
-    solve = flops.solve_flops(m, [500], 32, guided=True)
+    cfg = json.loads((ROOT / "portbench" / "configs" / "oron-base.json").read_text())
+    arch = architecture(cfg)  # the configuration's own count
+    m = arch.model_dims(cfg)
+    assert m == {"dim": 1024, "depth": 22, "heads": 16, "ff_mult": 4, "text_dim": 512,
+                 "conv_layers": 4, "mel_dim": 100}
+    one = arch.dit_row_flops(m, 500)
+    solve = arch.solve_flops(cfg, [500], 32, guided=True)
     assert solve > 64 * one and solve < 64.1 * one
-    assert flops.solve_flops(m, [500], 32, guided=False) < solve / 1.9
-    assert flops.train_step_flops(m, [500, 0]) == pytest.approx(3 * (
-        one + flops.text_embed_flops(m, 500) + 22 * 2 * 1024 * 6 * 1024 + 2 * 1024 * 2 * 1024))
+    assert arch.solve_flops(cfg, [500], 32, guided=False) < solve / 1.9
+    assert arch.train_step_flops(cfg, [500, 0]) == pytest.approx(3 * (
+        one + arch.text_embed_flops(m, 500) + 22 * 2 * 1024 * 6 * 1024 + 2 * 1024 * 2 * 1024))

@@ -25,7 +25,7 @@ def tiny():
     cfg["model"]["p_dropout"] = 0.1
     model = F5TTS.from_config(F5Config.from_dict(cfg), device="cpu", dtype=torch.float32)
     shapes = {k: tuple(v.shape) for k, v in model.backbone.state_dict().items()}
-    state = dit_state(shapes, 2**33 + 1, "cpu", torch.float32)
+    state = dit_state(shapes, 2**33 + 1, "cpu", torch.float32, R)
     model.backbone.load_state_dict(state)
     model.params_loaded = True
     return model, R.Params(state, cfg["model"]["heads"]), cfg
@@ -132,7 +132,8 @@ def test_training_loss_and_gradients_match_the_port(tiny):
     loss.backward()
     d = RTrain.draws(torch.Generator().manual_seed(3), B, T, 100, m["depth"],
                      (m["audio_drop_prob"], m["cond_drop_prob"]))
-    want, grads = RTrain.loss_and_grads(P, mel, ids, lens, d, (0.7, 1.0), m["p_dropout"], 3)
+    want, grads = RTrain.loss_and_grads(P, mel, ids, lens, d, (0.7, 1.0), m["p_dropout"], 3,
+                                         velocity=R.velocity)
     assert float(loss.detach()) == pytest.approx(want, rel=1e-5)
     for (name, p), gr in zip(model.backbone.named_parameters(), grads):
         assert (p.grad - gr).norm() <= 1e-4 * gr.norm() + 1e-9, name

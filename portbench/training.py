@@ -30,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from portbench import audio, flops, record
+from portbench.reference import architecture
 from portbench.traffic import make_text, quantile_lengths
 
 CHECK_STEPS = 3
@@ -109,7 +110,8 @@ def build(cfg: dict, seed: int, device: str, data_dir: Path, log_dir: Path):
                                and dev.type == "cuda") else torch.float32
     model = F5TTS(F5Config.from_dict(config), device=dev, dtype=dtype)
     shapes = {k: tuple(v.shape) for k, v in model.backbone.state_dict().items()}
-    model.backbone.load_state_dict(dit_state(shapes, seed, dev, dtype), strict=True)
+    model.backbone.load_state_dict(dit_state(shapes, seed, dev, dtype, architecture(cfg)),
+                                   strict=True)
     model.params_loaded = True
     dataset = train_cli.build_dataset(str(data_dir), config)
     loader, _ = train_cli.build_loaders(dataset, config)
@@ -290,8 +292,6 @@ def _probe_trainer(trainer, probe: record.Probe) -> None:
 
 def _trace_record(box: dict, probe: record.Probe, cfg: dict, seconds: float, t_open: float,
                   t_close: float) -> dict:
-    from portbench.serving import model_dims
-
     events = record.aligned(record.read_profiler(box["prof"]), box)
     t0, t1 = box["t0"], box["t1"]
     dev = record.device_summary(events, t0, t1)
@@ -299,7 +299,6 @@ def _trace_record(box: dict, probe: record.Probe, cfg: dict, seconds: float, t_o
     w0, w1 = int(t_open * 1e9) + shift, int(t_close * 1e9) + shift
     spans = [sp for sp in probe.spans if w0 <= sp["t0"] < w1]
     steps = [sp for sp in spans if sp["name"] == "step"]
-    m = model_dims(cfg)
     update_s, n_updates = record.between_edges(events)
     print(f"update edges: {n_updates} pairs, {update_s:.6f} s between them", file=sys.stderr)
     from oron_tts_tpu_torch.ops import flash_attention as fa
@@ -311,7 +310,7 @@ def _trace_record(box: dict, probe: record.Probe, cfg: dict, seconds: float, t_o
         "idle_gaps": record.idle_gaps(dev["busy"], t0, t1, probe.spans),
         "data_wait_s": [(sp["t1"] - sp["t0"]) / 1e9 for sp in spans if sp["name"] == "data wait"],
         "steps": len(steps),
-        "train_flops": sum(sp["share"] * flops.train_step_flops(m, sp["lengths"]) for sp in steps),
+        "train_flops": window_flops(cfg, steps),
         "kept_frames": sum(sum(sp["lengths"]) for sp in steps),
         "padded_frames": sum(sp["padded"] for sp in steps),
         "update_device_s": update_s, "updates_traced": n_updates,
@@ -320,6 +319,13 @@ def _trace_record(box: dict, probe: record.Probe, cfg: dict, seconds: float, t_o
                                    int(c["kv"].clamp(max=c["T"]).sum()))
             for c in probe.calls["attn_bwd"] if c["traced"]),
     }
+
+
+def window_flops(cfg: dict, steps: list[dict]) -> float:
+    """Model FLOPs of the traced steps, each by its share inside the window, by the
+    configuration's architecture."""
+    arch = architecture(cfg)
+    return sum(sp["share"] * arch.train_step_flops(cfg, sp["lengths"]) for sp in steps)
 
 
 def plant(trainer, fault: str) -> None:
