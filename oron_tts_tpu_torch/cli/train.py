@@ -9,6 +9,9 @@
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m oron_tts_tpu_torch.cli.train --config configs/runpod.yaml --mesh 2x2
 
+    python -m oron_tts_tpu_torch.cli.train --config configs/e2_base.yaml \\
+        --from-local --data-dir data/processed
+
 Counterpart of the JAX package's ``cli/train.py``: ``--from-local`` data (a
 ``metadata.json`` of ``audio_path``/``text`` records) or a HuggingFace
 dataset (``--dataset``, ingested by ``TTSDataset.from_hf_dataset``, which
@@ -16,8 +19,10 @@ needs the ``datasets`` library and the network). It runs on the card unless
 ``--device cpu`` is given. ``gradient_checkpointing: auto`` is decided by the
 memory estimate of ``utils/memory.py`` for the worst padded batch the
 collator can build, against the card's memory (the host's with ``--device
-cpu``). ``--pretrain-ckpt`` takes an ``.npz`` checkpoint (either package's)
-or the reference's torch ``.pt`` or ``.safetensors`` file, whose tensors of
+cpu``), for the backbone the config names (``model.backbone``: the F5-TTS
+DiT, or E2 TTS's UNetT in ``configs/e2_base.yaml``). ``--pretrain-ckpt``
+takes an ``.npz`` checkpoint (either package's) or, for a DiT, the
+reference's torch ``.pt`` or ``.safetensors`` file, whose tensors of
 another shape (an official checkpoint's text embedding) keep their fresh
 values and are printed. ``--push-to-hub`` mirrors the checkpoint directory
 to ``--hf-repo`` every ``--hub-upload-interval`` interval saves and once at
@@ -378,6 +383,9 @@ def main(argv: list[str] | None = None) -> None:
     )
     if args.pretrain_ckpt:
         path = Path(args.pretrain_ckpt)
+        if path.suffix != ".npz" and model.config.model.backbone != "DiT":
+            raise SystemExit(f"--pretrain-ckpt {path.name}: the torch layout's keys are the "
+                             f"DiT's; a {model.config.model.backbone} takes an .npz checkpoint")
         if path.suffix == ".npz":
             trees = load_npz_tree(path)
             trainer.set_params(trees.get("ema") or trees.get("params") or trees)

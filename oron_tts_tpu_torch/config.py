@@ -13,6 +13,9 @@ from pathlib import Path
 from typing import Any
 
 
+BACKBONES = ("DiT", "UNetT")
+
+
 def load_config(path: str | Path) -> dict[str, Any]:
     path = Path(path)
     text = path.read_text()
@@ -39,6 +42,12 @@ class ModelConfig:
     # lax.scan over stacked DiT blocks: same numerics, ~depth× faster cold
     # compile; checkpoints stay in the unrolled block{i} layout on disk
     scan_blocks: bool = False
+    # F5-TTS's backbone names: "DiT" (F5-TTS) or "UNetT" (E2 TTS, models/unett.py)
+    backbone: str = "DiT"
+    # UNetT only: re-zero the text padding between text conv blocks, and the
+    # number of heads RoPE rotates (None: every head)
+    text_mask_padding: bool = True
+    pe_attn_head: int | None = None
 
     @property
     def dim_head(self) -> int:
@@ -65,19 +74,27 @@ class F5Config:
     def from_dict(cls, cfg: dict[str, Any]) -> "F5Config":
         m = cfg.get("model", {}) or {}
         frac = m.get("frac_lengths_mask", [0.7, 1.0])
+        backbone = m.get("backbone", "DiT")
+        if backbone not in BACKBONES:
+            raise ValueError(f"model.backbone must be one of {BACKBONES}, got {backbone!r}")
+        # F5-TTS's UNetT defaults: text at the mel width, no text conv blocks
+        unett = backbone == "UNetT"
         model = ModelConfig(
             vocab_size=m.get("vocab_size", 65),
             dim=m.get("dim", 1024),
             depth=m.get("depth", 22),
             heads=m.get("heads", 16),
             ff_mult=m.get("ff_mult", 4),
-            text_dim=m.get("text_dim", 512),
-            conv_layers=m.get("conv_layers", 4),
+            text_dim=m.get("text_dim", cfg.get("n_mels", 100) if unett else 512),
+            conv_layers=m.get("conv_layers", 0 if unett else 4),
             p_dropout=m.get("p_dropout", 0.1),
             audio_drop_prob=m.get("audio_drop_prob", 0.3),
             cond_drop_prob=m.get("cond_drop_prob", 0.2),
             frac_lengths_mask=(float(frac[0]), float(frac[1])),
             scan_blocks=m.get("scan_blocks", False),
+            backbone=backbone,
+            text_mask_padding=m.get("text_mask_padding", True),
+            pe_attn_head=m.get("pe_attn_head"),
         )
         audio = AudioConfig(
             sample_rate=cfg.get("sample_rate", 24000),

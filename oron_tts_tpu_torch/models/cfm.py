@@ -7,7 +7,7 @@ MSE between the predicted and the true flow over the span's frames × mel
 bins. Every random number of a training loss comes from one explicit CPU
 ``torch.Generator`` (so a step is the same on the CPU and on the card):
 span fractions, span starts, times, the two drop decisions, ``x0``, and one
-``(attention, FFN)`` dropout seed pair per DiT block, in that order. With
+``(attention, FFN)`` dropout seed pair per backbone block, in that order. With
 ``train=False`` the loss is deterministic (``t = 0.5``, a centred span of
 the middle fraction, no dropout). The streams differ from ``jax.random``'s;
 parity tests pass ``x0`` in.
@@ -27,8 +27,9 @@ the single-process gradient.
 
 ``CFM.sample``: sway-warped time grid, classifier-free guidance as one doubled-batch
 forward per step (``pred + (pred − null)·cfg``), AdaLN projections hoisted
-over the whole schedule before the loop (``hoist_t_mods=False`` runs them inside
-every forward instead, as the reference does), and the conditioning region
+over the whole schedule before the loop (a UNetT, which has none, hoists its
+time embedding alone; ``hoist_t_mods=False`` runs them inside every forward
+instead, as the reference does), and the conditioning region
 re-substituted at the end. The ODE state stays f32 whatever the model's
 compute dtype, as in the JAX sampler. ``cfg_interval=(lo, hi)`` applies guidance only at
 the steps whose time lies in the interval (the others run one cond-only
@@ -48,7 +49,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from oron_tts_tpu_torch.models.dit import DiT, precompute_t_mods
+from oron_tts_tpu_torch.models.dit import Backbone
 from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 from oron_tts_tpu_torch.utils import trace
 
@@ -140,11 +141,11 @@ def cfg_segments(
 
 
 class CFM:
-    """Stateless trainer/sampler around a DiT backbone."""
+    """Stateless trainer/sampler around a DiT or UNetT backbone."""
 
     def __init__(
         self,
-        backbone: DiT,
+        backbone: Backbone,
         n_mels: int = 100,
         audio_drop_prob: float = 0.3,
         cond_drop_prob: float = 0.2,
@@ -347,11 +348,11 @@ class CFM:
             half = ((t_dev[:-1] + t_dev[1:]) / 2 if hoist_t_mods
                     else t_dev[:-1] + (t_dev[1:] - t_dev[:-1]) / 2)
             times = torch.cat([times, half])
-        if hoist_t_mods:
-            block_mods, final_mods = precompute_t_mods(dit, dit.embed_time(times))
+        if hoist_t_mods:  # the DiT's AdaLN tables; a UNetT's time embedding alone
+            tables = dit.precompute_t_mods(dit.embed_time(times))
 
         def velocity(x: torch.Tensor, row: int, guided: bool) -> torch.Tensor:
-            tm = (block_mods[:, row], final_mods[row]) if hoist_t_mods else None
+            tm = tuple(t.select(-2, row) for t in tables) if hoist_t_mods else None
             t_b = times[row].expand(batch)
             if not guided:
                 return dit(x, step_cond, text_ids, t_b, mask=attn_mask,

@@ -26,6 +26,11 @@ model group) and :meth:`DiT.unshard` gathers them back; everything else
 ``norm_out``, ``proj_out``) stays whole on every rank. ``batch0``, the
 global index of the batch's first row, places a data rank's dropout masks.
 
+:class:`Backbone` holds what the DiT shares with E2's UNetT
+(``models/unett.py``): ``forward``, ``forward_cfg``, the text and time
+embeddings, and the Megatron split; each backbone has its own
+``_transformer`` and ``precompute_t_mods``.
+
 For int8 serving, ``quantize_dit_params`` swaps the six attention and FFN
 projections of every block for ``QDense`` after load; ``DiT(quant=mode)``
 builds them so from the start, to load a tree that is already quantized.
@@ -48,6 +53,7 @@ from oron_tts_tpu_torch.models.layers import (
     heads_rope,
     lanes_rope,
     resolve_attn_impl,
+    rope_heads_local,
 )
 from oron_tts_tpu_torch.models.text_embed import TextEmbedding
 from oron_tts_tpu_torch.parallel import mesh as pmesh
@@ -69,7 +75,132 @@ class InputEmbedding(nn.Module):
         return self.conv_pos_embed(h, mask=mask) + h
 
 
-class DiT(nn.Module):
+class Backbone(nn.Module):
+    """What the DiT and the UNetT share; a subclass builds ``time_embed``, ``text_embed``,
+    ``input_embed`` and ``block{i}``, and defines ``_transformer`` and
+    ``precompute_t_mods``."""
+
+    @property
+    def blocks(self) -> list[nn.Module]:
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def shard(self, mesh) -> None:
+        """Keep this rank's Megatron slice of every block (a no-op at TP 1).
+
+        Refuses a head count or FFN width the model axis does not divide,
+        before anything is sliced.
+        """
+        if self.mesh is not None:
+            raise RuntimeError(f"the {type(self).__name__} is already sharded; unshard it first")
+        tp = TensorParallel(mesh.model_rank, mesh.n_model, mesh.model_group)
+        tp.split(self.heads, "heads")
+        tp.split(self.ff_mult * self.dim, "ff_mult*dim")
+        if mesh.n_model > 1:
+            for blk in self.blocks:
+                blk.shard(tp)
+            self.attn_impl = self.block0.attn.impl if self.depth else None
+        self.mesh = mesh
+
+    def unshard(self) -> None:
+        """Gather every sharded tensor back (a collective over the model group)."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is None or mesh.n_model == 1:
+            return
+        for name, t in list(self.named_parameters()) + list(self.named_buffers()):
+            spec = pmesh.spec_for_name(name)
+            if "model" not in spec:
+                continue
+            parent = self.get_submodule(name.rsplit(".", 1)[0])
+            leaf = name.rsplit(".", 1)[1]
+            whole = pmesh.gather_tensor(t.detach(), spec, mesh)
+            setattr(parent, leaf, nn.Parameter(whole, requires_grad=t.requires_grad)
+                    if isinstance(t, nn.Parameter) else whole)
+        for blk in self.blocks:
+            blk.attn.heads, blk.attn.tp, blk.ff.tp = self.heads, None, None
+            blk.attn.rope_heads = rope_heads_local(blk.attn.pe_attn_head, self.heads, None)
+            blk.attn.impl = resolve_attn_impl(self.heads, self.dim_head, *blk.attn._impl_choice)
+        self.attn_impl = self.block0.attn.impl if self.depth else None
+
+    @property
+    def local_heads(self) -> int:
+        """Heads this rank computes: ``heads / TP`` once sharded."""
+        return self.block0.attn.heads if self.depth else self.heads
+
+    def embed_text(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False) -> torch.Tensor:
+        """Hoistable text embedding (once per CFG branch, reused every step)."""
+        return self.text_embed(text_ids, seq_len, drop_text=drop_text)
+
+    def embed_time(self, time: torch.Tensor) -> torch.Tensor:
+        """Hoistable timestep embedding: [S] → [S, dim]."""
+        return self.time_embed(time)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cond: torch.Tensor,
+        text_ids: torch.Tensor | None,
+        time: torch.Tensor | None,
+        mask: torch.Tensor | None = None,
+        drop_audio_cond: bool = False,
+        drop_text: bool = False,
+        text_embed: torch.Tensor | None = None,
+        t_mods: tuple[torch.Tensor, ...] | None = None,
+        dropout_seeds: list[tuple[int, int]] | None = None,
+        batch0: int = 0,
+    ) -> torch.Tensor:
+        """Velocity [B, T, mel_dim] for noised mel x and conditioning cond.
+
+        ``drop_audio_cond`` and ``drop_text`` are one decision for the whole
+        batch, as in the JAX package's CFG dropout; ``batch0`` is the global
+        index of ``x``'s first row (where a data rank's dropout masks start).
+        ``t_mods`` replaces ``time``: each of ``precompute_t_mods``'s tables at
+        one step (its second-last axis taken).
+        """
+        t = None
+        if t_mods is None:
+            if time.ndim == 0:
+                time = time.expand(x.shape[0])
+            t = self.time_embed(time)
+        if text_embed is None:
+            text_embed = self.embed_text(text_ids, x.shape[1], drop_text=drop_text)
+        h = self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
+        return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds,
+                                 batch0=batch0)
+
+    def forward_cfg(
+        self,
+        x: torch.Tensor,
+        cond: torch.Tensor,
+        text_embed_cond: torch.Tensor,
+        text_embed_uncond: torch.Tensor,
+        time: torch.Tensor | None,
+        mask: torch.Tensor | None = None,
+        t_mods: tuple[torch.Tensor, ...] | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """CFG double batch: rows [cond; uncond] through one pass.
+
+        The unconditional rows drop the audio conditioning and use the
+        dropped-text embedding. Returns (pred, null_pred).
+        """
+        b = x.shape[0]
+        t2 = None
+        if t_mods is None:
+            if time.ndim == 0:
+                time = time.expand(b)
+            t = self.time_embed(time)
+            t2 = torch.cat([t, t], dim=0)
+        mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
+        h = self.input_embed(
+            torch.cat([x, x], dim=0),
+            torch.cat([cond, torch.zeros_like(cond)], dim=0),
+            torch.cat([text_embed_cond, text_embed_uncond], dim=0),
+            mask=mask2,
+        )
+        out = self._transformer(h, t2, mask2, t_mods=t_mods)
+        return out[:b], out[b:]
+
+
+class DiT(Backbone):
     def __init__(
         self,
         dim: int = 1024,
@@ -104,59 +235,6 @@ class DiT(nn.Module):
         self.norm_out = AdaLayerNormFinal(dim)
         self.proj_out = nn.Linear(dim, mel_dim)
 
-    @property
-    def blocks(self) -> list[DiTBlock]:
-        return [getattr(self, f"block{i}") for i in range(self.depth)]
-
-    def shard(self, mesh) -> None:
-        """Keep this rank's Megatron slice of every block (a no-op at TP 1).
-
-        Refuses a head count or FFN width the model axis does not divide,
-        before anything is sliced.
-        """
-        if self.mesh is not None:
-            raise RuntimeError("the DiT is already sharded; unshard it first")
-        tp = TensorParallel(mesh.model_rank, mesh.n_model, mesh.model_group)
-        tp.split(self.heads, "heads")
-        tp.split(self.ff_mult * self.dim, "ff_mult*dim")
-        if mesh.n_model > 1:
-            for blk in self.blocks:
-                blk.shard(tp)
-            self.attn_impl = self.block0.attn.impl if self.depth else None
-        self.mesh = mesh
-
-    def unshard(self) -> None:
-        """Gather every sharded tensor back (a collective over the model group)."""
-        mesh, self.mesh = self.mesh, None
-        if mesh is None or mesh.n_model == 1:
-            return
-        for name, t in list(self.named_parameters()) + list(self.named_buffers()):
-            spec = pmesh.spec_for_name(name)
-            if "model" not in spec:
-                continue
-            parent = self.get_submodule(name.rsplit(".", 1)[0])
-            leaf = name.rsplit(".", 1)[1]
-            whole = pmesh.gather_tensor(t.detach(), spec, mesh)
-            setattr(parent, leaf, nn.Parameter(whole, requires_grad=t.requires_grad)
-                    if isinstance(t, nn.Parameter) else whole)
-        for blk in self.blocks:
-            blk.attn.heads, blk.attn.tp, blk.ff.tp = self.heads, None, None
-            blk.attn.impl = resolve_attn_impl(self.heads, self.dim_head, *blk.attn._impl_choice)
-        self.attn_impl = self.block0.attn.impl if self.depth else None
-
-    @property
-    def local_heads(self) -> int:
-        """Heads this rank computes: ``heads / TP`` once sharded."""
-        return self.block0.attn.heads if self.depth else self.heads
-
-    def embed_text(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False) -> torch.Tensor:
-        """Hoistable text embedding (once per CFG branch, reused every step)."""
-        return self.text_embed(text_ids, seq_len, drop_text=drop_text)
-
-    def embed_time(self, time: torch.Tensor) -> torch.Tensor:
-        """Hoistable timestep embedding: [S] → [S, dim]."""
-        return self.time_embed(time)
-
     def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None, batch0=0):
         B, T, _ = h.shape
         if self.attn_impl == "lanes":
@@ -175,68 +253,9 @@ class DiT(nn.Module):
             h = checkpoint(blk, *args, use_reentrant=False) if remat else blk(*args)
         return self.proj_out(self.norm_out(h, t, mods=final_mods))
 
-    def forward(
-        self,
-        x: torch.Tensor,
-        cond: torch.Tensor,
-        text_ids: torch.Tensor | None,
-        time: torch.Tensor | None,
-        mask: torch.Tensor | None = None,
-        drop_audio_cond: bool = False,
-        drop_text: bool = False,
-        text_embed: torch.Tensor | None = None,
-        t_mods: tuple[torch.Tensor, torch.Tensor] | None = None,
-        dropout_seeds: list[tuple[int, int]] | None = None,
-        batch0: int = 0,
-    ) -> torch.Tensor:
-        """Velocity [B, T, mel_dim] for noised mel x and conditioning cond.
-
-        ``drop_audio_cond`` and ``drop_text`` are one decision for the whole
-        batch, as in the JAX package's CFG dropout; ``batch0`` is the global
-        index of ``x``'s first row (where a data rank's dropout masks start).
-        """
-        t = None
-        if t_mods is None:
-            if time.ndim == 0:
-                time = time.expand(x.shape[0])
-            t = self.time_embed(time)
-        if text_embed is None:
-            text_embed = self.embed_text(text_ids, x.shape[1], drop_text=drop_text)
-        h = self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
-        return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds,
-                                 batch0=batch0)
-
-    def forward_cfg(
-        self,
-        x: torch.Tensor,
-        cond: torch.Tensor,
-        text_embed_cond: torch.Tensor,
-        text_embed_uncond: torch.Tensor,
-        time: torch.Tensor | None,
-        mask: torch.Tensor | None = None,
-        t_mods: tuple[torch.Tensor, torch.Tensor] | None = None,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """CFG double batch: rows [cond; uncond] through one pass.
-
-        The unconditional rows drop the audio conditioning and use the
-        dropped-text embedding. Returns (pred, null_pred).
-        """
-        b = x.shape[0]
-        t2 = None
-        if t_mods is None:
-            if time.ndim == 0:
-                time = time.expand(b)
-            t = self.time_embed(time)
-            t2 = torch.cat([t, t], dim=0)
-        mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
-        h = self.input_embed(
-            torch.cat([x, x], dim=0),
-            torch.cat([cond, torch.zeros_like(cond)], dim=0),
-            torch.cat([text_embed_cond, text_embed_uncond], dim=0),
-            mask=mask2,
-        )
-        out = self._transformer(h, t2, mask2, t_mods=t_mods)
-        return out[:b], out[b:]
+    def precompute_t_mods(self, t_emb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`precompute_t_mods`: tables whose step axis is the second last."""
+        return precompute_t_mods(self, t_emb)
 
 
 QUANT_TARGETS = frozenset({"to_q", "to_k", "to_v", "to_out", "in_proj", "out_proj"})

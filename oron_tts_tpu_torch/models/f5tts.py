@@ -13,6 +13,11 @@ without changing any of them: ``synthesize_batch`` for many texts,
 for the chunks of a paragraph. ``quantize_for_serving`` switches the loaded
 DiT to int8 weights in memory.
 
+The backbone is the one ``model.backbone`` names (:func:`build_backbone`):
+the F5-TTS DiT by default, or E2 TTS's UNetT (``models/unett.py``,
+``configs/e2_base.yaml``), which trains, samples and shards through the
+same methods.
+
 Runs on the card unless ``device="cpu"`` is given; without CUDA and
 without that request it raises.
 
@@ -47,9 +52,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from oron_tts_tpu_torch.config import F5Config
+from oron_tts_tpu_torch.config import F5Config, ModelConfig
 from oron_tts_tpu_torch.models.cfm import CFM
-from oron_tts_tpu_torch.models.dit import DiT, quantize_dit_params
+from oron_tts_tpu_torch.models.dit import Backbone, DiT, quantize_dit_params
+from oron_tts_tpu_torch.models.unett import UNetT
 from oron_tts_tpu_torch.models.vocos import VocosDecoder, convert_vocos_state_dict
 from oron_tts_tpu_torch.ops.audio import AudioProcessor
 from oron_tts_tpu_torch.parallel import mesh as pmesh
@@ -59,6 +65,7 @@ from oron_tts_tpu_torch.utils.device import default_dtype, resolve_device
 from oron_tts_tpu_torch.utils.weights import (
     from_flax_params,
     init_dit_params,
+    init_module_params,
     load_npz_tree,
 )
 
@@ -142,8 +149,20 @@ def concat_with_pause(waveforms: list[np.ndarray], sample_rate: int, pause_s: fl
     return np.concatenate(parts)
 
 
+def build_backbone(m: ModelConfig, n_mels: int, gradient_checkpointing: bool,
+                   use_flash: bool = True) -> Backbone:
+    """The backbone that ``m.backbone`` names (``"DiT"`` or ``"UNetT"``), at ``m``'s widths."""
+    kw = dict(dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head, ff_mult=m.ff_mult,
+              mel_dim=n_mels, vocab_size=m.vocab_size, text_dim=m.text_dim,
+              conv_layers=m.conv_layers, dropout=m.p_dropout,
+              gradient_checkpointing=gradient_checkpointing, use_flash=use_flash)
+    if m.backbone == "UNetT":
+        return UNetT(**kw, text_mask_padding=m.text_mask_padding, pe_attn_head=m.pe_attn_head)
+    return DiT(**kw)
+
+
 class F5TTS:
-    """DiT backbone + CFM sampler + audio front end + Vocos vocoder."""
+    """DiT or UNetT backbone + CFM sampler + audio front end + Vocos vocoder."""
 
     def __init__(
         self,
@@ -167,11 +186,8 @@ class F5TTS:
             sample_rate=a.sample_rate, n_fft=a.n_fft, hop_length=a.hop_length,
             win_length=a.win_length, n_mels=a.n_mels, device=self.device,
         )
-        self.backbone = DiT(
-            dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
-            ff_mult=m.ff_mult, mel_dim=a.n_mels, vocab_size=m.vocab_size,
-            text_dim=m.text_dim, conv_layers=m.conv_layers, dropout=m.p_dropout,
-            gradient_checkpointing=bool(config.gradient_checkpointing),
+        self.backbone = build_backbone(
+            m, a.n_mels, bool(config.gradient_checkpointing),
             use_flash=True if use_flash is None else use_flash,
         ).to(device=self.device, dtype=self.dtype).eval()
         self.cfm = CFM(
@@ -228,8 +244,18 @@ class F5TTS:
     # ── parameters ───────────────────────────────────────────────────────
 
     def init_params(self, seed: int = 0) -> None:
-        """Fresh parameters under the JAX package's initial scheme."""
-        self.load_params(init_dit_params(self.config.model, self.n_mels, seed))
+        """Fresh parameters under the JAX package's initial scheme (a UNetT, which the
+        JAX package lacks: flax's default initialisers over its whole tensors)."""
+        m = self.config.model
+        if m.backbone == "DiT":
+            self.load_params(init_dit_params(m, self.n_mels, seed))
+            return
+        mesh = self.mesh
+        if mesh is not None:
+            self.set_mesh(None)
+        self.load_params(init_module_params(self.backbone, seed))
+        if mesh is not None:
+            self.set_mesh(mesh)
 
     def num_params(self) -> int:
         """Values in the DiT, int8 weights and their scales included."""

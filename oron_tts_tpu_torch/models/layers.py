@@ -71,7 +71,8 @@ from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope", "apply_rope_lanes",
-    "text_position_table", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
+    "rope_heads_local", "apply_partial_rope", "apply_partial_rope_lanes",
+    "text_position_table", "RMSNorm", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
     "AdaLayerNormFinal", "QDense", "make_dense", "ATTN_IMPLS", "resolve_attn_impl",
     "Attention", "FeedForward", "DiTBlock", "CopyToModel", "SumOverModel", "TensorParallel",
@@ -143,6 +144,32 @@ def apply_rope_lanes(
     return q * cos_l + rot(q) * sin_l, k * cos_l + rot(k) * sin_l
 
 
+def rope_heads_local(pe_attn_head: int | None, heads: int,
+                     tp: TensorParallel | None) -> int | None:
+    """Heads of this rank that RoPE rotates when it rotates the first ``pe_attn_head``
+    of the whole model's (None: every head). Under TP a rank holds heads
+    ``[rank·heads, (rank + 1)·heads)``, so it rotates a prefix of its own, maybe none."""
+    if pe_attn_head is None:
+        return None
+    first = 0 if tp is None else tp.rank * heads
+    return max(0, min(heads, pe_attn_head - first))
+
+
+def apply_partial_rope(q, k, cos, sin, n: int):
+    """RoPE on the first ``n`` heads of heads-first q, k ``[B, H, T, D]``; the rest as
+    they are (F5-TTS's ``pe_attn_head``)."""
+    qr, kr = apply_rope(q[:, :n], k[:, :n], cos, sin)
+    return torch.cat([qr, q[:, n:]], dim=1), torch.cat([kr, k[:, n:]], dim=1)
+
+
+def apply_partial_rope_lanes(q, k, cos_l, sin_l, n: int):
+    """RoPE on the first ``n`` heads of the lanes layout ``[B, T, H·D]``, whose lanes
+    lead; ``cos_l``/``sin_l`` are :func:`lanes_rope`'s tables for ``n`` heads."""
+    w = cos_l.shape[-1]
+    qr, kr = apply_rope_lanes(q[..., :w], k[..., :w], cos_l, sin_l, n)
+    return torch.cat([qr, q[..., w:]], dim=-1), torch.cat([kr, k[..., w:]], dim=-1)
+
+
 def text_position_table(dim: int, max_pos: int = 8192, theta: float = 10000.0) -> np.ndarray:
     """Sinusoidal text positions [max_pos, dim]: cat(cos, sin)."""
     freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
@@ -153,6 +180,23 @@ def text_position_table(dim: int, max_pos: int = 8192, theta: float = 10000.0) -
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm without scale or bias (flax ``use_scale=False, use_bias=False``)."""
     return F.layer_norm(x, x.shape[-1:], eps=eps)
+
+
+class RMSNorm(nn.Module):
+    """F5-TTS's RMSNorm: the mean square in f32, eps 1e-6, then a weight; the
+    normalised input is cast to a half-precision weight's type before the product."""
+
+    def __init__(self, dim: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        variance = x.float().pow(2).mean(-1, keepdim=True)
+        x = x * torch.rsqrt(variance + self.eps)
+        if self.weight.dtype in (torch.float16, torch.bfloat16):
+            x = x.to(self.weight.dtype)
+        return x * self.weight
 
 
 class TimestepEmbedding(nn.Module):
@@ -471,14 +515,19 @@ class Attention(nn.Module):
     reshape to heads-first ``[B, H, T, D]`` and take RoPE there. With
     ``seed`` the projected output is dropped out before the re-mask. The
     parameter names do not depend on ``impl``, so one weight tree loads into
-    any of them.
+    any of them. ``pe_attn_head`` rotates only the model's first heads (E2's
+    UNetT: 1); ``rope_heads`` is how many of this module's heads that is
+    (None: all), and the caller's tables are sized for them; the key bias
+    then reaches those heads alone (:meth:`_keys`).
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0,
                  quant: str | None = None, use_flash: bool = True,
-                 attn_impl: str | None = None) -> None:
+                 attn_impl: str | None = None, pe_attn_head: int | None = None) -> None:
         super().__init__()
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.pe_attn_head = pe_attn_head
+        self.rope_heads = rope_heads_local(pe_attn_head, heads, None)
         self._impl_choice = (use_flash, attn_impl)
         self.impl = resolve_attn_impl(heads, dim_head, use_flash, attn_impl)
         inner = heads * dim_head
@@ -495,7 +544,22 @@ class Attention(nn.Module):
             _shard_dense(layer, 0, tp)
         _shard_dense(self.to_out, 1, tp)
         self.heads, self.tp = heads, tp
+        self.rope_heads = rope_heads_local(self.pe_attn_head, heads, tp)
         self.impl = resolve_attn_impl(heads, self.dim_head, *self._impl_choice)
+
+    def _keys(self, x: torch.Tensor) -> torch.Tensor:
+        """``to_k(x)``; under ``pe_attn_head`` the bias only on the rotated heads' lanes.
+
+        A key bias adds ``q·b`` to every score of a query, which softmax takes no
+        notice of, unless RoPE turns ``b`` with each key's position. So an unrotated
+        head's bias is inert: left out, it gets an exact zero gradient rather than
+        rounding noise that AdamW would make into full-size steps."""
+        layer = self.to_k
+        if self.rope_heads is None or not isinstance(layer, nn.Linear):
+            return layer(x)
+        width = self.rope_heads * self.dim_head
+        bias = torch.cat([layer.bias[:width], torch.zeros_like(layer.bias[width:])])
+        return F.linear(x, layer.weight, bias)
 
     def forward(
         self,
@@ -510,20 +574,24 @@ class Attention(nn.Module):
         ``batch0`` is the global index of ``x``'s first row (the dropout mask's place)."""
         B, T, _ = x.shape
         xc = _column_input(x, self.tp)
-        q, k, v = self.to_q(xc), self.to_k(xc), self.to_v(xc)
+        q, k, v = self.to_q(xc), self._keys(xc), self.to_v(xc)
         if kv_lens is None:
             kv_lens = (
                 mask.sum(dim=-1, dtype=torch.int32) if mask is not None
                 else torch.full((B,), T, dtype=torch.int32, device=x.device)
             )
         if self.impl == "lanes":
-            if rope is not None:
+            if rope is not None and self.rope_heads is None:
                 q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
+            elif rope is not None and self.rope_heads:
+                q, k = apply_partial_rope_lanes(q, k, rope[0], rope[1], self.rope_heads)
             out = flash_attention_lanes(q, k, v, kv_lens, self.heads)
         else:
             q, k, v = (y.view(B, T, self.heads, self.dim_head).transpose(1, 2) for y in (q, k, v))
-            if rope is not None:
+            if rope is not None and self.rope_heads is None:
                 q, k = apply_rope(q, k, rope[0], rope[1])
+            elif rope is not None and self.rope_heads:
+                q, k = apply_partial_rope(q, k, rope[0], rope[1], self.rope_heads)
             if self.impl == "skip":
                 out = v + 0.0 * q
             elif self.impl == "flash":

@@ -49,6 +49,23 @@ def dit_param_count(dim: int, depth: int, text_dim: int = 512,
     return depth * per_block + text + input_embed + final
 
 
+def unett_param_count(dim: int, depth: int, text_dim: int | None = None,
+                      mel_dim: int = 100, ff_mult: int = 4,
+                      vocab_size: int = 65) -> int:
+    """E2's UNetT parameter count from config dims, biases and norms included
+    (E2TTS_Base: 333,222,444); text at the mel width unless ``text_dim``, and no
+    text conv blocks."""
+    td = mel_dim if text_dim is None else text_dim
+    per_block = (4 * dim * dim + 4 * dim                     # q, k, v, out
+                 + 2 * ff_mult * dim * dim + ff_mult * dim + dim  # FFN
+                 + 2 * dim)                                   # two RMSNorm weights
+    skips = depth // 2 * 2 * dim * dim                        # skip_proj, no bias
+    text = (vocab_size + 1) * td
+    input_embed = (2 * mel_dim + td) * dim + dim + 2 * (dim * (dim // 16) * 31 + dim)
+    final = dim + dim * mel_dim + mel_dim + 256 * dim + dim + dim * dim + dim  # + time MLP
+    return depth * per_block + skips + text + input_embed + final
+
+
 def state_bytes_per_param(mu_bf16: bool = True, bf16_compute: bool = True) -> int:
     """Bytes each parameter holds across a step: masters, EMA, moments, working copy, grads."""
     masters, ema, nu, grads = 4, 4, 4, 4
@@ -111,7 +128,13 @@ def worst_case_padded_frames(
 
 
 def config_param_count(config: dict[str, Any]) -> int:
+    """Parameters of the backbone that ``model.backbone`` names (the DiT's by default)."""
     m = config.get("model", {}) or {}
+    if m.get("backbone", "DiT") == "UNetT":
+        return unett_param_count(
+            m.get("dim", 1024), m.get("depth", 24), text_dim=m.get("text_dim"),
+            mel_dim=config.get("n_mels", 100), ff_mult=m.get("ff_mult", 4),
+            vocab_size=m.get("vocab_size", 65))
     return dit_param_count(
         m.get("dim", 1024), m.get("depth", 22),
         text_dim=m.get("text_dim", 512),

@@ -149,7 +149,7 @@ def flax_init(
 
 
 def init_module_params(module: torch.nn.Module, seed: int = 0) -> dict[str, Any]:
-    """A fresh flax-layout tree for ``module`` (a Vocos or a discriminator), seeded."""
+    """A fresh flax-layout tree for ``module`` (a Vocos, a discriminator, a UNetT), seeded."""
     return flax_init(to_flax_params(module.state_dict()), np.random.default_rng(seed))
 
 

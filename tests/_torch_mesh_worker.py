@@ -37,9 +37,15 @@ TINY = {
 GLOBAL_B, T = 4, 64
 
 
-def tiny_config(dropout: float = 0.0, **extra) -> dict:
+def tiny_config(dropout: float = 0.0, backbone: str = "DiT", **extra) -> dict:
+    """``TINY``; ``backbone="UNetT"`` makes it E2's (4 blocks, text at the mel width,
+    RoPE on head 0)."""
     cfg = json.loads(json.dumps(TINY))
     cfg["model"]["p_dropout"] = dropout
+    if backbone == "UNetT":
+        for key in ("text_dim", "conv_layers"):
+            cfg["model"].pop(key)
+        cfg["model"].update(backbone="UNetT", depth=4, pe_attn_head=1, text_mask_padding=False)
     cfg.update(extra)
     return cfg
 
@@ -83,7 +89,10 @@ def train_two_steps(mesh, cfg: dict, tmp: str, resume: bool = False) -> dict:
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
     model = F5TTS.from_config(cfg, device="cpu")
-    model.load_params(seeded_dit_params(model.config.model, seed=0))
+    if model.config.model.backbone == "DiT":
+        model.load_params(seeded_dit_params(model.config.model, seed=0))
+    else:  # seeded, so every rank draws the same tree
+        model.init_params(0)
     trainer = F5Trainer(cfg, model, _NoLoader(), log_dir=f"{tmp}/logs",
                         checkpoint_dir=f"{tmp}/ckpt", mesh=mesh)
     batch = global_batch()
@@ -144,7 +153,8 @@ def case_train(mesh, out: Path, args: dict) -> None:
     for j, run in enumerate(args["runs"]):
         # a small bucket splits the gradient collectives into many flat buffers
         trainer_mod.GRAD_BUCKET_ELEMENTS = run.get("bucket", default_bucket)
-        cfg = tiny_config(run.get("dropout", 0.0), shard_opt_states=run.get("zero", False))
+        cfg = tiny_config(run.get("dropout", 0.0), run.get("backbone", "DiT"),
+                          shard_opt_states=run.get("zero", False))
         res = train_two_steps(mesh, cfg, str(out / f"r{mesh.rank}_{j}"),
                               resume=run.get("resume", False))
         flat = res.pop("flat")
