@@ -738,7 +738,81 @@ def check_train_kernels(torch, F, report) -> list[dict]:
             if not rel <= ulp:
                 raise AssertionError(f"{name} ({dtype}) off by {rel} relative")
     check_gelu_shards(torch, gen, dev, seed, rate)
-    return rows
+    return rows + check_attn_dropout(torch, F, gen, dev, seed, rate)
+
+
+# Base's attention output in one training step: 48 clips of up to 1,000 frames
+# (48,000 frames) by dim 1,024, the padded frames left out of the row mask
+DROP_B, DROP_T, DROP_C = 48, 1000, 1024
+
+
+def check_attn_dropout(torch, F, gen, dev, seed: int, rate: float) -> list[dict]:
+    """Row 14, the attention output's dropout and row zeroing, at Base's step shape.
+
+    ``dropout_fwd`` and ``dropout_bwd`` against :func:`dropout_plain` (bit for
+    bit), timed beside the int64 form they replace (the hash mask in eager
+    int64 ops, its bf16 cast and scale, the product and ``masked_fill``; its
+    backward ``dy · m`` and ``masked_fill``'s) and ``F.dropout`` (Philox: a
+    different mask, for time only). The bound: 2 B read and 2 B written an
+    element each way.
+    """
+    from oron_tts_tpu_torch.ops.gelu_dropout import (
+        _inv_keep,
+        _threshold,
+        dropout_bwd,
+        dropout_fwd,
+        dropout_plain,
+        keep_mask_plain,
+    )
+
+    shape = (DROP_B, DROP_T, DROP_C)
+    x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.randint(DROP_T // 20, DROP_T + 1, (DROP_B,), generator=gen, device=dev)
+    rows = torch.arange(DROP_T, device=dev)[None, :] < lens[:, None]
+    pad = ~rows[..., None]
+
+    def old_mask():
+        keep = keep_mask_plain(x.numel(), seed, _threshold(rate), dev, DROP_C).reshape(shape)
+        return keep.to(x.dtype) * _inv_keep(rate)
+
+    m = old_mask()
+    pairs = {"dropout_fwd": (dropout_fwd(x, seed, rate, rows=rows),
+                             dropout_plain(x, seed, rate, rows=rows)),
+             "dropout_bwd": (dropout_bwd(dy, seed, rate, rows=rows),
+                             dropout_plain(dy, seed, rate, rows=rows))}
+    same = all(torch.equal(got, want) for got, want in pairs.values())
+    errs = {k: (got.float() - want.float()).abs().max().item() for k, (got, want) in pairs.items()}
+    del pairs
+    n = x.numel()
+    b_ms, b_by = bound_ms(n, H100_F32_FLOPS, 4 * n)
+    xs = x.clone().requires_grad_(True)
+    lib_y = F.dropout(xs, rate)
+    out = []
+    for name, k_ms, p_ms, lib_ms in (
+        ("dropout_fwd", cuda_ms(lambda: dropout_fwd(x, seed, rate, rows=rows)),
+         cuda_ms(lambda: (x * old_mask()).masked_fill(pad, 0.0), iters=5),
+         cuda_ms(lambda: F.dropout(x, rate))),
+        ("dropout_bwd", cuda_ms(lambda: dropout_bwd(dy, seed, rate, rows=rows)),
+         cuda_ms(lambda: (dy * m).masked_fill(pad, 0.0), iters=5),
+         cuda_ms(lambda: torch.autograd.grad(lib_y, xs, dy, retain_graph=True))),
+    ):
+        row = {"name": name, "dtype": "torch.bfloat16", "shape": list(shape),
+               "kept_rows": int(rows.sum()), "bit_equal_to_plain": same,
+               "max_abs_err": errs[name], "tol": 0.0, "ms": k_ms,
+               "plain_ms": p_ms, "plain": "int64 hash, bf16 mask and scale, product, masked_fill"
+               if name == "dropout_fwd" else "dy * saved bf16 mask, masked_fill",
+               "library_ms": lib_ms, "library": "F.dropout" + (
+                   " autograd backward" if name == "dropout_bwd" else ""),
+               "bound_ms": b_ms, "bound_by": b_by, "route": "cuda",
+               "source": "oron_tts_tpu_torch/csrc/gelu_dropout.cu",
+               "replaces": "none: the attention output's dropout (XLA in the JAX package)"}
+        emit({"phase": "kernel", **row})
+        out.append(row)
+    del x, dy, m, xs, lib_y
+    if not same:
+        raise AssertionError("dropout_fwd/dropout_bwd differ from dropout_plain")
+    return out
 
 
 # [rows, 4·dim] of a Base FFN at [12, 2048] frames; the shards a mesh rank holds
@@ -1541,6 +1615,7 @@ def check_train_reference(torch) -> None:
 PROFILE_KINDS = (
     ("attention_bwd", ("bwd_dkdv", "bwd_dq", "attn_delta")),
     ("gelu_dropout", ("gelu_dropout_kernel",)),
+    ("hash_dropout", ("hash_dropout_kernel",)),
     ("attention_fwd", ("attn_fwd_",)),
     ("grouped_conv", ("gconv_",)),
     ("fused_mel", ("log_mel_kernel",)),
@@ -1669,13 +1744,18 @@ def run_train(torch, smi: str) -> dict[str, int]:
         flash_lanes_fwd_stats,
     )
     from oron_tts_tpu_torch.ops.fused_update import adamw_ema
-    from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
+    from oron_tts_tpu_torch.ops.gelu_dropout import (
+        dropout_bwd,
+        dropout_fwd,
+        gelu_dropout_bwd,
+        gelu_dropout_fwd,
+    )
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
     kernels = (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd, gelu_dropout_fwd,
-               gelu_dropout_bwd, grouped_conv1d_mish, adamw_ema)
+               gelu_dropout_bwd, dropout_fwd, dropout_bwd, grouped_conv1d_mish, adamw_ema)
     cfg = F5Config()  # Base: dim 1024, depth 22, heads 16, p_dropout 0.1, no remat
     depth = cfg.model.depth
     config = {"learning_rate": 1e-4, "warmup_steps": 2, "num_epochs": 4, "use_tqdm": False,
@@ -1714,6 +1794,7 @@ def run_train(torch, smi: str) -> dict[str, int]:
         totals = {k.__name__: 0 for k in kernels}
         want = {"flash_lanes_fwd": 0, "flash_lanes_fwd_stats": depth, "flash_lanes_bwd": depth,
                 "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth,
+                "dropout_fwd": depth, "dropout_bwd": depth,
                 "grouped_conv1d_mish": 2, "adamw_ema": 1}
         step_ms = []
         for epoch in (1, 2):
@@ -2478,12 +2559,12 @@ CLASSIC_LOSS_REL_TOL = 1e-2   # one bf16 forward of the same weights, batch and 
 def kernel_wrappers() -> dict:
     """The attention and GELU+dropout wrappers whose launches the classic phase counts."""
     from oron_tts_tpu_torch.ops import flash_attention as fa
-    from oron_tts_tpu_torch.ops.gelu_dropout import gelu_dropout_bwd, gelu_dropout_fwd
+    from oron_tts_tpu_torch.ops import gelu_dropout as gd
 
     return {f.__name__: f for f in (
         fa.flash_attention, fa.flash_attention_packed, fa.flash_attention_bwd, fa.flash_nosm,
-        fa.flash_lanes_fwd, fa.flash_lanes_fwd_stats, fa.flash_lanes_bwd, gelu_dropout_fwd,
-        gelu_dropout_bwd)}
+        fa.flash_lanes_fwd, fa.flash_lanes_fwd_stats, fa.flash_lanes_bwd, gd.gelu_dropout_fwd,
+        gd.gelu_dropout_bwd, gd.dropout_fwd, gd.dropout_bwd)}
 
 
 def zero_counts(wrappers: dict) -> None:
@@ -2624,7 +2705,8 @@ def run_classic(torch, smi: str) -> dict[str, int]:
         trainer = F5Trainer(config, model, [batch], log_dir=f"{tmp}/logs",
                             checkpoint_dir=f"{tmp}/ckpt")
         step_ms, want = [], {"flash_attention": depth, "flash_attention_bwd": depth,
-                             "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth}
+                             "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth,
+                             "dropout_fwd": depth, "dropout_bwd": depth}
         for step in range(5):
             zero_counts(wrappers)
             t0 = time.perf_counter()

@@ -513,7 +513,8 @@ class Attention(nn.Module):
     ``impl`` is :func:`resolve_attn_impl`'s choice. "lanes" keeps q/k/v
     ``[B, T, H·D]`` from the projections through the kernel; the others
     reshape to heads-first ``[B, H, T, D]`` and take RoPE there. With
-    ``seed`` the projected output is dropped out before the re-mask. The
+    ``seed`` the projected output is dropped out and re-masked in one pass
+    (:func:`hash_dropout`); without, only re-masked. The
     parameter names do not depend on ``impl``, so one weight tree loads into
     any of them. ``pe_attn_head`` rotates only the model's first heads (E2's
     UNetT: 1); ``rope_heads`` is how many of this module's heads that is
@@ -607,8 +608,8 @@ class Attention(nn.Module):
                 out = torch.matmul(probs, v)
             out = out.transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
         out = _row_parallel(self.to_out, out, self.tp)
-        if seed is not None:
-            out = hash_dropout(out, seed, self.dropout, row0=batch0 * T)
+        if seed is not None:  # dropout and the re-mask in one pass each way
+            return hash_dropout(out, seed, self.dropout, row0=batch0 * T, rows=mask)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out

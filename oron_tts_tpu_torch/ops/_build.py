@@ -78,6 +78,10 @@ SIGNATURES = {
         "gelu_dropout_fwd": (_P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
         # x, dy, dx, n, seed, threshold, inv_keep, is_bf16, cols, row0, gcols, col0, stream
         "gelu_dropout_bwd": (_P, _P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
+        # x (dy), row_keep (a byte a row, or null), out, n, seed, threshold, inv_keep,
+        # is_bf16, cols, row0, gcols, col0, stream
+        "dropout_fwd": (_P, _P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
+        "dropout_bwd": (_P, _P, _P, _L, _U, _U, _F, _I, _L, _L, _L, _L, _P),
     },
     "grouped_conv": {
         # x, w, bias(f32), y, B, T, C, groups, K, is_bf16, stream

@@ -24,15 +24,22 @@ and ``col0`` place the shard, seen as ``[rows, cols]`` (``cols`` its last
 axis), at global row ``row0`` and column ``col0`` of a tensor ``gcols``
 wide; ``idx`` is then the global index ``(row0 + r)·gcols + col0 + c``, so
 every shard draws its slice of the one global mask. The defaults (0,
-``cols``, 0) are the flat index of a single call. :func:`hash_dropout` applies the
-same mask without the GELU in plain tensor ops (the attention output's
-dropout, which the JAX package leaves to XLA), so a whole training step is a
-function of its seeds on the CPU and on the card alike.
+``cols``, 0) are the flat index of a single call.
+
+:func:`hash_dropout` applies the same mask without the GELU (the attention
+output's dropout, which the JAX package leaves to XLA), so a whole training
+step is a function of its seeds on the CPU and on the card alike. It also
+zeroes the rows its ``rows`` mask leaves out (a batch's padded frames) in
+the same pass: ``dropout_fwd``/``dropout_bwd`` in ``csrc/gelu_dropout.cu``
+on CUDA, :func:`dropout_plain` on the CPU, with the mask regenerated in the
+backward, so autograd keeps the seed and the row mask only.
 """
 
 from __future__ import annotations
 
 import torch
+
+from oron_tts_tpu_torch.utils import trace
 
 SQRT_2_OVER_PI = 0.7978845608028654
 GELU_C = 0.044715
@@ -93,13 +100,30 @@ def _keep(t: torch.Tensor, seed: int, threshold: int, row0: int, gcols: int | No
 
 
 def _masked(r: torch.Tensor, seed: int, rate: float, row0: int = 0, gcols: int | None = None,
-            col0: int = 0) -> torch.Tensor:
+            col0: int = 0, rows: torch.Tensor | None = None) -> torch.Tensor:
+    """``r`` (f32) where kept, times ``1/(1 − rate)`` in f32, else 0.
+
+    ``rows``, a bool for each row of ``r`` seen as ``[-1, cols]``, also zeroes
+    the rows it is False on.
+    """
     threshold = _threshold(rate)
-    if threshold == 0:
+    if threshold == 0 and rows is None:
         return r
-    keep = _keep(r, seed, threshold, row0, gcols, col0)
+    keep = None if rows is None else _row_keep(rows, r).reshape(*r.shape[:-1], 1)
+    if threshold:
+        hashed = _keep(r, seed, threshold, row0, gcols, col0)
+        keep = hashed if keep is None else keep & hashed
     inv = torch.tensor(_inv_keep(rate), dtype=torch.float32, device=r.device)
     return torch.where(keep, r * inv, torch.zeros_like(r))
+
+
+def _row_keep(rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``rows`` as one contiguous bool a row of ``x`` seen as ``[-1, cols]``."""
+    n_rows = x.numel() // x.shape[-1] if x.ndim and x.shape[-1] else 0
+    if rows.dtype != torch.bool or rows.numel() != n_rows:
+        raise ValueError(f"rows must be bool with one element a row ({n_rows}), "
+                         f"got {rows.dtype} of {rows.numel()}")
+    return rows.reshape(-1).contiguous()
 
 
 def gelu_dropout_plain(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
@@ -114,18 +138,17 @@ def gelu_dropout_bwd_plain(x: torch.Tensor, dy: torch.Tensor, seed: int, rate: f
                    col0).to(x.dtype)
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
-                 gcols: int | None = None, col0: int = 0) -> torch.Tensor:
-    """Inverted dropout of ``x`` under the counter-hash mask, in plain ops."""
-    threshold = _threshold(rate)
-    if threshold == 0:
-        return x
-    keep = _keep(x, seed, threshold, row0, gcols, col0)
-    return x * (keep.to(x.dtype) * _inv_keep(rate))
+def dropout_plain(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
+                  gcols: int | None = None, col0: int = 0,
+                  rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout under the hash mask, rows left out of ``rows`` zeroed: the
+    product in f32, rounded once to ``x``'s type. Its own backward on ``dy``."""
+    return _masked(x.float(), seed, rate, row0, gcols, col0, rows).to(x.dtype)
 
 
 def _launch(entry: str, x: torch.Tensor, dy: torch.Tensor | None, seed: int,
-            rate: float, row0: int, gcols: int | None, col0: int) -> torch.Tensor:
+            rate: float, row0: int, gcols: int | None, col0: int,
+            rows: torch.Tensor | None = None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -143,6 +166,10 @@ def _launch(entry: str, x: torch.Tensor, dy: torch.Tensor | None, seed: int,
     ptrs.append(out.data_ptr())
     if any(p % 16 for p in ptrs):
         raise ValueError(f"{entry} needs 16-byte aligned tensors")
+    if entry.startswith("dropout"):  # x (or dy), a byte a row or null, out
+        if rows is not None:
+            rows = _row_keep(rows.to(x.device), x)
+        ptrs.insert(1, None if rows is None else rows.data_ptr())
     cols = x.shape[-1] if x.ndim else 1
     lib = _build.load("gelu_dropout")
     err = getattr(lib, entry)(
@@ -199,3 +226,62 @@ def gelu_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
     """Differentiable fused GELU + dropout; ``seed`` is one int per call, and
     ``row0``/``gcols``/``col0`` place a shard in its global tensor."""
     return _GeluDropout.apply(x, seed, rate, row0, gcols, col0)
+
+
+def dropout_fwd(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
+                gcols: int | None = None, col0: int = 0,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The attention output's dropout and row zeroing; the kernel on CUDA, the plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return dropout_plain(x, seed, rate, row0, gcols, col0, rows)
+    out = _launch("dropout_fwd", x, None, seed, rate, row0, gcols, col0, rows)
+    dropout_fwd.launches += 1
+    trace.count("attn_dropout.fused_calls", 1)
+    return out
+
+
+dropout_fwd.launches = 0
+
+
+def dropout_bwd(dy: torch.Tensor, seed: int, rate: float, row0: int = 0,
+                gcols: int | None = None, col0: int = 0,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`dropout_fwd`'s gradient: the same mask, regenerated, on ``dy``."""
+    if dy.device.type == "cpu":
+        return dropout_plain(dy, seed, rate, row0, gcols, col0, rows)
+    out = _launch("dropout_bwd", dy, None, seed, rate, row0, gcols, col0, rows)
+    dropout_bwd.launches += 1
+    trace.count("attn_dropout.fused_calls", 1)
+    return out
+
+
+dropout_bwd.launches = 0
+
+
+class _HashDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, rate, row0, gcols, col0, rows):
+        ctx.save_for_backward(rows)
+        ctx.seed, ctx.rate, ctx.place = int(seed), float(rate), (row0, gcols, col0)
+        return dropout_fwd(x, ctx.seed, ctx.rate, *ctx.place, rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (rows,) = ctx.saved_tensors
+        return (dropout_bwd(dy, ctx.seed, ctx.rate, *ctx.place, rows),
+                None, None, None, None, None, None)
+
+
+def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
+                 gcols: int | None = None, col0: int = 0,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Differentiable inverted dropout of ``x`` under the counter-hash mask.
+
+    ``rows`` (bool, one a row of ``x`` seen as ``[-1, cols]``; None: all kept)
+    zeroes the rows it is False on in the same pass. ``rate`` 0 with no
+    ``rows`` returns ``x`` itself.
+    """
+    if _threshold(rate) == 0 and rows is None:
+        return x
+    return _HashDropout.apply(x, seed, rate, row0, gcols, col0, rows)

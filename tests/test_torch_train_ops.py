@@ -32,7 +32,9 @@ from oron_tts_tpu_torch.ops.flash_attention import (
     flash_lanes_plain,
 )
 from oron_tts_tpu_torch.ops.gelu_dropout import (
+    _inv_keep,
     _threshold,
+    dropout_plain,
     gelu_dropout,
     gelu_dropout_bwd_plain,
     gelu_dropout_plain,
@@ -214,6 +216,128 @@ def test_hash_dropout_shares_the_mask():
     np.testing.assert_allclose(y[keep].numpy(), 1 / 0.75, rtol=1e-6)
     assert 0.2 < (~keep).float().mean() < 0.3
     assert hash_dropout(x, 9, 0.0) is x
+
+
+def _rows(B, T, lens):
+    return torch.arange(T)[None, :] < torch.tensor(lens)[:, None]
+
+
+def _old_hash_dropout(x, seed, rate, **place):
+    """The attention output's dropout as the port had it: a bf16 scale, then a product."""
+    keep = keep_mask_plain(x.numel(), seed, _threshold(rate), x.device, x.shape[-1],
+                           **place).reshape(x.shape)
+    return x * (keep.to(x.dtype) * _inv_keep(rate))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_rows", "row_mask"])
+def test_hash_dropout_function_forward_and_backward(dtype, masked):
+    seed, rate, B, T, C = 77, 0.1, 3, 10, 48
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B, T, C, generator=g).to(dtype).requires_grad_(True)
+    dy = torch.randn(B, T, C, generator=g).to(dtype)
+    rows = _rows(B, T, [10, 7, 1]) if masked else None
+    y = hash_dropout(x, seed, rate, row0=20, rows=rows)
+    assert torch.equal(y, dropout_plain(x.detach(), seed, rate, row0=20, rows=rows))
+    (dx,) = torch.autograd.grad(y, x, dy)
+    keep = keep_mask_plain(x.numel(), seed, _threshold(rate), "cpu", C, row0=20).reshape(x.shape)
+    if masked:
+        keep = keep & rows[..., None]
+    want = torch.where(keep, dy.float() * torch.tensor(1 / (1 - rate)), 0.0).to(dtype)
+    assert torch.equal(dx, want)
+    if masked:
+        assert not y[~rows].any() and not dx[~rows].any()
+        assert y[rows].ne(0).float().mean() > 0.8
+
+
+@pytest.mark.parametrize("shard", ["row", "column", "2x2"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_rows", "row_mask"])
+def test_hash_dropout_shards_draw_the_whole_calls_mask(shard, masked):
+    """Shards placed by ``row0`` (data) and ``gcols``/``col0`` (tensor) concatenate
+    to one call over the whole tensor, forward and backward."""
+    seed, rate, R, C = 2**31 + 5, 0.3, 24, 64
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(R, C, generator=g).requires_grad_(True)
+    dy = torch.randn(R, C, generator=g)
+    rows = torch.rand(R, generator=g) < 0.7 if masked else None
+    y = hash_dropout(x, seed, rate, rows=rows)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    r_cut = {"row": [0, 12, 24], "column": [0, 24], "2x2": [0, 12, 24]}[shard]
+    c_cut = {"row": [0, 64], "column": [0, 16, 64], "2x2": [0, 40, 64]}[shard]
+    for r0, r1 in zip(r_cut, r_cut[1:]):
+        for c0, c1 in zip(c_cut, c_cut[1:]):
+            part = x.detach()[r0:r1, c0:c1].clone().requires_grad_(True)
+            part_rows = None if rows is None else rows[r0:r1]
+            yp = hash_dropout(part, seed, rate, row0=r0, gcols=C, col0=c0, rows=part_rows)
+            (dxp,) = torch.autograd.grad(yp, part, dy[r0:r1, c0:c1])
+            assert torch.equal(yp, y[r0:r1, c0:c1])
+            assert torch.equal(dxp, dx[r0:r1, c0:c1])
+
+
+def test_hash_dropout_rate_zero():
+    x = torch.randn(2, 5, 8)
+    assert hash_dropout(x, 1, 0.0) is x
+    rows = _rows(2, 5, [5, 2])
+    assert torch.equal(hash_dropout(x, 1, 0.0, rows=rows), x.masked_fill(~rows[..., None], 0.0))
+
+
+@pytest.mark.parametrize("place", [dict(), dict(row0=3), dict(row0=2, gcols=40, col0=8)],
+                         ids=["flat", "row0", "column_shard"])
+def test_hash_dropout_f32_is_bit_equal_to_the_old_form(place):
+    x = torch.randn(6, 9, 32, generator=torch.Generator().manual_seed(5))
+    for rate in (0.1, 0.25):
+        assert torch.equal(hash_dropout(x, -99, rate, **place),
+                           _old_hash_dropout(x, -99, rate, **place))
+
+
+def test_hash_dropout_bf16_scale_is_rounded_once():
+    """bf16: ``x · (1/(1 − rate))`` in f32, rounded once; the old form rounded the
+    scale to bf16 first (1.109375 for 1/0.9)."""
+    x = torch.randn(4, 16, 64, generator=torch.Generator().manual_seed(6)).to(torch.bfloat16)
+    seed, rate = 11, 0.1
+    keep = keep_mask_plain(x.numel(), seed, _threshold(rate), "cpu", 64).reshape(x.shape)
+    exact = torch.where(keep, x.double() / (1 - rate), 0.0)
+    new, old = hash_dropout(x, seed, rate), _old_hash_dropout(x, seed, rate)
+    assert torch.equal(new, exact.float().to(torch.bfloat16))
+    assert (new.double() - exact).abs().sum() < (old.double() - exact).abs().sum()
+    assert not torch.equal(new, old)
+
+
+def test_attention_drops_out_and_zeroes_padded_rows():
+    from oron_tts_tpu_torch.models.layers import Attention
+
+    torch.manual_seed(7)
+    attn = Attention(64, 2, 32, dropout=0.1, attn_impl="lanes")
+    B, T = 3, 12
+    x = torch.randn(B, T, 64)
+    mask = _rows(B, T, [12, 5, 1])
+    lens = mask.sum(-1, dtype=torch.int32)
+    with torch.no_grad():
+        plain = attn(x, kv_lens=lens)  # neither dropout nor re-mask
+        y0 = attn(x, mask=mask)
+        y = attn(x, mask=mask, seed=123, batch0=4)
+    # without a seed: padded rows zeroed, nothing dropped
+    assert torch.equal(y0, plain.masked_fill(~mask[..., None], 0.0))
+    # with one: the old dropout and re-mask, one after the other, in f32
+    want = _old_hash_dropout(plain, 123, 0.1, row0=4 * T).masked_fill(~mask[..., None], 0.0)
+    assert torch.equal(y, want)
+
+
+def test_sampler_never_reaches_the_dropout(monkeypatch):
+    from oron_tts_tpu_torch.models import layers
+    from test_torch_batch import DURATIONS, LENS, _sample_inputs
+    from test_torch_slice import _port_model
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the sampler called hash_dropout")
+
+    monkeypatch.setattr(layers, "hash_dropout", refuse)
+    model = _port_model()
+    cond, ids, noise = _sample_inputs()
+    mel, _ = model.cfm.sample(torch.from_numpy(cond), torch.from_numpy(ids),
+                              torch.from_numpy(DURATIONS), torch.from_numpy(LENS), steps=2,
+                              noise=torch.from_numpy(noise))
+    assert torch.isfinite(mel).all()
 
 
 @pytest.mark.parametrize("C,G,K,T", [(256, 4, 7, 24), (128, 2, 31, 40)])
