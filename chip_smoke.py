@@ -3160,7 +3160,7 @@ def run_memory(torch, smi: str) -> dict[str, int]:
 
     from oron_tts_tpu_torch.cli.train import auto_remat_frames
     from oron_tts_tpu_torch.config import F5Config, load_config
-    from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.models.f5tts import F5TTS, config_param_count
     from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_bwd, flash_lanes_fwd_stats
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils import memory as mem
@@ -3178,10 +3178,11 @@ def run_memory(torch, smi: str) -> dict[str, int]:
         c = load_config(root / "configs" / f"{name}.yaml")
         frames = auto_remat_frames(c)
         cm = c["model"]
-        choices[name] = {"frames": frames, "remat": mem.auto_gradient_checkpointing(c, frames),
+        n = config_param_count(c)
+        choices[name] = {"frames": frames, "remat": mem.auto_gradient_checkpointing(c, frames, n),
                          "estimate_gb": mem.estimate_train_bytes(
-                             mem.config_param_count(c), frames, cm["dim"], cm["depth"]) / 1e9}
-    n_est = mem.config_param_count(config)
+                             n, frames, cm["dim"], cm["depth"]) / 1e9}
+    n_est = config_param_count(config)
     state = n_est * mem.state_bytes_per_param()
 
     torch.cuda.empty_cache()

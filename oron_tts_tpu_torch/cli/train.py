@@ -19,12 +19,12 @@ needs the ``datasets`` library and the network). It runs on the card unless
 ``--device cpu`` is given. ``gradient_checkpointing: auto`` is decided by the
 memory estimate of ``utils/memory.py`` for the worst padded batch the
 collator can build, against the card's memory (the host's with ``--device
-cpu``), for the backbone the config names (``model.backbone``: the F5-TTS
-DiT, or E2 TTS's UNetT in ``configs/e2_base.yaml``). ``--pretrain-ckpt``
-takes an ``.npz`` checkpoint (either package's) or, for a DiT, the
-reference's torch ``.pt`` or ``.safetensors`` file, whose tensors of
-another shape (an official checkpoint's text embedding) keep their fresh
-values and are printed. ``--push-to-hub`` mirrors the checkpoint directory
+cpu``), for the backbone the config names (``model.backbone``, counted as
+its class counts itself). ``--pretrain-ckpt`` takes an ``.npz`` checkpoint
+(either package's) or, for a backbone with the reference's torch layout
+(``Backbone.torch_layout``), its ``.pt`` or ``.safetensors`` file, whose
+tensors of another shape (an official checkpoint's text embedding) keep
+their fresh values and are printed. ``--push-to-hub`` mirrors the checkpoint directory
 to ``--hf-repo`` every ``--hub-upload-interval`` interval saves and once at
 the end (``huggingface_hub`` and the network; the token from ``--hf-token``
 or ``HF_TOKEN``).
@@ -108,6 +108,7 @@ def auto_remat_frames(config: dict) -> int:
 
 def decide_gradient_checkpointing(config: dict, device) -> bool:
     """``gradient_checkpointing: auto`` → the estimate's choice, printed."""
+    from oron_tts_tpu_torch.models.f5tts import config_param_count
     from oron_tts_tpu_torch.utils.memory import (
         auto_gradient_checkpointing,
         device_memory_bytes,
@@ -117,7 +118,8 @@ def decide_gradient_checkpointing(config: dict, device) -> bool:
     frames = auto_remat_frames(config)
     budget = device_memory_bytes(device) if device.type == "cuda" else host_memory_bytes()
     bf16 = config.get("mixed_precision", "bfloat16") == "bfloat16" and device.type == "cuda"
-    remat = auto_gradient_checkpointing(config, frames, device_bytes=budget, bf16_compute=bf16)
+    remat = auto_gradient_checkpointing(config, frames, config_param_count(config),
+                                        device_bytes=budget, bf16_compute=bf16)
     print(f"gradient_checkpointing=auto -> {remat} ({frames} frames)")
     return remat
 
@@ -383,9 +385,9 @@ def main(argv: list[str] | None = None) -> None:
     )
     if args.pretrain_ckpt:
         path = Path(args.pretrain_ckpt)
-        if path.suffix != ".npz" and model.config.model.backbone != "DiT":
-            raise SystemExit(f"--pretrain-ckpt {path.name}: the torch layout's keys are the "
-                             f"DiT's; a {model.config.model.backbone} takes an .npz checkpoint")
+        if path.suffix != ".npz" and not model.backbone.torch_layout:
+            raise SystemExit(f"--pretrain-ckpt {path.name}: a {model.config.model.backbone} "
+                             f"takes an .npz checkpoint (the torch layout is another backbone's)")
         if path.suffix == ".npz":
             trees = load_npz_tree(path)
             trainer.set_params(trees.get("ema") or trees.get("params") or trees)

@@ -2,7 +2,9 @@
 
 Drop-in compatible with configs/{local,runpod,colab}.yaml of the reference:
 flat audio/training keys + a nested ``model:`` section. Defaults are
-centralized here instead of scattered across call sites.
+centralized here instead of scattered across call sites. A key the schema
+does not have is ignored: ``model.scan_blocks`` among them, the JAX
+package's ``lax.scan`` switch, which the port's unrolled blocks do not need.
 """
 
 from __future__ import annotations
@@ -13,7 +15,12 @@ from pathlib import Path
 from typing import Any
 
 
-BACKBONES = ("DiT", "UNetT")
+# The names ``model.backbone`` takes (``models/f5tts.py`` ``BACKBONES`` has their
+# classes) and their own defaults; a ``text_dim`` of None is the mel width.
+BACKBONE_DEFAULTS: dict[str, dict[str, int | None]] = {
+    "DiT": {"text_dim": 512, "conv_layers": 4},  # F5-TTS
+    "UNetT": {"text_dim": None, "conv_layers": 0},  # E2 TTS: characters at the mel width
+}
 
 
 def load_config(path: str | Path) -> dict[str, Any]:
@@ -39,10 +46,7 @@ class ModelConfig:
     audio_drop_prob: float = 0.3
     cond_drop_prob: float = 0.2
     frac_lengths_mask: tuple[float, float] = (0.7, 1.0)
-    # lax.scan over stacked DiT blocks: same numerics, ~depth× faster cold
-    # compile; checkpoints stay in the unrolled block{i} layout on disk
-    scan_blocks: bool = False
-    # F5-TTS's backbone names: "DiT" (F5-TTS) or "UNetT" (E2 TTS, models/unett.py)
+    # a key of BACKBONE_DEFAULTS
     backbone: str = "DiT"
     # UNetT only: re-zero the text padding between text conv blocks, and the
     # number of heads RoPE rotates (None: every head)
@@ -74,24 +78,23 @@ class F5Config:
     def from_dict(cls, cfg: dict[str, Any]) -> "F5Config":
         m = cfg.get("model", {}) or {}
         frac = m.get("frac_lengths_mask", [0.7, 1.0])
-        backbone = m.get("backbone", "DiT")
-        if backbone not in BACKBONES:
-            raise ValueError(f"model.backbone must be one of {BACKBONES}, got {backbone!r}")
-        # F5-TTS's UNetT defaults: text at the mel width, no text conv blocks
-        unett = backbone == "UNetT"
+        backbone = m.get("backbone", ModelConfig.backbone)
+        if backbone not in BACKBONE_DEFAULTS:
+            raise ValueError(f"model.backbone must be one of {tuple(BACKBONE_DEFAULTS)}, "
+                             f"got {backbone!r}")
+        defaults = BACKBONE_DEFAULTS[backbone]
         model = ModelConfig(
             vocab_size=m.get("vocab_size", 65),
             dim=m.get("dim", 1024),
             depth=m.get("depth", 22),
             heads=m.get("heads", 16),
             ff_mult=m.get("ff_mult", 4),
-            text_dim=m.get("text_dim", cfg.get("n_mels", 100) if unett else 512),
-            conv_layers=m.get("conv_layers", 0 if unett else 4),
+            text_dim=m.get("text_dim", defaults["text_dim"] or cfg.get("n_mels", 100)),
+            conv_layers=m.get("conv_layers", defaults["conv_layers"]),
             p_dropout=m.get("p_dropout", 0.1),
             audio_drop_prob=m.get("audio_drop_prob", 0.3),
             cond_drop_prob=m.get("cond_drop_prob", 0.2),
             frac_lengths_mask=(float(frac[0]), float(frac[1])),
-            scan_blocks=m.get("scan_blocks", False),
             backbone=backbone,
             text_mask_padding=m.get("text_mask_padding", True),
             pe_attn_head=m.get("pe_attn_head"),

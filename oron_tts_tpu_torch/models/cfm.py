@@ -49,7 +49,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from oron_tts_tpu_torch.models.dit import Backbone
+from oron_tts_tpu_torch.models.backbone import Backbone
 from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 from oron_tts_tpu_torch.utils import trace
 

@@ -11,19 +11,19 @@ long text: chunk i with seed ``seed + i``) draws its noise from its own seed
 without changing any of them: ``synthesize_batch`` for many texts,
 ``synthesize_stream`` for pieces in playback order, and ``synthesize`` itself
 for the chunks of a paragraph. ``quantize_for_serving`` switches the loaded
-DiT to int8 weights in memory.
+backbone to int8 weights in memory.
 
-The backbone is the one ``model.backbone`` names (:func:`build_backbone`):
-the F5-TTS DiT by default, or E2 TTS's UNetT (``models/unett.py``,
-``configs/e2_base.yaml``), which trains, samples and shards through the
-same methods.
+The backbone is the one ``model.backbone`` names (:data:`BACKBONES`,
+:func:`build_backbone`): the F5-TTS DiT by default, or E2 TTS's UNetT
+(``models/unett.py``, ``configs/e2_base.yaml``), which trains, samples and
+shards through the same methods (``models/backbone.py``).
 
 Runs on the card unless ``device="cpu"`` is given; without CUDA and
 without that request it raises.
 
 Multi-GPU serving (``set_mesh``): every rank of a ``DP × TP`` mesh
 (``parallel/mesh.py``) calls the same method with the same arguments. The
-DiT's attention and FFN projections shard over the model group (Megatron
+backbone's attention and FFN projections shard over the model group (Megatron
 TP), the vocoder stays whole on every rank. ``synthesize_batch`` pads each
 length group to a multiple of the data size and each data rank solves and
 decodes its block of rows; the waveforms are gathered over the data group,
@@ -41,6 +41,7 @@ products are the same, and inference runs exactly as before.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -53,8 +54,9 @@ import numpy as np
 import torch
 
 from oron_tts_tpu_torch.config import F5Config, ModelConfig
+from oron_tts_tpu_torch.models.backbone import Backbone
 from oron_tts_tpu_torch.models.cfm import CFM
-from oron_tts_tpu_torch.models.dit import Backbone, DiT, quantize_dit_params
+from oron_tts_tpu_torch.models.dit import DiT, quantize_dit_params
 from oron_tts_tpu_torch.models.unett import UNetT
 from oron_tts_tpu_torch.models.vocos import VocosDecoder, convert_vocos_state_dict
 from oron_tts_tpu_torch.ops.audio import AudioProcessor
@@ -62,12 +64,7 @@ from oron_tts_tpu_torch.parallel import mesh as pmesh
 from oron_tts_tpu_torch.text import TextCleaner, validate_language
 from oron_tts_tpu_torch.text.align import stretch_text_to_len
 from oron_tts_tpu_torch.utils.device import default_dtype, resolve_device
-from oron_tts_tpu_torch.utils.weights import (
-    from_flax_params,
-    init_dit_params,
-    init_module_params,
-    load_npz_tree,
-)
+from oron_tts_tpu_torch.utils.weights import from_flax_params, load_npz_tree
 
 _logger = logging.getLogger(__name__)
 
@@ -149,16 +146,21 @@ def concat_with_pause(waveforms: list[np.ndarray], sample_rate: int, pause_s: fl
     return np.concatenate(parts)
 
 
+# ``model.backbone``'s names, as ``config.BACKBONE_DEFAULTS`` has them
+BACKBONES: dict[str, type[Backbone]] = {"DiT": DiT, "UNetT": UNetT}
+
+
 def build_backbone(m: ModelConfig, n_mels: int, gradient_checkpointing: bool,
                    use_flash: bool = True) -> Backbone:
-    """The backbone that ``m.backbone`` names (``"DiT"`` or ``"UNetT"``), at ``m``'s widths."""
-    kw = dict(dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head, ff_mult=m.ff_mult,
-              mel_dim=n_mels, vocab_size=m.vocab_size, text_dim=m.text_dim,
-              conv_layers=m.conv_layers, dropout=m.p_dropout,
-              gradient_checkpointing=gradient_checkpointing, use_flash=use_flash)
-    if m.backbone == "UNetT":
-        return UNetT(**kw, text_mask_padding=m.text_mask_padding, pe_attn_head=m.pe_attn_head)
-    return DiT(**kw)
+    """The backbone that ``m.backbone`` names, at ``m``'s widths."""
+    return BACKBONES[m.backbone].from_config(m, n_mels, gradient_checkpointing, use_flash)
+
+
+def config_param_count(config: dict[str, Any]) -> int:
+    """Parameters of the backbone a config dict names, as its class counts them
+    (:meth:`Backbone.param_count`), for ``utils/memory.py``'s estimate."""
+    c = F5Config.from_dict(config)
+    return BACKBONES[c.model.backbone].param_count(c.model, c.audio.n_mels)
 
 
 class F5TTS:
@@ -205,7 +207,7 @@ class F5TTS:
     # ── multi-GPU (TP over "model", DP over "data") ──────────────────────
 
     def set_mesh(self, mesh: pmesh.Mesh | None) -> None:
-        """Shard the loaded DiT over ``mesh``'s model group; ``None`` gathers it back.
+        """Shard the loaded backbone over ``mesh``'s model group; ``None`` gathers it back.
 
         The rules are the trainer's (``parallel/mesh.py``); the vocoder stays
         whole. w8a16 ``int8`` is single-device, as in the JAX package.
@@ -223,6 +225,15 @@ class F5TTS:
         self.cfm.mesh = mesh
         if mesh is not None:
             self.backbone.shard(mesh)
+
+    @contextlib.contextmanager
+    def _whole(self) -> Iterator[None]:
+        """The backbone gathered whole inside the block and sharded again after it (a
+        no-op without a mesh)."""
+        mesh = self.mesh
+        self.set_mesh(None)
+        yield
+        self.set_mesh(mesh)
 
     @property
     def _row_multiple(self) -> int:
@@ -244,42 +255,30 @@ class F5TTS:
     # ── parameters ───────────────────────────────────────────────────────
 
     def init_params(self, seed: int = 0) -> None:
-        """Fresh parameters under the JAX package's initial scheme (a UNetT, which the
-        JAX package lacks: flax's default initialisers over its whole tensors)."""
-        m = self.config.model
-        if m.backbone == "DiT":
-            self.load_params(init_dit_params(m, self.n_mels, seed))
-            return
-        mesh = self.mesh
-        if mesh is not None:
-            self.set_mesh(None)
-        self.load_params(init_module_params(self.backbone, seed))
-        if mesh is not None:
-            self.set_mesh(mesh)
+        """Fresh parameters under the backbone's own initial scheme
+        (:meth:`Backbone.initial_params`: the JAX package's for the DiT)."""
+        with self._whole():  # the scheme reads whole tensors
+            self.load_params(self.backbone.initial_params(seed))
 
     def num_params(self) -> int:
-        """Values in the DiT, int8 weights and their scales included."""
+        """Values in the backbone, int8 weights and their scales included."""
         return sum(t.numel() for t in self.backbone.state_dict().values())
 
     def weight_bytes(self) -> int:
-        """Bytes the DiT's weights hold on the device."""
+        """Bytes the backbone's weights hold on the device."""
         return sum(t.numel() * t.element_size() for t in self.backbone.state_dict().values())
 
     def load_params(self, flax_params: dict[str, Any]) -> None:
-        """Load a DiT parameter tree in the JAX package's flax layout.
+        """Load a backbone parameter tree in the JAX package's flax layout.
 
         Under a mesh each rank keeps its shards of the whole tree it is given.
         """
-        mesh = self.mesh
-        if mesh is not None:
-            self.set_mesh(None)
-        self.backbone.load_state_dict(from_flax_params(flax_params), strict=True)
+        with self._whole():
+            self.backbone.load_state_dict(from_flax_params(flax_params), strict=True)
         self.params_loaded = True
-        if mesh is not None:
-            self.set_mesh(mesh)
 
     def load_checkpoint(self, path: str | Path) -> None:
-        """Load a DiT ``.npz`` checkpoint written by the JAX package."""
+        """Load a backbone ``.npz`` checkpoint written by the JAX package."""
         trees = load_npz_tree(path)
         self.load_params(trees.get("ema") or trees.get("params") or trees)
 
@@ -299,13 +298,9 @@ class F5TTS:
             raise NotImplementedError(
                 "w8a16 int8 serving is single-device (its kernel has no sharded "
                 "form); use 'int8_dynamic' under a mesh, or call set_mesh(None) first")
-        mesh = self.mesh
-        if mesh is not None:  # per-channel scales over whole rows, then the shards
-            self.set_mesh(None)
-        quantize_dit_params(self.backbone, mode)  # raises on an unknown mode
-        self.quant_mode = mode
-        if mesh is not None:
-            self.set_mesh(mesh)
+        with self._whole():  # per-channel scales over whole rows, then the shards
+            quantize_dit_params(self.backbone, mode)  # raises on an unknown mode
+            self.quant_mode = mode
 
     def _bucket(self, n: int) -> int:
         """Round a frame count up to the bucket multiple."""

@@ -38,7 +38,8 @@ the column-parallel projections passes :class:`CopyToModel` (its gradient
 is summed over the model group in the backward); the row-parallel products
 are summed over the model group by :class:`SumOverModel` and their bias is
 added once, after the sum. The attention impl is resolved again on the
-local head count.
+local head count; ``unshard`` on each module restores the whole-model state
+once the backbone has gathered the projections back.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope", "apply_rope_lanes",
-    "rope_heads_local", "apply_partial_rope", "apply_partial_rope_lanes",
+    "apply_partial_rope", "apply_partial_rope_lanes",
     "text_position_table", "RMSNorm", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
     "AdaLayerNormFinal", "QDense", "make_dense", "ATTN_IMPLS", "resolve_attn_impl",
@@ -142,17 +143,6 @@ def apply_rope_lanes(
         return torch.cat([-x4[..., d // 2:], x4[..., : d // 2]], dim=-1).reshape(B, T, HD)
 
     return q * cos_l + rot(q) * sin_l, k * cos_l + rot(k) * sin_l
-
-
-def rope_heads_local(pe_attn_head: int | None, heads: int,
-                     tp: TensorParallel | None) -> int | None:
-    """Heads of this rank that RoPE rotates when it rotates the first ``pe_attn_head``
-    of the whole model's (None: every head). Under TP a rank holds heads
-    ``[rank·heads, (rank + 1)·heads)``, so it rotates a prefix of its own, maybe none."""
-    if pe_attn_head is None:
-        return None
-    first = 0 if tp is None else tp.rank * heads
-    return max(0, min(heads, pe_attn_head - first))
 
 
 def apply_partial_rope(q, k, cos, sin, n: int):
@@ -507,6 +497,12 @@ def resolve_attn_impl(heads: int, dim_head: int, use_flash: bool = True,
     return impl
 
 
+def kv_lengths(mask: torch.Tensor | None, rows: int, length: int, device) -> torch.Tensor:
+    """Keys each row attends to, int32 ``[rows]``: the mask's count, or ``length``."""
+    return (mask.sum(dim=-1, dtype=torch.int32) if mask is not None
+            else torch.full((rows,), length, dtype=torch.int32, device=device))
+
+
 class Attention(nn.Module):
     """Self-attention with RoPE and a key-padding prefix.
 
@@ -518,25 +514,33 @@ class Attention(nn.Module):
     parameter names do not depend on ``impl``, so one weight tree loads into
     any of them. ``pe_attn_head`` rotates only the model's first heads (E2's
     UNetT: 1); ``rope_heads`` is how many of this module's heads that is
-    (None: all), and the caller's tables are sized for them; the key bias
-    then reaches those heads alone (:meth:`_keys`).
+    (None: all), and the key bias then reaches those heads alone
+    (:meth:`_keys`). The RoPE tables are built here, for ``impl``, the heads
+    rotated and the input's length, device and dtype (:func:`lanes_rope`,
+    :func:`heads_rope`, both cached): none where no head is rotated.
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0,
                  quant: str | None = None, use_flash: bool = True,
                  attn_impl: str | None = None, pe_attn_head: int | None = None) -> None:
         super().__init__()
-        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.dim_head, self.dropout = dim_head, dropout
         self.pe_attn_head = pe_attn_head
-        self.rope_heads = rope_heads_local(pe_attn_head, heads, None)
         self._impl_choice = (use_flash, attn_impl)
-        self.impl = resolve_attn_impl(heads, dim_head, use_flash, attn_impl)
+        self._place(heads, None)
         inner = heads * dim_head
         self.to_q = make_dense(dim, inner, quant)
         self.to_k = make_dense(dim, inner, quant)
         self.to_v = make_dense(dim, inner, quant)
         self.to_out = make_dense(inner, dim, quant)
-        self.tp: TensorParallel | None = None
+
+    def _place(self, heads: int, tp: TensorParallel | None) -> None:
+        """Hold ``heads`` heads at ``tp``'s rank, which holds the model's heads
+        ``[rank·heads, (rank + 1)·heads)``: it rotates a prefix of its own, maybe none."""
+        self.heads, self.tp = heads, tp
+        self.rope_heads = None if self.pe_attn_head is None else max(
+            0, min(heads, self.pe_attn_head - (0 if tp is None else tp.rank * heads)))
+        self.impl = resolve_attn_impl(heads, self.dim_head, *self._impl_choice)
 
     def shard(self, tp: TensorParallel) -> None:
         """Keep ``heads/TP`` heads (Megatron): q/k/v by rows, ``to_out`` by columns."""
@@ -544,9 +548,12 @@ class Attention(nn.Module):
         for layer in (self.to_q, self.to_k, self.to_v):
             _shard_dense(layer, 0, tp)
         _shard_dense(self.to_out, 1, tp)
-        self.heads, self.tp = heads, tp
-        self.rope_heads = rope_heads_local(self.pe_attn_head, heads, tp)
-        self.impl = resolve_attn_impl(heads, self.dim_head, *self._impl_choice)
+        self._place(heads, tp)
+
+    def unshard(self) -> None:
+        """Every head again, once the projections are whole (the backbone gathers them)."""
+        if self.tp is not None:
+            self._place(self.heads * self.tp.size, None)
 
     def _keys(self, x: torch.Tensor) -> torch.Tensor:
         """``to_k(x)``; under ``pe_attn_head`` the bias only on the rotated heads' lanes.
@@ -566,33 +573,31 @@ class Attention(nn.Module):
         self,
         x: torch.Tensor,
         mask: torch.Tensor | None = None,
-        rope: tuple[torch.Tensor, torch.Tensor] | None = None,
         kv_lens: torch.Tensor | None = None,
         seed: int | None = None,
         batch0: int = 0,
     ) -> torch.Tensor:
-        """``rope`` is ``lanes_rope``'s tables for "lanes", ``heads_rope``'s otherwise;
-        ``batch0`` is the global index of ``x``'s first row (the dropout mask's place)."""
+        """``batch0`` is the global index of ``x``'s first row (the dropout mask's place)."""
         B, T, _ = x.shape
+        n, dev = self.rope_heads, str(x.device)
         xc = _column_input(x, self.tp)
         q, k, v = self.to_q(xc), self._keys(xc), self.to_v(xc)
         if kv_lens is None:
-            kv_lens = (
-                mask.sum(dim=-1, dtype=torch.int32) if mask is not None
-                else torch.full((B,), T, dtype=torch.int32, device=x.device)
-            )
+            kv_lens = kv_lengths(mask, B, T, x.device)
         if self.impl == "lanes":
-            if rope is not None and self.rope_heads is None:
-                q, k = apply_rope_lanes(q, k, rope[0], rope[1], self.heads)
-            elif rope is not None and self.rope_heads:
-                q, k = apply_partial_rope_lanes(q, k, rope[0], rope[1], self.rope_heads)
+            if n is None:
+                cos, sin = lanes_rope(T, self.dim_head, self.heads, dev, x.dtype)
+                q, k = apply_rope_lanes(q, k, cos, sin, self.heads)
+            elif n:
+                cos, sin = lanes_rope(T, self.dim_head, n, dev, x.dtype)
+                q, k = apply_partial_rope_lanes(q, k, cos, sin, n)
             out = flash_attention_lanes(q, k, v, kv_lens, self.heads)
         else:
             q, k, v = (y.view(B, T, self.heads, self.dim_head).transpose(1, 2) for y in (q, k, v))
-            if rope is not None and self.rope_heads is None:
-                q, k = apply_rope(q, k, rope[0], rope[1])
-            elif rope is not None and self.rope_heads:
-                q, k = apply_partial_rope(q, k, rope[0], rope[1], self.rope_heads)
+            if n != 0:
+                cos, sin = heads_rope(T, self.dim_head, dev, x.dtype)
+                q, k = (apply_rope(q, k, cos, sin) if n is None
+                        else apply_partial_rope(q, k, cos, sin, n))
             if self.impl == "skip":
                 out = v + 0.0 * q
             elif self.impl == "flash":
@@ -638,6 +643,10 @@ class FeedForward(nn.Module):
         _shard_dense(self.out_proj, 1, tp)
         self.tp = tp
 
+    def unshard(self) -> None:
+        """Every hidden feature again, once the projections are whole."""
+        self.tp = None
+
     def forward(self, x: torch.Tensor, seed: int | None = None, batch0: int = 0) -> torch.Tensor:
         h = self.in_proj(_column_input(x, self.tp))
         if seed is not None and self.dropout > 0:
@@ -662,11 +671,14 @@ class DiTBlock(nn.Module):
         self.attn.shard(tp)
         self.ff.shard(tp)
 
-    def forward(self, x, t, mask=None, rope=None, tmods=None, kv_lens=None, seeds=None,
-                batch0=0):
+    def unshard(self) -> None:
+        self.attn.unshard()
+        self.ff.unshard()
+
+    def forward(self, x, t, mask=None, tmods=None, kv_lens=None, seeds=None, batch0=0):
         attn_seed, ff_seed = seeds if seeds is not None else (None, None)
         normed, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t, mods=tmods)
         x = x + gate_msa[:, None] * self.attn(
-            normed, mask=mask, rope=rope, kv_lens=kv_lens, seed=attn_seed, batch0=batch0)
+            normed, mask=mask, kv_lens=kv_lens, seed=attn_seed, batch0=batch0)
         ff_in = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
         return x + gate_mlp[:, None] * self.ff(ff_in, seed=ff_seed, batch0=batch0)

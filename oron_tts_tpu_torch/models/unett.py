@@ -4,7 +4,7 @@ E2 TTS (arXiv:2406.18009), as F5-TTS publishes it
 (``src/f5_tts/model/backbones/unett.py``, ``configs/E2TTS_Base.yaml``): the
 text is a plain character embedding at the mel width, concatenated with the
 noised mel and the masked conditioning, projected to ``dim`` and given the
-DiT's convolutional position embedding (:class:`~.dit.InputEmbedding`). The
+DiT's convolutional position embedding (:class:`~.backbone.InputEmbedding`). The
 time embedding is prepended as one more token, so the blocks run over
 ``T + 1`` positions, the mask left-padded with True (the lanes kernels take
 ``kv_lens = mask.sum + 1``). Each block is pre-RMSNorm attention and FFN
@@ -16,15 +16,16 @@ rotate-half convention (F5-TTS takes x_transformers', which pairs adjacent
 lanes: the same rotation up to a fixed permutation of each head's lanes).
 The output is ``proj_out(RMSNorm(h)[:, 1:])``.
 
-The interface is the DiT's (:class:`~.dit.Backbone`: ``forward``,
+The interface is the DiT's (:class:`~.backbone.Backbone`: ``forward``,
 ``forward_cfg``, ``embed_text``, ``embed_time``, ``depth``, ``shard``/
 ``unshard``), and so are the attention and FFN modules, the kernels and the
 dropout: a block's masks sit at row ``batch0 · (T + 1)``. Under
 ``gradient_checkpointing`` a later block is recomputed with its popped skip
 as an input. :meth:`UNetT.shard` splits attention and FFN as the DiT's does;
 ``skip_proj`` and the norms stay whole (``parallel/mesh.py``'s default), and
-head 0 is rotated on the rank that holds it. With no AdaLN, the sampler
-hoists only the time embedding (:meth:`UNetT.precompute_t_mods`).
+head 0 is rotated on the rank that holds it (each ``Attention`` sizes its RoPE
+tables for the heads it rotates). With no AdaLN, the sampler hoists only the
+time embedding (:meth:`UNetT.precompute_t_mods`).
 
 Tracing (``utils/trace.py``): span ``unett.skip`` around each later block's
 concatenation and ``skip_proj``; counters ``unett.tokens`` (``B·(T + 1)`` a
@@ -39,16 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from oron_tts_tpu_torch.models.dit import Backbone, InputEmbedding
-from oron_tts_tpu_torch.models.layers import (
-    Attention,
-    FeedForward,
-    RMSNorm,
-    TimestepEmbedding,
-    heads_rope,
-    lanes_rope,
-)
-from oron_tts_tpu_torch.models.text_embed import TextEmbedding
+from oron_tts_tpu_torch.models.backbone import Backbone
+from oron_tts_tpu_torch.models.layers import Attention, FeedForward, RMSNorm, kv_lengths
 from oron_tts_tpu_torch.utils import trace
 
 
@@ -71,17 +64,23 @@ class UNetTBlock(nn.Module):
         self.attn.shard(tp)
         self.ff.shard(tp)
 
-    def forward(self, x, skip=None, mask=None, rope=None, kv_lens=None, seeds=None, batch0=0):
+    def unshard(self) -> None:
+        self.attn.unshard()
+        self.ff.unshard()
+
+    def forward(self, x, skip=None, mask=None, kv_lens=None, seeds=None, batch0=0):
         if skip is not None:
             with trace.span("unett.skip"):
                 x = self.skip_proj(torch.cat([x, skip], dim=-1))
         attn_seed, ff_seed = seeds if seeds is not None else (None, None)
-        x = x + self.attn(self.attn_norm(x), mask=mask, rope=rope, kv_lens=kv_lens,
-                          seed=attn_seed, batch0=batch0)
+        x = x + self.attn(self.attn_norm(x), mask=mask, kv_lens=kv_lens, seed=attn_seed,
+                          batch0=batch0)
         return x + self.ff(self.ff_norm(x), seed=ff_seed, batch0=batch0)
 
 
 class UNetT(Backbone):
+    config_fields = ("text_mask_padding", "pe_attn_head")
+
     def __init__(
         self,
         dim: int = 1024,
@@ -101,38 +100,20 @@ class UNetT(Backbone):
         use_flash: bool = True,
         attn_impl: str | None = None,
     ) -> None:
-        super().__init__()
         if depth % 2:
             raise ValueError(f"UNetT's depth must be even, got {depth}")
         if conv_layers and not text_mask_padding:
             raise ValueError("text conv blocks re-zero the text padding here: "
                              "text_mask_padding False needs conv_layers 0")
-        text_dim = mel_dim if text_dim is None else text_dim
-        self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
-        self.ff_mult = ff_mult
-        self.dropout, self.gradient_checkpointing = dropout, gradient_checkpointing
-        self.quant = quant
-        self.mesh = None  # set by shard()
-        self.time_embed = TimestepEmbedding(dim)
-        self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
-        self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
+        super().__init__(dim, depth, heads, dim_head, ff_mult, mel_dim, vocab_size,
+                         mel_dim if text_dim is None else text_dim, conv_layers, dropout,
+                         gradient_checkpointing, quant)
         for i in range(depth):
             self.add_module(f"block{i}", UNetTBlock(
                 dim, heads, dim_head, ff_mult, dropout, quant, use_flash, attn_impl,
                 pe_attn_head, skip=i >= depth // 2))
-        self.attn_impl = self.block0.attn.impl if depth else None
         self.norm_out = RMSNorm(dim)
         self.proj_out = nn.Linear(dim, mel_dim)
-
-    def _rope(self, length: int, like: torch.Tensor):
-        """Tables for the heads this rank rotates, or None where it rotates none."""
-        n = self.block0.attn.rope_heads
-        if n == 0:
-            return None
-        if self.attn_impl == "lanes":
-            return lanes_rope(length, self.dim_head, self.local_heads if n is None else n,
-                              str(like.device), like.dtype)
-        return heads_rope(length, self.dim_head, str(like.device), like.dtype)
 
     def _transformer(self, h, t, mask, t_mods=None, dropout_seeds=None, batch0=0):
         B, T, _ = h.shape
@@ -141,11 +122,7 @@ class UNetT(Backbone):
         h = torch.cat([t[:, None].to(h.dtype), h], dim=1)
         T1 = T + 1
         mask = None if mask is None else F.pad(mask, (1, 0), value=True)
-        kv_lens = (
-            mask.sum(dim=-1, dtype=torch.int32) if mask is not None
-            else torch.full((B,), T1, dtype=torch.int32, device=h.device)
-        )
-        rope = self._rope(T1, h)
+        kv_lens = kv_lengths(mask, B, T1, h.device)
         if trace.enabled():
             trace.count("unett.tokens", B * T1)
             trace.count("unett.skip_bytes", self.depth // 2 * h.numel() * h.element_size())
@@ -155,7 +132,7 @@ class UNetT(Backbone):
             skip = skips.pop() if i >= half else None
             if i < half:
                 skips.append(h)
-            args = (h, skip, mask, rope, kv_lens,
+            args = (h, skip, mask, kv_lens,
                     None if dropout_seeds is None else dropout_seeds[i], batch0)
             h = checkpoint(blk, *args, use_reentrant=False) if remat else blk(*args)
         return self.proj_out(self.norm_out(h)[:, 1:])

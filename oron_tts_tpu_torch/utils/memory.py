@@ -2,19 +2,21 @@
 
 Counterpart of the JAX package's ``utils/memory.py``. ``auto`` trains
 without rematerialisation whenever the worst padded batch fits the card, and
-recomputes each DiT block in the backward otherwise. A wrong "no-remat" is
+recomputes each block in the backward otherwise. A wrong "no-remat" is
 an out-of-memory error, a wrong "remat" only costs speed, so the estimate
 errs high.
 
 The estimate is the port's own layout (``train/trainer.py``): f32 master
 weights, the EMA (f32), AdamW's first moment (bf16 by default) and second
 (f32), the working copy the backbone computes in (bf16 on the card) and the
-f32 gradients, plus activations linear in the padded frames. The activation
-constants and the margin were fitted on an NVIDIA H100 80GB HBM3 (700 W)
-from ``torch.cuda.max_memory_allocated`` of Base bf16 "lanes" steps with
-and without rematerialisation (``chip_smoke.py``, ``memory`` phase, which
-prints the points and the constants they imply, and fails if the estimate
-falls below any measured peak).
+f32 gradients, plus activations linear in the padded frames. The parameter
+count is the caller's, as each backbone states it (``models/f5tts.py``
+``config_param_count``). The activation constants and the margin were
+fitted on an NVIDIA H100 80GB HBM3 (700 W) from
+``torch.cuda.max_memory_allocated`` of Base bf16 "lanes" steps with and
+without rematerialisation (``chip_smoke.py``, ``memory`` phase, which prints
+the points and the constants they imply, and fails if the estimate falls
+below any measured peak).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
-# Activation bytes a padded frame holds, per model dim and DiT block, in a
+# Activation bytes a padded frame holds, per model dim and block, in a
 # bf16 step without rematerialisation (every block's saved tensors), and with
 # it (each block's checkpointed inputs; one block's full set is added back
 # for its recompute in the backward). Base peaks rose 8.27 GB for every 8,192
@@ -34,36 +36,6 @@ REMAT_BYTES_PER_FRAME_DIM_LAYER = 4.5
 # GB) and the caching allocator's slack (reserved up to 1.057x allocated)
 # left 0.937 of the card's 85.0e9 bytes; 0.92 keeps a margin below that.
 MEMORY_MARGIN = 0.92
-
-
-def dit_param_count(dim: int, depth: int, text_dim: int = 512,
-                    mel_dim: int = 100, ff_mult: int = 4,
-                    vocab_size: int = 65, conv_layers: int = 4) -> int:
-    """Approximate DiT parameter count from config dims (Base ≈ 428M)."""
-    per_block = (4 + 2 * ff_mult + 6) * dim * dim  # qkvo + ffn + AdaLN
-    text = vocab_size * text_dim + conv_layers * (
-        7 * text_dim + 2 * 2 * text_dim * text_dim
-    )
-    input_embed = (2 * mel_dim + text_dim) * dim + 2 * dim * dim // 16 * 31
-    final = dim * mel_dim + 2 * dim * dim + 256 * dim + dim * dim  # + time MLP
-    return depth * per_block + text + input_embed + final
-
-
-def unett_param_count(dim: int, depth: int, text_dim: int | None = None,
-                      mel_dim: int = 100, ff_mult: int = 4,
-                      vocab_size: int = 65) -> int:
-    """E2's UNetT parameter count from config dims, biases and norms included
-    (E2TTS_Base: 333,222,444); text at the mel width unless ``text_dim``, and no
-    text conv blocks."""
-    td = mel_dim if text_dim is None else text_dim
-    per_block = (4 * dim * dim + 4 * dim                     # q, k, v, out
-                 + 2 * ff_mult * dim * dim + ff_mult * dim + dim  # FFN
-                 + 2 * dim)                                   # two RMSNorm weights
-    skips = depth // 2 * 2 * dim * dim                        # skip_proj, no bias
-    text = (vocab_size + 1) * td
-    input_embed = (2 * mel_dim + td) * dim + dim + 2 * (dim * (dim // 16) * 31 + dim)
-    final = dim + dim * mel_dim + mel_dim + 256 * dim + dim + dim * dim + dim  # + time MLP
-    return depth * per_block + skips + text + input_embed + final
 
 
 def state_bytes_per_param(mu_bf16: bool = True, bf16_compute: bool = True) -> int:
@@ -127,32 +99,15 @@ def worst_case_padded_frames(
     return worst
 
 
-def config_param_count(config: dict[str, Any]) -> int:
-    """Parameters of the backbone that ``model.backbone`` names (the DiT's by default)."""
-    m = config.get("model", {}) or {}
-    if m.get("backbone", "DiT") == "UNetT":
-        return unett_param_count(
-            m.get("dim", 1024), m.get("depth", 24), text_dim=m.get("text_dim"),
-            mel_dim=config.get("n_mels", 100), ff_mult=m.get("ff_mult", 4),
-            vocab_size=m.get("vocab_size", 65))
-    return dit_param_count(
-        m.get("dim", 1024), m.get("depth", 22),
-        text_dim=m.get("text_dim", 512),
-        mel_dim=config.get("n_mels", 100),
-        ff_mult=m.get("ff_mult", 4),
-        vocab_size=m.get("vocab_size", 65),
-        conv_layers=m.get("conv_layers", 4),
-    )
-
-
 def auto_gradient_checkpointing(
-    config: dict[str, Any], frames: int, device_bytes: int | None = None,
+    config: dict[str, Any], frames: int, n_params: int, device_bytes: int | None = None,
     bf16_compute: bool | None = None,
 ) -> bool:
     """True = rematerialise; False = the step without it fits ``device_bytes``.
 
-    ``device_bytes`` defaults to the card's memory (:func:`device_memory_bytes`);
-    ``bf16_compute`` to the config's ``mixed_precision``.
+    ``n_params`` is the backbone's parameter count; ``device_bytes`` defaults to
+    the card's memory (:func:`device_memory_bytes`); ``bf16_compute`` to the
+    config's ``mixed_precision``.
     """
     m = config.get("model", {}) or {}
     if device_bytes is None:
@@ -160,7 +115,7 @@ def auto_gradient_checkpointing(
     if bf16_compute is None:
         bf16_compute = config.get("mixed_precision", "bfloat16") == "bfloat16"
     need = estimate_train_bytes(
-        config_param_count(config), frames, m.get("dim", 1024), m.get("depth", 22),
+        n_params, frames, m.get("dim", 1024), m.get("depth", 22),
         mu_bf16=config.get("adam_mu_dtype", "bfloat16") == "bfloat16",
         bf16_compute=bf16_compute, remat=False,
     )

@@ -148,19 +148,11 @@ def flax_init(
     return redraw(shapes, ())
 
 
-def init_module_params(module: torch.nn.Module, seed: int = 0) -> dict[str, Any]:
-    """A fresh flax-layout tree for ``module`` (a Vocos, a discriminator, a UNetT), seeded."""
-    return flax_init(to_flax_params(module.state_dict()), np.random.default_rng(seed))
-
-
-def init_dit_params(config: ModelConfig, n_mels: int = 100, seed: int = 0) -> dict[str, Any]:
-    """A fresh DiT tree under the JAX package's initial scheme (``flax_init``),
-    with the AdaLN projections and ``proj_out`` all zero, so the model starts
-    as the identity-gated stack the JAX package starts from.
-    """
-    rng = np.random.default_rng(seed)
-    return flax_init(seeded_dit_params(config, n_mels, seed), rng,
-                     zeroed=("attn_norm", "norm_out", "proj_out"))
+def init_module_params(module: torch.nn.Module, seed: int = 0,
+                       zeroed: tuple[str, ...] = ()) -> dict[str, Any]:
+    """A fresh flax-layout tree for ``module`` (a backbone, a Vocos, a discriminator),
+    seeded; every leaf under a module named in ``zeroed`` is 0 (:func:`flax_init`)."""
+    return flax_init(to_flax_params(module.state_dict()), np.random.default_rng(seed), zeroed)
 
 
 def seeded_dit_params(

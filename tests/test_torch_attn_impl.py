@@ -51,13 +51,8 @@ def _inputs(seed=0):
     return x, mask
 
 
-def _port_rope(impl):
-    if impl == "lanes":
-        return tl.lanes_rope(T, DH, HEADS, "cpu", torch.float32)
-    return tl.heads_rope(T, DH, "cpu", torch.float32)
-
-
 def _port_attention(impl, params):
+    """The port's ``Attention``, which builds the RoPE tables its ``impl`` takes."""
     attn = tl.Attention(DIM, HEADS, DH, attn_impl=impl)
     attn.load_state_dict(from_flax_params(params), strict=True)
     return attn.eval()
@@ -138,7 +133,7 @@ def test_attention_matches_jax(impl):
     ref = jmod.apply({"params": params}, x, mask=jnp.asarray(mask),
                      rope=(jnp.asarray(cos), jnp.asarray(sin)))
     with torch.no_grad():  # "packed" is forward only, as in the JAX package
-        out = _port_attention(impl, params)(_t(x), mask=_t(mask), rope=_port_rope(impl))
+        out = _port_attention(impl, params)(_t(x), mask=_t(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-3)
 
 
@@ -160,7 +155,7 @@ def test_attention_gradients_match_jax(impl):
     j_params, j_x = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
     attn = _port_attention(impl, params)
     tx = _t(x).requires_grad_(True)
-    (attn(tx, mask=_t(mask), rope=_port_rope(impl)) * _t(probe)).sum().backward()
+    (attn(tx, mask=_t(mask)) * _t(probe)).sum().backward()
     got = to_flax_params({n: p.grad for n, p in attn.named_parameters()})
     flat_got = jax.tree_util.tree_leaves(got)
     flat_ref = jax.tree_util.tree_leaves(jax.device_get(j_params))

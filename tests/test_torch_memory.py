@@ -21,6 +21,8 @@ from oron_tts_tpu.utils import memory as jmem
 from oron_tts_tpu_torch.cli.train import auto_remat_frames
 from oron_tts_tpu_torch.config import load_config
 from oron_tts_tpu_torch.data.dataset import frames_for_duration
+from oron_tts_tpu_torch.models.dit import dit_param_count
+from oron_tts_tpu_torch.models.f5tts import config_param_count
 from oron_tts_tpu_torch.utils import memory as mem
 
 from test_torch_serve_load import one_thread  # noqa: F401 (autouse: tiny models)
@@ -34,7 +36,7 @@ GB = 10**9
 ])
 def test_param_count_equals_jax(dim, depth, text_dim, ff_mult, conv_layers):
     kw = dict(text_dim=text_dim, ff_mult=ff_mult, conv_layers=conv_layers)
-    assert mem.dit_param_count(dim, depth, **kw) == jmem.dit_param_count(dim, depth, **kw)
+    assert dit_param_count(dim, depth, **kw) == jmem.dit_param_count(dim, depth, **kw)
 
 
 def test_worst_case_padded_frames_equals_jax_on_a_grid():
@@ -92,13 +94,13 @@ def test_auto_choice_for_each_shipped_config(name):
     assert config["gradient_checkpointing"] == "auto"
     frames, want = AUTO[name]
     assert auto_remat_frames(config) == frames
-    got = tuple(mem.auto_gradient_checkpointing(config, frames, device_bytes=b)
+    n_params = config_param_count(config)
+    got = tuple(mem.auto_gradient_checkpointing(config, frames, n_params, device_bytes=b)
                 for b in BUDGETS)
     assert got == want
     # the rule itself: remat exactly when the estimate passes the budget's margin
     m = config["model"]
-    need = mem.estimate_train_bytes(mem.config_param_count(config), frames, m["dim"],
-                                    m["depth"])
+    need = mem.estimate_train_bytes(n_params, frames, m["dim"], m["depth"])
     for budget, remat in zip(BUDGETS, got):
         assert remat == (need > budget * mem.MEMORY_MARGIN)
 

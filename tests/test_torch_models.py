@@ -24,7 +24,7 @@ from oron_tts_tpu.models.text_embed import TextEmbedding as JTextEmbedding
 from oron_tts_tpu.models.vocos import VocosDecoder as JVocos
 from oron_tts_tpu.train.checkpoint import load_pytree_npz
 from oron_tts_tpu_torch.models import layers as tl
-from oron_tts_tpu_torch.models.dit import DiT, precompute_t_mods
+from oron_tts_tpu_torch.models.dit import DiT
 from oron_tts_tpu_torch.models.f5tts import BUNDLED_VOCODER
 from oron_tts_tpu_torch.models.text_embed import TextEmbedding
 from oron_tts_tpu_torch.models.vocos import VocosDecoder
@@ -128,8 +128,8 @@ def test_adaln_attention_feedforward_block():
     ref = jl.Attention(DIM, HEADS).apply(
         {"params": p["attn"]}, x, jnp.asarray(mask), (jnp.asarray(cos), jnp.asarray(sin))
     )
-    rope = tl.lanes_rope(T, 64, HEADS, "cpu", torch.float32)
-    close(port(tl.Attention(DIM, HEADS), p["attn"])(t_(x), t_(mask), rope), ref)
+    # the port's Attention builds its own tables (lanes_rope, tested above)
+    close(port(tl.Attention(DIM, HEADS), p["attn"])(t_(x), t_(mask)), ref)
 
     ref = jl.FeedForward(DIM).apply({"params": p["ff"]}, x)
     close(port(tl.FeedForward(DIM), p["ff"])(t_(x)), ref)
@@ -137,7 +137,7 @@ def test_adaln_attention_feedforward_block():
     ref = jl.DiTBlock(DIM, HEADS, dropout=0.0).apply(
         {"params": p}, x, emb, jnp.asarray(mask), (jnp.asarray(cos), jnp.asarray(sin))
     )
-    close(port(tl.DiTBlock(DIM, HEADS), p)(t_(x), t_(emb), t_(mask), rope), ref)
+    close(port(tl.DiTBlock(DIM, HEADS), p)(t_(x), t_(emb), t_(mask)), ref)
 
 
 def test_adaln_final():
@@ -205,7 +205,7 @@ def test_dit_forward_cfg(hoisted):
         jemb = jd.apply({"params": params}, jnp.asarray(grid), method="embed_time")
         bm, fm = j_precompute_t_mods(params, jemb, DEPTH, False)
         jt = (bm[:, 1], fm[1])
-        pbm, pfm = precompute_t_mods(pd, pd.embed_time(t_(grid)))
+        pbm, pfm = pd.precompute_t_mods(pd.embed_time(t_(grid)))
         close(pbm, bm)
         close(pfm, fm)
         pt = (pbm[:, 1], pfm[1])

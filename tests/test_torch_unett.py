@@ -30,8 +30,8 @@ import yaml
 
 import plain_unett as R
 from oron_tts_tpu_torch.config import F5Config, load_config
-from oron_tts_tpu_torch.models.dit import DiT
-from oron_tts_tpu_torch.models.f5tts import F5TTS, build_backbone
+from oron_tts_tpu_torch.models.dit import DiT, dit_param_count
+from oron_tts_tpu_torch.models.f5tts import F5TTS, build_backbone, config_param_count
 from oron_tts_tpu_torch.models.unett import UNetT
 from oron_tts_tpu_torch.ops.gelu_dropout import _inv_keep, _threshold, keep_mask_plain
 from oron_tts_tpu_torch.utils import memory as mem
@@ -334,7 +334,7 @@ def test_e2_base_yaml_has_the_published_widths():
         backbone = build_backbone(m, config["n_mels"], False)
     assert isinstance(backbone, UNetT)
     n = sum(t.numel() for t in backbone.state_dict().values())
-    assert n == mem.config_param_count(config) == 333_222_444
+    assert n == config_param_count(config) == 333_222_444
 
 
 def test_runpod_still_builds_the_dit_with_its_keys_count_and_choice():
@@ -348,9 +348,10 @@ def test_runpod_still_builds_the_dit_with_its_keys_count_and_choice():
     assert type(backbone) is DiT
     assert {k: tuple(v.shape) for k, v in backbone.state_dict().items()} == {
         k: tuple(v.shape) for k, v in direct.state_dict().items()}
-    assert mem.config_param_count(config) == mem.dit_param_count(1024, 22) == 427_780_608
+    n = config_param_count(config)
+    assert n == dit_param_count(1024, 22) == 427_780_608
     # auto: remat below the H100's 85,017,493,504 bytes, none on it (runpod's 67,584 frames)
-    assert [mem.auto_gradient_checkpointing(config, 67_584, device_bytes=b)
+    assert [mem.auto_gradient_checkpointing(config, 67_584, n, device_bytes=b)
             for b in (80 * 10**9, 85_017_493_504)] == [True, False]
 
 
@@ -379,6 +380,8 @@ def test_cli_train_runs_a_tiny_e2_config(tmp_path, capsys):
     finally:
         signal.signal(signal.SIGTERM, prev)
     out = capsys.readouterr().out
-    n = mem.unett_param_count(64, 4)
+    with torch.device("meta"):  # the module's own count
+        n = sum(t.numel() for t in build_backbone(
+            F5Config.from_dict(config).model, config["n_mels"], False).state_dict().values())
     assert f"Model parameters: {n:,}" in out
     assert list((tmp_path / "ckpt").glob("f5tts_step_*.npz"))
