@@ -53,7 +53,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    2,048), on silence (log(1e-5)) and twice on one batch for identical
    bits; the trainer's fused AdamW + EMA + working copy (row 13) over Base's
    363 leaves, bit-equal to the eager update on one clipped step, timed with
-   its launches' host time beside the eager update and ``torch._fused_adamw_``.
+   its launches' host time beside the eager update and ``torch._fused_adamw_``;
+   AdaLN-Zero's three entry points (row 15) at Base's ``[48, 1000, 1024]``
+   against their f32 form, each backward twice for identical bits, timed one
+   call at a time and from a CUDA graph beside the eager chain they replace.
 4. reference: a small f32 model on the card against the same model on the
    CPU (plain versions), same weights and noise: mel and waveform agree;
    then one training step of a small f32 model on both from the same
@@ -69,7 +72,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    0.1, no rematerialisation) over a seeded synthetic ``TTSDataset`` of 24
    clips in batches of ``[12, 2048]`` frames: a warm-up epoch through
    ``train_epoch``, then timed steps with per-step launch counts (one fused
-   update a step), one more
+   update a step; AdaLN 3 × depth + 1 passes forward and twice that back), one more
    step under ``torch.profiler``, and a checkpoint written and read back.
 8. reference_serve: the small f32 model with int8 weights (``int8`` through
    the w8a16 kernel, ``int8_dynamic``) on the card against the CPU.
@@ -1030,7 +1033,8 @@ def check_kernels(torch, F) -> list[dict]:
     del audio, q, k, v, x
     torch.cuda.empty_cache()
     return (rows + check_train_kernels(torch, F, report) + check_qmm(torch, F, report)
-            + check_classic_kernels(torch, F, report) + check_fused_update(torch, report))
+            + check_classic_kernels(torch, F, report) + check_fused_update(torch, report)
+            + check_adaln(torch, report))
 
 
 FUSED_SRC = "oron_tts_tpu_torch/csrc/fused_adamw_ema.cu"
@@ -1107,6 +1111,124 @@ def check_fused_update(torch, report) -> list[dict]:
     del kern, ps, gs, m32, v32
     torch.cuda.empty_cache()
     return [row]
+
+
+ADALN_SRC = "oron_tts_tpu_torch/csrc/adaln.cu"
+# each entry point of row 15: the x-sized tensors it reads or writes once, forward and backward
+ADALN_PASSES = {"adaln_modulate": (2, 3), "gate_residual_modulate": (4, 6),
+                "gate_residual": (3, 3)}
+
+
+def check_adaln(torch, report) -> list[dict]:
+    """Row 15, AdaLN-Zero's three entry points at Base's step shape, ``[48, 1000, 1024]``
+    bf16 with one modulation row a batch row and ``y`` zero past each ragged length.
+
+    Each forward and backward against the plain form computed in f32 from the same
+    inputs, as ``tests/test_torch_adaln.py`` holds them: |kernel − f32| within one
+    bf16 step (2⁻⁸) of the value, rounded once, plus 2e-5 of the tensor's largest
+    value (f32 sums over 1,024 columns or 48,000 rows in another order);
+    ``err_share_of_tol`` is the worst element's share of its tolerance. Each backward
+    runs twice for identical bits (the tile sums have a fixed order). Timed beside
+    the plain form in bf16, the eager ``F.layer_norm`` chain the kernels replace
+    (forward, and its autograd backward). The bound: 2 B an element of each x-sized
+    tensor read or written once, and the 8 B a row of mean and rstd.
+    """
+    from oron_tts_tpu_torch.ops import adaln
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, T, D = DROP_B, DROP_T, DROP_C
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    x, y, dh, dres = (draw(B, T, D) for _ in range(4))
+    lens = torch.randint(T // 20, T + 1, (B,), generator=gen, device=dev)
+    y *= (torch.arange(T, device=dev)[None, :] < lens[:, None])[..., None]  # attention's pad rows
+    gate, scale, shift = (0.5 * torch.randn(B, 3 * D, generator=gen, device=dev)).to(
+        bf16).chunk(3, dim=-1)
+    size, stats_bytes = x.numel() * x.element_size(), 8 * B * T
+    out_rows = []
+    for entry, (fwd_n, bwd_n) in ADALN_PASSES.items():
+        op = {"adaln_modulate": adaln.MODULATE, "gate_residual_modulate":
+              adaln.GATE_RESIDUAL_MODULATE, "gate_residual": adaln.GATE_RESIDUAL}[entry]
+        gated, normed = op != adaln.MODULATE, op != adaln.GATE_RESIDUAL
+        ins = [x, *(t if gated else None for t in (y, gate)),
+               *(t if normed else None for t in (scale, shift))]
+        d_x1, d_h = (dres if gated else None), (dh if normed else None)
+        grads = [g for g in (d_x1, d_h) if g is not None]  # in the order of the outputs
+        out, x1, stats = adaln.adaln_fwd(op, *ins)
+        bwd_in = ({adaln.MODULATE: x, adaln.GATE_RESIDUAL_MODULATE: x1}.get(op), ins[1], d_h,
+                  d_x1, stats, ins[2], ins[3])
+        dx, dy, sums = adaln.adaln_bwd(op, *bwd_in)
+        same = bit_identical([t for t in (dx, dy, sums) if t is not None],
+                             [t for t in adaln.adaln_bwd(op, *bwd_in) if t is not None])
+        # the f32 form; x1 rounded to bf16 before its LayerNorm, as it is stored and read
+        f = [None if t is None else t.float().requires_grad_(True) for t in ins]
+        if op == adaln.GATE_RESIDUAL_MODULATE:
+            x1f = adaln.gate_residual_plain(*f)
+            x1f = x1f + (x1f.to(bf16).float() - x1f).detach()
+            want = (x1f, adaln.adaln_modulate_plain(x1f, None, None, f[3], f[4]))
+        else:
+            want = (adaln.PLAIN[op](*f),)
+        want_g = torch.autograd.grad(want, [t for t in f if t is not None],
+                                     [g.float() for g in grads])
+        want_g = dict(zip([n for n, t in zip(("x", "y", "gate", "scale", "shift"), f)
+                           if t is not None], want_g))
+        pairs = list(zip([t for t in (x1, out) if t is not None], want))
+        pairs += [(dx, want_g["x"])] if dx is not None else []
+        pairs += [(dy, want_g["y"])] if dy is not None else []
+        pairs += list(zip(sums, [want_g[n] for n in ("scale", "shift", "gate") if n in want_g]))
+        fwd_pairs = len(want)
+        del f, want, want_g
+        torch.cuda.synchronize()
+
+        def errors(ps):
+            share, err = 0.0, 0.0
+            for got, ref in ps:
+                got, ref = got.float(), ref.float()
+                diff = (got - ref).abs()
+                tol = 2.0**-8 * ref.abs() + 2e-5 * ref.abs().max()
+                share, err = max(share, (diff / tol).max().item()), max(err, diff.max().item())
+            return share, err
+
+        leaves = [None if t is None else t.detach().requires_grad_(True) for t in ins]
+        plain_outs = adaln.PLAIN[op](*leaves)
+        plain_wrt = [t for t in leaves if t is not None]
+        for name, ps, n_bytes, kernel, plain_call, plain in (
+            ("adaln_fwd", pairs[:fwd_pairs], fwd_n * size + stats_bytes * normed,
+             lambda: adaln.adaln_fwd(op, *ins), lambda: adaln.PLAIN[op](*ins),
+             "F.layer_norm, 1 + scale, broadcast products and adds"),
+            ("adaln_bwd", pairs[fwd_pairs:], bwd_n * size + stats_bytes * normed,
+             lambda: adaln.adaln_bwd(op, *bwd_in),
+             lambda: torch.autograd.grad(plain_outs, plain_wrt, grads, retain_graph=True),
+             "the eager chain's autograd backward"),
+        ):
+            share, err = errors(ps)
+            b_ms, b_by = bound_ms(0.0, H100_F32_FLOPS, n_bytes)
+            if name == "adaln_fwd":
+                with torch.no_grad():
+                    plain_ms, plain_graph_ms = cuda_ms(plain_call), cuda_graph_ms(plain_call)
+            else:
+                plain_ms, plain_graph_ms = cuda_ms(plain_call), None
+            row = {"name": name, "entry": entry, "dtype": str(bf16), "shape": [B, T, D],
+                   "mods_rows": B, "max_abs_err": err, "err_share_of_tol": share,
+                   "tol_on": "err_share_of_tol", "tol": 1.0,
+                   "bit_equal_rerun": same if name == "adaln_bwd" else None,
+                   "ms": cuda_ms(kernel), "graph_ms": cuda_graph_ms(kernel),
+                   "plain_ms": plain_ms, "plain_graph_ms": plain_graph_ms, "plain": plain,
+                   "library_ms": None, "library": "none: the plain form is the eager chain",
+                   "bound_ms": b_ms, "bound_by": b_by, "route": "cuda", "source": ADALN_SRC,
+                   "replaces": "none: XLA fuses the JAX package's AdaLN"}
+            report(row)
+            out_rows.append(row)
+        del plain_outs, plain_wrt, leaves, pairs, out, x1, stats, dx, dy, sums, bwd_in
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError(f"{entry}: two backward runs differ")
+    del x, y, dh, dres, gate, scale, shift
+    torch.cuda.empty_cache()
+    return out_rows
 
 
 CLASSIC_SRC = "oron_tts_tpu_torch/csrc/flash_classic.cu"
@@ -1559,6 +1681,7 @@ def check_train_reference(torch) -> None:
 
     from oron_tts_tpu_torch.config import F5Config, ModelConfig
     from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.adaln import adaln_bwd
     from oron_tts_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_lanes_bwd
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
@@ -1583,12 +1706,12 @@ def check_train_reference(torch) -> None:
                 trainer = F5Trainer(cfg, model, [batch], log_dir=f"{tmp}/{device}/logs",
                                     checkpoint_dir=f"{tmp}/{device}/ckpt")
                 before = [p.cpu().clone() for p in trainer.state.params]
-                bwd = (flash_lanes_bwd.launches, flash_attention_bwd.launches)
+                kernels = (flash_lanes_bwd, flash_attention_bwd, adaln_bwd)
+                bwd = [k.launches for k in kernels]
                 m = trainer.train_step(batch, torch.Generator().manual_seed(11))
                 if device == "cuda":
                     torch.cuda.synchronize()
-                    bwd = (flash_lanes_bwd.launches - bwd[0], flash_attention_bwd.launches - bwd[1])
-                    card_bwd = dict(zip(("flash_lanes_bwd", "flash_attention_bwd"), bwd))
+                    card_bwd = {k.__name__: k.launches - b for k, b in zip(kernels, bwd)}
                 update = torch.cat([(p.cpu() - b).flatten()
                                     for p, b in zip(trainer.state.params, before)])
                 results.append((m, update))
@@ -1604,7 +1727,8 @@ def check_train_reference(torch) -> None:
               "update_l2": u_cpu.norm().item(), "ok": [m_gpu["ok"], m_cpu["ok"]]})
         want = "flash_attention_bwd" if dim // heads > 128 else "flash_lanes_bwd"
         if not (m_gpu["ok"] and m_cpu["ok"] and loss_err <= 1e-4 and norm_err <= 1e-3
-                and upd_err <= 1e-2 and u_cpu.norm().item() > 0 and card_bwd[want] == 2):
+                and upd_err <= 1e-2 and u_cpu.norm().item() > 0 and card_bwd[want] == 2
+                and card_bwd["adaln_bwd"] == 2 * (3 * mcfg.depth + 1)):
             raise AssertionError(f"card and CPU disagree on one training step of the small "
                                  f"model at head width {dim // heads} (backward launches "
                                  f"{card_bwd})")
@@ -1665,12 +1789,13 @@ def run_slice(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.config import F5Config
     from oron_tts_tpu_torch.data.wav import write_wav
     from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.adaln import adaln_fwd
     from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
     from oron_tts_tpu_torch.ops.fused_mel import log_mel_fused
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
-    kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused)
+    kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused, adaln_fwd)
     cfg = F5Config()
     t0 = time.perf_counter()
     model = F5TTS(cfg)  # the card, bf16
@@ -1712,7 +1837,7 @@ def run_slice(torch, smi: str) -> dict[str, int]:
                   "samples": len(wav), "rms": rms, "wall_s": wall, "audio_s": audio_s,
                   "rtf": wall / audio_s, "launches": counts, "card": smi})
             want = {"flash_lanes_fwd": steps * depth, "grouped_conv1d_mish": steps * 2,
-                    "log_mel_fused": 1 if extra else 0}
+                    "log_mel_fused": 1 if extra else 0, "adaln_fwd": steps * (3 * depth + 1)}
             if counts != want:
                 raise AssertionError(f"{mode}: launches {counts}, expected {want}")
             if len(wav) != target_len * cfg.audio.hop_length:
@@ -1738,6 +1863,7 @@ def run_train(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.data.dataset import FixedBatchSampler, TTSCollator, TTSDataset
     from oron_tts_tpu_torch.data.loader import DataLoader
     from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.adaln import adaln_bwd, adaln_fwd
     from oron_tts_tpu_torch.ops.flash_attention import (
         flash_lanes_bwd,
         flash_lanes_fwd,
@@ -1755,7 +1881,8 @@ def run_train(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
     kernels = (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd, gelu_dropout_fwd,
-               gelu_dropout_bwd, dropout_fwd, dropout_bwd, grouped_conv1d_mish, adamw_ema)
+               gelu_dropout_bwd, dropout_fwd, dropout_bwd, grouped_conv1d_mish, adamw_ema,
+               adaln_fwd, adaln_bwd)
     cfg = F5Config()  # Base: dim 1024, depth 22, heads 16, p_dropout 0.1, no remat
     depth = cfg.model.depth
     config = {"learning_rate": 1e-4, "warmup_steps": 2, "num_epochs": 4, "use_tqdm": False,
@@ -1795,7 +1922,9 @@ def run_train(torch, smi: str) -> dict[str, int]:
         want = {"flash_lanes_fwd": 0, "flash_lanes_fwd_stats": depth, "flash_lanes_bwd": depth,
                 "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth,
                 "dropout_fwd": depth, "dropout_bwd": depth,
-                "grouped_conv1d_mish": 2, "adamw_ema": 1}
+                "grouped_conv1d_mish": 2, "adamw_ema": 1,
+                # three passes a block and norm_out's; a backward pass and its tile sum each
+                "adaln_fwd": 3 * depth + 1, "adaln_bwd": 2 * (3 * depth + 1)}
         step_ms = []
         for epoch in (1, 2):
             loader.batch_sampler.set_epoch(epoch)
@@ -2268,13 +2397,14 @@ def run_serve(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.config import F5Config
     from oron_tts_tpu_torch.data.wav import read_wav_bytes, wav_bytes
     from oron_tts_tpu_torch.models.f5tts import F5TTS, split_text_for_synthesis
+    from oron_tts_tpu_torch.ops.adaln import adaln_fwd
     from oron_tts_tpu_torch.ops.flash_attention import flash_lanes_fwd
     from oron_tts_tpu_torch.ops.fused_mel import log_mel_fused
     from oron_tts_tpu_torch.ops.grouped_conv import grouped_conv1d_mish
     from oron_tts_tpu_torch.ops.quantized_matmul import quantized_matmul
     from oron_tts_tpu_torch.train.checkpoint import flatten_tree, write_npz
 
-    kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused, quantized_matmul)
+    kernels = (flash_lanes_fwd, grouped_conv1d_mish, log_mel_fused, quantized_matmul, adaln_fwd)
     cfg = F5Config.from_dict({"model": {"depth": CUT_DEPTH}})
     depth, hop, rate = cfg.model.depth, cfg.audio.hop_length, cfg.audio.sample_rate
     eight = [letters(60 + i % 5, salt=i) for i in range(8)]  # 780-832 frames: bucket 832
@@ -2337,13 +2467,18 @@ def run_serve(torch, smi: str) -> dict[str, int]:
                 return wav, dt
 
             # one ref-free request, alone
-            before = quantized_matmul.launches
+            before = quantized_matmul.launches, adaln_fwd.launches
             wav, dt = post_wav({"text": MN_TEXT, "seed": 0, "steps": SERVE_STEPS})
-            qmm_solo = quantized_matmul.launches - before
+            qmm_solo = quantized_matmul.launches - before[0]
+            adaln_solo = adaln_fwd.launches - before[1]
+            if adaln_solo != SERVE_STEPS * (3 * depth + 1):  # three a block and norm_out's
+                raise AssertionError(f"{mode}: the solo request launched AdaLN {adaln_solo} "
+                                     f"times, expected {SERVE_STEPS * (3 * depth + 1)}")
             if len(wav) != len(MN_TEXT.replace(" ", "")) * 13 * hop:
                 raise AssertionError(f"{mode}: {len(wav)} samples, not 13 frames a letter")
             report["solo"] = {"latency_s": dt, "audio_s": len(wav) / rate,
-                              "rtf": dt / (len(wav) / rate), "qmm_launches": qmm_solo}
+                              "rtf": dt / (len(wav) / rate), "qmm_launches": qmm_solo,
+                              "adaln_launches": adaln_solo}
 
             # eight solo answers, then the same eight at once: one merged solve
             solo = [post_wav({"text": t, "seed": s, "steps": SERVE_STEPS})
@@ -2557,14 +2692,15 @@ CLASSIC_LOSS_REL_TOL = 1e-2   # one bf16 forward of the same weights, batch and 
 
 
 def kernel_wrappers() -> dict:
-    """The attention and GELU+dropout wrappers whose launches the classic phase counts."""
+    """The attention, GELU+dropout and AdaLN wrappers whose launches the classic phase counts."""
+    from oron_tts_tpu_torch.ops import adaln as al
     from oron_tts_tpu_torch.ops import flash_attention as fa
     from oron_tts_tpu_torch.ops import gelu_dropout as gd
 
     return {f.__name__: f for f in (
         fa.flash_attention, fa.flash_attention_packed, fa.flash_attention_bwd, fa.flash_nosm,
         fa.flash_lanes_fwd, fa.flash_lanes_fwd_stats, fa.flash_lanes_bwd, gd.gelu_dropout_fwd,
-        gd.gelu_dropout_bwd, gd.dropout_fwd, gd.dropout_bwd)}
+        gd.gelu_dropout_bwd, gd.dropout_fwd, gd.dropout_bwd, al.adaln_fwd, al.adaln_bwd)}
 
 
 def zero_counts(wrappers: dict) -> None:
@@ -2673,6 +2809,10 @@ def run_classic(torch, smi: str) -> dict[str, int]:
         if attn != {n: (SYNTH_STEPS * depth if n == want else 0) for n in attn}:
             raise AssertionError(f"{impl} synthesis launched {attn}, expected "
                                  f"{SYNTH_STEPS * depth} of {want} and nothing else")
+        if (counts["adaln_fwd"], counts["adaln_bwd"]) != (SYNTH_STEPS * (3 * depth + 1), 0):
+            raise AssertionError(f"{impl} synthesis launched AdaLN {counts['adaln_fwd']} "
+                                 f"forward, {counts['adaln_bwd']} backward, expected "
+                                 f"{SYNTH_STEPS * (3 * depth + 1)} and 0")
         if not (np.isfinite(wav).all() and len(wav) == frames * hop and np.abs(wav).max() > 0):
             raise AssertionError(f"{impl} synthesis: no finite sound of {frames} frames")
         if impl != "lanes" and not row["mel_rel_l2_vs_lanes"] <= CLASSIC_MEL_REL_L2_TOL:
@@ -2706,7 +2846,8 @@ def run_classic(torch, smi: str) -> dict[str, int]:
                             checkpoint_dir=f"{tmp}/ckpt")
         step_ms, want = [], {"flash_attention": depth, "flash_attention_bwd": depth,
                              "gelu_dropout_fwd": depth, "gelu_dropout_bwd": depth,
-                             "dropout_fwd": depth, "dropout_bwd": depth}
+                             "dropout_fwd": depth, "dropout_bwd": depth,
+                             "adaln_fwd": 3 * depth + 1, "adaln_bwd": 2 * (3 * depth + 1)}
         for step in range(5):
             zero_counts(wrappers)
             t0 = time.perf_counter()
@@ -2781,6 +2922,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.config import F5Config, load_config
     from oron_tts_tpu_torch.data.wav import write_wav
     from oron_tts_tpu_torch.models.f5tts import F5TTS
+    from oron_tts_tpu_torch.ops.adaln import adaln_bwd, adaln_fwd
     from oron_tts_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_bwd,
@@ -2792,10 +2934,19 @@ def run_widths(torch, smi: str) -> dict[str, int]:
     from oron_tts_tpu_torch.train.trainer import F5Trainer
     from oron_tts_tpu_torch.utils.weights import seeded_dit_params
 
+    def adaln(steps: int, depth: int, train: bool) -> dict[str, int]:
+        """AdaLN's launches: three passes a block and norm_out's; a backward pass and its
+        tile sum each."""
+        return {"adaln_fwd": steps * (3 * depth + 1),
+                "adaln_bwd": 2 * steps * (3 * depth + 1) if train else 0}
+
+    def adaln_of(counts: dict) -> dict[str, int]:
+        return {n: counts[n] for n in ("adaln_fwd", "adaln_bwd")}
+
     repo = Path(__file__).resolve().parent
     wrappers = {f.__name__: f for f in (flash_lanes_fwd, flash_lanes_fwd_stats, flash_lanes_bwd,
                                         grouped_conv1d_mish, flash_attention,
-                                        flash_attention_bwd)}
+                                        flash_attention_bwd, adaln_fwd, adaln_bwd)}
     cfg = F5Config.from_file(repo / "configs" / "local.yaml")
     model = F5TTS(cfg)  # the card, bf16
     model.load_params(seeded_dit_params(cfg.model, seed=0))
@@ -2815,7 +2966,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
           "conv_group_width": m.dim // conv.groups, "attn_impl": model.backbone.attn_impl,
           "steps": 8, "wall_s": wall, "samples": len(wav), "launches": synth_counts, "card": smi})
     want = {"flash_lanes_fwd": 8 * m.depth, "flash_lanes_fwd_stats": 0, "flash_lanes_bwd": 0,
-            "grouped_conv1d_mish": 8 * 2, "flash_attention": 0, "flash_attention_bwd": 0}
+            "grouped_conv1d_mish": 8 * 2, "flash_attention": 0, "flash_attention_bwd": 0,
+            **adaln(8, m.depth, train=False)}
     if synth_counts != want or conv.route != "kernel" or m.dim // conv.groups != 32:
         raise AssertionError(f"Small synthesis: launches {synth_counts}, expected {want}, "
                              f"conv route {conv.route}")
@@ -2853,7 +3005,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
           "heads": 5, "head_dim": 20, "attn_impl": model.backbone.attn_impl, "steps": 8,
           "wall_s": wall, "samples": len(wav), "launches": d20_counts, "card": smi})
     if (d20_counts["flash_lanes_fwd"] != 8 * m.depth or model.backbone.attn_impl != "lanes"
-            or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
+            or adaln_of(d20_counts) != adaln(8, m.depth, train=False) or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
         raise AssertionError(f"5 heads of 20: launches {d20_counts}, "
                              f"impl {model.backbone.attn_impl}, finite sound "
                              f"{bool(np.isfinite(wav).all())}")
@@ -2885,7 +3037,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         emit({"phase": "widths_train", "config": "configs/test.yaml", "epochs": 2,
               "wall_s": wall, "checkpoints": ckpts, "launches": train_counts, "card": smi})
         if not (train_counts["flash_lanes_fwd_stats"] > 0 and train_counts["flash_lanes_bwd"] > 0
-                and train_counts["grouped_conv1d_mish"] == 0 and ckpts):
+                and train_counts["grouped_conv1d_mish"] == 0 and ckpts
+                and train_counts["adaln_bwd"] == 2 * train_counts["adaln_fwd"] > 0):
             raise AssertionError(f"test.yaml training: launches {train_counts}, "
                                  f"checkpoints {ckpts}")
 
@@ -2918,7 +3071,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
         if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses)
                 and d128_counts["flash_lanes_fwd_stats"] == 4
                 and d128_counts["flash_lanes_bwd"] == 4
-                and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"):
+                and d128_counts["grouped_conv1d_mish"] == 4 and conv.route == "kernel"
+                and adaln_of(d128_counts) == adaln(2, 2, train=True)):
             raise AssertionError(f"dim-128 bf16 training: launches {d128_counts}, steps {losses}")
 
         # F4: two bf16 F5Trainer steps with two heads of 192 (dim 384, depth 2):
@@ -2945,7 +3099,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
               "card": smi})
         if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses) and impl == "flash"
                 and d192_counts["flash_attention"] == 4
-                and d192_counts["flash_attention_bwd"] == 4):
+                and d192_counts["flash_attention_bwd"] == 4
+                and adaln_of(d192_counts) == adaln(2, 2, train=True)):
             raise AssertionError(f"head-192 bf16 training on flash: impl {impl}, launches "
                                  f"{d192_counts}, steps {losses}")
 
@@ -2971,7 +3126,8 @@ def run_widths(torch, smi: str) -> dict[str, int]:
           "ok": [m["ok"] for m in losses], "wall_s": wall, "launches": d320_counts,
           "card": smi})
     if not (all(m["ok"] and math.isfinite(m["loss"]) for m in losses) and impl == "flash"
-            and d320_counts["flash_attention"] == 4 and d320_counts["flash_attention_bwd"] == 4):
+            and d320_counts["flash_attention"] == 4 and d320_counts["flash_attention_bwd"] == 4
+            and adaln_of(d320_counts) == adaln(2, 2, train=True)):
         raise AssertionError(f"head-320 bf16 training on flash: impl {impl}, launches "
                              f"{d320_counts}, steps {losses}")
     model = F5TTS(F5Config.from_dict(config), dtype=torch.bfloat16)
@@ -2989,7 +3145,7 @@ def run_widths(torch, smi: str) -> dict[str, int]:
           "head_dim": 320, "attn_impl": impl, "steps": 8, "wall_s": wall, "samples": len(wav),
           "launches": d320_synth, "card": smi})
     if (d320_synth["flash_attention"] != 8 * depth or impl != "flash"
-            or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
+            or adaln_of(d320_synth) != adaln(8, depth, train=False) or not (np.isfinite(wav).all() and np.abs(wav).max() > 0)):
         raise AssertionError(f"heads of 320: launches {d320_synth}, impl {impl}, finite sound "
                              f"{bool(np.isfinite(wav).all())}")
     return {n: synth_counts[n] + d20_counts[n] + train_counts[n] + d128_counts[n]

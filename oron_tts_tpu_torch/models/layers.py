@@ -17,7 +17,9 @@ the head-pair forward, "einsum" and "skip" plain tensor ops. The
 position-embedding convs run the grouped-conv kernel
 (``ops/grouped_conv.py``) where the JAX package runs its Pallas conv and
 ``F.conv1d`` where it hands the shape to XLA, and the training FFN runs the
-fused GELU+dropout kernels (``ops/gelu_dropout.py``);
+fused GELU+dropout kernels (``ops/gelu_dropout.py``); AdaLN-Zero's LayerNorm,
+modulation, gate and residual add run as three passes a block each way
+(``ops/adaln.py``: :class:`AdaLayerNorm`, :class:`AdaLayerNormFinal`, :class:`DiTBlock`);
 under int8 serving the six projections of a block are :class:`QDense` and run
 the w8a16 kernel (``ops/quantized_matmul.py``). On CPU tensors all take their
 plain versions.
@@ -52,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from oron_tts_tpu_torch.ops.adaln import adaln_modulate, gate_residual, gate_residual_modulate
 from oron_tts_tpu_torch.ops.flash_attention import (
     flash_attention_lanes,
     flash_attention_packed,
@@ -165,11 +168,6 @@ def text_position_table(dim: int, max_pos: int = 8192, theta: float = 10000.0) -
     freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64)[: dim // 2] / dim))
     angles = np.outer(np.arange(max_pos, dtype=np.float64), freqs)
     return np.concatenate([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
-
-
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm without scale or bias (flax ``use_scale=False, use_bias=False``)."""
-    return F.layer_norm(x, x.shape[-1:], eps=eps)
 
 
 class RMSNorm(nn.Module):
@@ -322,8 +320,7 @@ class AdaLayerNorm(nn.Module):
         if mods is None:
             mods = self.linear(F.silu(emb))
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = _split_mods(mods, 6)
-        out = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-        return out, gate_msa, shift_mlp, scale_mlp, gate_mlp
+        return adaln_modulate(x, scale_msa, shift_msa), gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
 class AdaLayerNormFinal(nn.Module):
@@ -335,7 +332,7 @@ class AdaLayerNormFinal(nn.Module):
         if mods is None:
             mods = self.linear(F.silu(emb))
         scale, shift = _split_mods(mods, 2)
-        return layer_norm(x) * (1 + scale)[:, None] + shift[:, None]
+        return adaln_modulate(x, scale, shift)
 
 
 QUANT_MODES = ("int8", "int8_dynamic")
@@ -678,7 +675,6 @@ class DiTBlock(nn.Module):
     def forward(self, x, t, mask=None, tmods=None, kv_lens=None, seeds=None, batch0=0):
         attn_seed, ff_seed = seeds if seeds is not None else (None, None)
         normed, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.attn_norm(x, t, mods=tmods)
-        x = x + gate_msa[:, None] * self.attn(
-            normed, mask=mask, kv_lens=kv_lens, seed=attn_seed, batch0=batch0)
-        ff_in = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        return x + gate_mlp[:, None] * self.ff(ff_in, seed=ff_seed, batch0=batch0)
+        y = self.attn(normed, mask=mask, kv_lens=kv_lens, seed=attn_seed, batch0=batch0)
+        x, ff_in = gate_residual_modulate(x, y, gate_msa, scale_mlp, shift_mlp)
+        return gate_residual(x, self.ff(ff_in, seed=ff_seed, batch0=batch0), gate_mlp)

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (nine of them: ``flash_lanes``, ``flash_lanes_bwd``,
+Each ``csrc/<name>.cu`` (ten of them: ``flash_lanes``, ``flash_lanes_bwd``,
 ``flash_classic``, ``flash_classic_bwd``, ``gelu_dropout``, ``grouped_conv``,
-``fused_mel``, ``qmm``, ``fused_adamw_ema``; the attention sources share
+``fused_mel``, ``qmm``, ``fused_adamw_ema``, ``adaln``; the attention sources share
 ``flash_fwd.cuh`` and ``flash_bwd.cuh``, and they, ``qmm`` and
 ``grouped_conv`` share ``wgmma.cuh``) exposes a plain C
 interface and becomes its own shared library,
@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("flash_lanes", "flash_lanes_bwd", "flash_classic", "flash_classic_bwd",
-           "gelu_dropout", "grouped_conv", "fused_mel", "qmm", "fused_adamw_ema")
+           "gelu_dropout", "grouped_conv", "fused_mel", "qmm", "fused_adamw_ema", "adaln")
 
 # C signatures: argument ctypes per entry point (all return int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -106,6 +106,14 @@ SIGNATURES = {
         # bf16(b1), 1 - b1, b2, 1 - b2, 1/bc1, 1/bc2, eps, weight decay, EMA decay,
         # 1 - decay, 1/norm, max norm, flags, stream
         "fused_adamw_ema": (_P, _I, _L, _L) + (_F,) * 14 + (_I, _P),
+    },
+    "adaln": {
+        # op, x, y, out, x1, stats, gate, gate row stride, scale, its stride, shift, its
+        # stride, B, T, dim, tile rows, is_bf16, stream
+        "adaln_fwd": (_I,) + (_P,) * 6 + (_L, _P, _L, _P, _L) + (_I,) * 5 + (_P,),
+        # op, x, y, dh, dres, stats, gate, gate row stride, scale, its stride, dx, dy,
+        # partials, dmods, mods rows, B, T, dim, tile rows, is_bf16, stream
+        "adaln_bwd": (_I,) + (_P,) * 6 + (_L, _P, _L) + (_P,) * 4 + (_I,) * 6 + (_P,),
     },
 }
 
