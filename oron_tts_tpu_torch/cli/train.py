@@ -108,7 +108,7 @@ def auto_remat_frames(config: dict) -> int:
 
 def decide_gradient_checkpointing(config: dict, device) -> bool:
     """``gradient_checkpointing: auto`` → the estimate's choice, printed."""
-    from oron_tts_tpu_torch.models.f5tts import config_param_count
+    from oron_tts_tpu_torch.models.f5tts import config_activation_depth, config_param_count
     from oron_tts_tpu_torch.utils.memory import (
         auto_gradient_checkpointing,
         device_memory_bytes,
@@ -119,7 +119,8 @@ def decide_gradient_checkpointing(config: dict, device) -> bool:
     budget = device_memory_bytes(device) if device.type == "cuda" else host_memory_bytes()
     bf16 = config.get("mixed_precision", "bfloat16") == "bfloat16" and device.type == "cuda"
     remat = auto_gradient_checkpointing(config, frames, config_param_count(config),
-                                        device_bytes=budget, bf16_compute=bf16)
+                                        device_bytes=budget, bf16_compute=bf16,
+                                        act_depth=config_activation_depth(config))
     print(f"gradient_checkpointing=auto -> {remat} ({frames} frames)")
     return remat
 

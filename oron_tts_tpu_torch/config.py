@@ -16,10 +16,12 @@ from typing import Any
 
 
 # The names ``model.backbone`` takes (``models/f5tts.py`` ``BACKBONES`` has their
-# classes) and their own defaults; a ``text_dim`` of None is the mel width.
-BACKBONE_DEFAULTS: dict[str, dict[str, int | None]] = {
+# classes) and their own defaults; a ``text_dim`` of None is the mel width, "dim" the
+# model width.
+BACKBONE_DEFAULTS: dict[str, dict[str, int | str | None]] = {
     "DiT": {"text_dim": 512, "conv_layers": 4},  # F5-TTS
     "UNetT": {"text_dim": None, "conv_layers": 0},  # E2 TTS: characters at the mel width
+    "MMDiT": {"text_dim": "dim", "conv_layers": 0},  # F5-TTS's SD3 block: a text stream
 }
 
 
@@ -48,8 +50,8 @@ class ModelConfig:
     frac_lengths_mask: tuple[float, float] = (0.7, 1.0)
     # a key of BACKBONE_DEFAULTS
     backbone: str = "DiT"
-    # UNetT only: re-zero the text padding between text conv blocks, and the
-    # number of heads RoPE rotates (None: every head)
+    # UNetT and MMDiT: zero the text padding (the MMDiT's after its positions); UNetT
+    # only: the number of heads RoPE rotates (None: every head)
     text_mask_padding: bool = True
     pe_attn_head: int | None = None
 
@@ -83,13 +85,16 @@ class F5Config:
             raise ValueError(f"model.backbone must be one of {tuple(BACKBONE_DEFAULTS)}, "
                              f"got {backbone!r}")
         defaults = BACKBONE_DEFAULTS[backbone]
+        dim = m.get("dim", 1024)
+        text_dim = {None: cfg.get("n_mels", 100), "dim": dim}.get(
+            defaults["text_dim"], defaults["text_dim"])
         model = ModelConfig(
             vocab_size=m.get("vocab_size", 65),
-            dim=m.get("dim", 1024),
+            dim=dim,
             depth=m.get("depth", 22),
             heads=m.get("heads", 16),
             ff_mult=m.get("ff_mult", 4),
-            text_dim=m.get("text_dim", defaults["text_dim"] or cfg.get("n_mels", 100)),
+            text_dim=m.get("text_dim", text_dim),
             conv_layers=m.get("conv_layers", defaults["conv_layers"]),
             p_dropout=m.get("p_dropout", 0.1),
             audio_drop_prob=m.get("audio_drop_prob", 0.3),

@@ -1,9 +1,9 @@
 """What every backbone shares (PyTorch): the network ``CFM`` trains and samples.
 
-The F5-TTS DiT (``models/dit.py``) and E2 TTS's UNetT (``models/unett.py``)
-subclass :class:`Backbone`. A new one is its module plus a row in
-``models/f5tts.py`` ``BACKBONES`` (name to class) and in ``config.py``
-``BACKBONE_DEFAULTS`` (name to defaults).
+The F5-TTS DiT (``models/dit.py``), E2 TTS's UNetT (``models/unett.py``) and
+F5-TTS's two-stream MMDiT (``models/mmdit.py``) subclass :class:`Backbone`. A new
+one is its module plus a row in ``models/f5tts.py`` ``BACKBONES`` (name to class)
+and in ``config.py`` ``BACKBONE_DEFAULTS`` (name to defaults).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from oron_tts_tpu_torch.utils.weights import init_module_params
 
 
 class InputEmbedding(nn.Module):
-    """concat([x, cond, text_embed]) → Linear(dim) + residual conv-pos embed."""
+    """concat([x, cond, text_embed]) → Linear(dim) + residual conv-pos embed; with
+    ``text_dim`` 0 (a text stream of its own) concat([x, cond]) alone."""
 
     def __init__(self, mel_dim: int, text_dim: int, out_dim: int) -> None:
         super().__init__()
@@ -32,7 +33,8 @@ class InputEmbedding(nn.Module):
         if drop_audio_cond:
             cond = torch.zeros_like(cond)
         dtype = self.proj.weight.dtype
-        h = self.proj(torch.cat([x, cond, text_embed.to(x.dtype)], dim=-1).to(dtype))
+        parts = [x, cond] if text_embed is None else [x, cond, text_embed.to(x.dtype)]
+        h = self.proj(torch.cat(parts, dim=-1).to(dtype))
         return self.conv_pos_embed(h, mask=mask) + h
 
 
@@ -43,10 +45,15 @@ class Backbone(nn.Module):
     override what is its own: :meth:`initial_params`, :meth:`param_count` (what
     ``gradient_checkpointing: auto`` budgets for), ``config_fields`` (the ``ModelConfig``
     fields its constructor takes beyond the shared widths) and ``torch_layout`` (whether
-    the reference's torch checkpoints, ``utils/torch_compat.py``, convert to it)."""
+    the reference's torch checkpoints, ``utils/torch_compat.py``, convert to it).
+
+    With ``text_stream`` the text is not part of the input projection: it is embedded
+    at ``text_dim`` with its sinusoidal positions and handed to ``_transformer`` beside
+    the audio, as ``(audio, text)`` (:meth:`_embed`)."""
 
     config_fields: tuple[str, ...] = ()
     torch_layout = False
+    text_stream = False
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, ff_mult: int,
                  mel_dim: int, vocab_size: int, text_dim: int, conv_layers: int,
@@ -58,8 +65,9 @@ class Backbone(nn.Module):
         self.quant = quant
         self.mesh = None  # set by shard()
         self.time_embed = TimestepEmbedding(dim)
-        self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers)
-        self.input_embed = InputEmbedding(mel_dim, text_dim, dim)
+        self.text_embed = TextEmbedding(vocab_size, text_dim, conv_layers,
+                                        positions=self.text_stream)
+        self.input_embed = InputEmbedding(mel_dim, 0 if self.text_stream else text_dim, dim)
 
     @classmethod
     def from_config(cls, m: ModelConfig, n_mels: int, gradient_checkpointing: bool = False,
@@ -77,9 +85,19 @@ class Backbone(nn.Module):
         with torch.device("meta"):
             return sum(p.numel() for p in cls.from_config(m, n_mels).parameters())
 
+    @classmethod
+    def activation_depth(cls, m: ModelConfig) -> int:
+        """Block-streams whose activations a step holds (``utils/memory.py``): one a block."""
+        return m.depth
+
     def initial_params(self, seed: int = 0) -> dict[str, Any]:
         """A fresh flax-layout tree for this (whole) backbone: flax's default initialisers."""
         return init_module_params(self, seed)
+
+    @property
+    def dropout_pairs(self) -> int:
+        """(attention, FFN) dropout seed pairs a training forward takes: one a block."""
+        return self.depth
 
     @property
     def blocks(self) -> list[nn.Module]:
@@ -165,9 +183,17 @@ class Backbone(nn.Module):
             t = self.time_embed(time)
         if text_embed is None:
             text_embed = self.embed_text(text_ids, x.shape[1], drop_text=drop_text)
-        h = self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
+        h = self._embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
         return self._transformer(h, t, mask, t_mods=t_mods, dropout_seeds=dropout_seeds,
                                  batch0=batch0)
+
+    def _embed(self, x, cond, text_embed, drop_audio_cond: bool = False, mask=None):
+        """What ``_transformer`` takes: ``[x, cond, text]`` projected, one stream; with
+        ``text_stream``, ``(audio, text)``, ``[x, cond]`` projected beside the text."""
+        if self.text_stream:
+            return (self.input_embed(x, cond, None, drop_audio_cond=drop_audio_cond, mask=mask),
+                    text_embed)
+        return self.input_embed(x, cond, text_embed, drop_audio_cond=drop_audio_cond, mask=mask)
 
     def forward_cfg(
         self,
@@ -192,7 +218,7 @@ class Backbone(nn.Module):
             t = self.time_embed(time)
             t2 = torch.cat([t, t], dim=0)
         mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
-        h = self.input_embed(
+        h = self._embed(
             torch.cat([x, x], dim=0),
             torch.cat([cond, torch.zeros_like(cond)], dim=0),
             torch.cat([text_embed_cond, text_embed_uncond], dim=0),

@@ -6,8 +6,9 @@ decision per batch (dropping the text forces dropping the audio), and the
 MSE between the predicted and the true flow over the span's frames × mel
 bins. Every random number of a training loss comes from one explicit CPU
 ``torch.Generator`` (so a step is the same on the CPU and on the card):
-span fractions, span starts, times, the two drop decisions, ``x0``, and one
-``(attention, FFN)`` dropout seed pair per backbone block, in that order. With
+span fractions, span starts, times, the two drop decisions, ``x0``, and the
+backbone's ``dropout_pairs`` ``(attention, FFN)`` dropout seed pairs (one a block;
+the MMDiT's text FFNs take more), in that order. With
 ``train=False`` the loss is deterministic (``t = 0.5``, a centred span of
 the middle fraction, no dropout). The streams differ from ``jax.random``'s;
 parity tests pass ``x0`` in.
@@ -27,8 +28,9 @@ the single-process gradient.
 
 ``CFM.sample``: sway-warped time grid, classifier-free guidance as one doubled-batch
 forward per step (``pred + (pred − null)·cfg``), AdaLN projections hoisted
-over the whole schedule before the loop (a UNetT, which has none, hoists its
-time embedding alone; ``hoist_t_mods=False`` runs them inside every forward
+over the whole schedule before the loop (both streams' for an MMDiT; a UNetT, which
+has none, hoists its time embedding alone; ``hoist_t_mods=False`` runs them inside
+every forward
 instead, as the reference does), and the conditioning region
 re-substituted at the end. The ODE state stays f32 whatever the model's
 compute dtype, as in the JAX sampler. ``cfg_interval=(lo, hi)`` applies guidance only at
@@ -141,7 +143,7 @@ def cfg_segments(
 
 
 class CFM:
-    """Stateless trainer/sampler around a DiT or UNetT backbone."""
+    """Stateless trainer/sampler around a backbone (``models/backbone.py``)."""
 
     def __init__(
         self,
@@ -204,7 +206,8 @@ class CFM:
                 if x0 is None:
                     x0 = torch.randn((g_batch, *x1.shape[1:]), generator=generator)[rows]
                 seeds = torch.randint(
-                    -2**31, 2**31, (self.backbone.depth, 2), generator=generator).tolist()
+                    -2**31, 2**31, (self.backbone.dropout_pairs, 2),
+                    generator=generator).tolist()
                 dropout_seeds = [tuple(pair) for pair in seeds]
                 x0 = x0.to(device=device, dtype=torch.float32)
         else:

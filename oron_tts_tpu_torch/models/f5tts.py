@@ -14,9 +14,10 @@ for the chunks of a paragraph. ``quantize_for_serving`` switches the loaded
 backbone to int8 weights in memory.
 
 The backbone is the one ``model.backbone`` names (:data:`BACKBONES`,
-:func:`build_backbone`): the F5-TTS DiT by default, or E2 TTS's UNetT
-(``models/unett.py``, ``configs/e2_base.yaml``), which trains, samples and
-shards through the same methods (``models/backbone.py``).
+:func:`build_backbone`): the F5-TTS DiT by default, E2 TTS's UNetT
+(``models/unett.py``, ``configs/e2_base.yaml``) or F5-TTS's two-stream MMDiT
+(``models/mmdit.py``, ``configs/mmdit_base.yaml``; TP 1 only), which train, sample
+and shard through the same methods (``models/backbone.py``).
 
 Runs on the card unless ``device="cpu"`` is given; without CUDA and
 without that request it raises.
@@ -57,6 +58,7 @@ from oron_tts_tpu_torch.config import F5Config, ModelConfig
 from oron_tts_tpu_torch.models.backbone import Backbone
 from oron_tts_tpu_torch.models.cfm import CFM
 from oron_tts_tpu_torch.models.dit import DiT, quantize_dit_params
+from oron_tts_tpu_torch.models.mmdit import MMDiT
 from oron_tts_tpu_torch.models.unett import UNetT
 from oron_tts_tpu_torch.models.vocos import VocosDecoder, convert_vocos_state_dict
 from oron_tts_tpu_torch.ops.audio import AudioProcessor
@@ -147,7 +149,7 @@ def concat_with_pause(waveforms: list[np.ndarray], sample_rate: int, pause_s: fl
 
 
 # ``model.backbone``'s names, as ``config.BACKBONE_DEFAULTS`` has them
-BACKBONES: dict[str, type[Backbone]] = {"DiT": DiT, "UNetT": UNetT}
+BACKBONES: dict[str, type[Backbone]] = {"DiT": DiT, "UNetT": UNetT, "MMDiT": MMDiT}
 
 
 def build_backbone(m: ModelConfig, n_mels: int, gradient_checkpointing: bool,
@@ -163,8 +165,15 @@ def config_param_count(config: dict[str, Any]) -> int:
     return BACKBONES[c.model.backbone].param_count(c.model, c.audio.n_mels)
 
 
+def config_activation_depth(config: dict[str, Any]) -> int:
+    """Block-streams whose activations a training step of the config's backbone holds
+    (:meth:`Backbone.activation_depth`), for ``utils/memory.py``'s estimate."""
+    m = F5Config.from_dict(config).model
+    return BACKBONES[m.backbone].activation_depth(m)
+
+
 class F5TTS:
-    """DiT or UNetT backbone + CFM sampler + audio front end + Vocos vocoder."""
+    """DiT, UNetT or MMDiT backbone + CFM sampler + audio front end + Vocos vocoder."""
 
     def __init__(
         self,

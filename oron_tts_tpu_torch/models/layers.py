@@ -72,6 +72,7 @@ from oron_tts_tpu_torch.ops.quantized_matmul import (
     w8a8_matmul,
 )
 from oron_tts_tpu_torch.parallel.mesh import all_reduce_sum
+from oron_tts_tpu_torch.utils import trace
 
 __all__ = [
     "mish", "sinusoidal_embedding", "rope_tables", "apply_rope", "apply_rope_lanes",
@@ -79,7 +80,8 @@ __all__ = [
     "text_position_table", "RMSNorm", "TimestepEmbedding", "conv_route", "ConvPositionEmbedding",
     "DepthwiseConv1d", "GRN", "ConvNeXtV2Block", "AdaLayerNorm",
     "AdaLayerNormFinal", "QDense", "make_dense", "ATTN_IMPLS", "resolve_attn_impl",
-    "Attention", "FeedForward", "DiTBlock", "CopyToModel", "SumOverModel", "TensorParallel",
+    "Attention", "JointAttention", "FeedForward", "DiTBlock", "CopyToModel", "SumOverModel",
+    "TensorParallel",
 ]
 
 
@@ -105,19 +107,21 @@ def rope_tables(seq_len: int, dim_head: int, theta: float = 10000.0) -> tuple[np
 
 
 @functools.lru_cache(maxsize=16)
-def lanes_rope(seq_len: int, dim_head: int, heads: int, device: str, dtype: torch.dtype):
-    """cos/sin tiled over heads to [1, T, H·D] on ``device`` in ``dtype``."""
+def lanes_rope(seq_len: int, dim_head: int, heads: int, device: str, dtype: torch.dtype,
+               streams: int = 1):
+    """cos/sin tiled over heads to [1, streams·T, H·D] on ``device`` in ``dtype``: each of
+    ``streams`` streams laid end to end over its own positions 0 .. T − 1."""
     cos, sin = rope_tables(seq_len, dim_head)
     return tuple(
-        torch.from_numpy(np.tile(a, (1, heads))[None]).to(device=device, dtype=dtype)
+        torch.from_numpy(np.tile(a, (streams, heads))[None]).to(device=device, dtype=dtype)
         for a in (cos, sin)
     )
 
 
 @functools.lru_cache(maxsize=16)
-def heads_rope(seq_len: int, dim_head: int, device: str, dtype: torch.dtype):
-    """cos/sin [T, D] on ``device`` in ``dtype``, for :func:`apply_rope`."""
-    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+def heads_rope(seq_len: int, dim_head: int, device: str, dtype: torch.dtype, streams: int = 1):
+    """cos/sin [streams·T, D] on ``device`` in ``dtype``, for :func:`apply_rope`."""
+    return tuple(torch.from_numpy(np.tile(a, (streams, 1))).to(device=device, dtype=dtype)
                  for a in rope_tables(seq_len, dim_head))
 
 
@@ -576,45 +580,106 @@ class Attention(nn.Module):
     ) -> torch.Tensor:
         """``batch0`` is the global index of ``x``'s first row (the dropout mask's place)."""
         B, T, _ = x.shape
-        n, dev = self.rope_heads, str(x.device)
         xc = _column_input(x, self.tp)
         q, k, v = self.to_q(xc), self._keys(xc), self.to_v(xc)
         if kv_lens is None:
             kv_lens = kv_lengths(mask, B, T, x.device)
+        return self._output(self._attend(q, k, v, kv_lens, mask, T, x.dtype), mask, seed, batch0)
+
+    def _attend(self, q, k, v, kv_lens, key_mask, positions: int, dtype) -> torch.Tensor:
+        """RoPE and attention of q, k, v ``[B, L, H·D]``, ``L`` being one or more streams of
+        ``positions`` laid end to end, each rotated over its own positions; keys past a
+        row's ``kv_lens`` (``key_mask``'s prefix) are masked. Returns ``[B, L, H·D]``."""
+        B, L, _ = q.shape
+        n, dev, streams = self.rope_heads, str(q.device), L // positions
         if self.impl == "lanes":
             if n is None:
-                cos, sin = lanes_rope(T, self.dim_head, self.heads, dev, x.dtype)
+                cos, sin = lanes_rope(positions, self.dim_head, self.heads, dev, dtype, streams)
                 q, k = apply_rope_lanes(q, k, cos, sin, self.heads)
             elif n:
-                cos, sin = lanes_rope(T, self.dim_head, n, dev, x.dtype)
+                cos, sin = lanes_rope(positions, self.dim_head, n, dev, dtype, streams)
                 q, k = apply_partial_rope_lanes(q, k, cos, sin, n)
-            out = flash_attention_lanes(q, k, v, kv_lens, self.heads)
+            return flash_attention_lanes(q, k, v, kv_lens, self.heads)
+        q, k, v = (y.view(B, L, self.heads, self.dim_head).transpose(1, 2) for y in (q, k, v))
+        if n != 0:
+            cos, sin = heads_rope(positions, self.dim_head, dev, dtype, streams)
+            q, k = (apply_rope(q, k, cos, sin) if n is None
+                    else apply_partial_rope(q, k, cos, sin, n))
+        if self.impl == "skip":
+            out = v + 0.0 * q
+        elif self.impl == "flash":
+            out = flash_attention_trainable(q, k, v, kv_lens)
+        elif self.impl == "packed":
+            out = flash_attention_packed(q, k, v, kv_lens)
         else:
-            q, k, v = (y.view(B, T, self.heads, self.dim_head).transpose(1, 2) for y in (q, k, v))
-            if n != 0:
-                cos, sin = heads_rope(T, self.dim_head, dev, x.dtype)
-                q, k = (apply_rope(q, k, cos, sin) if n is None
-                        else apply_partial_rope(q, k, cos, sin, n))
-            if self.impl == "skip":
-                out = v + 0.0 * q
-            elif self.impl == "flash":
-                out = flash_attention_trainable(q, k, v, kv_lens)
-            elif self.impl == "packed":
-                out = flash_attention_packed(q, k, v, kv_lens)
-            else:
-                logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-                logits = logits * (1.0 / math.sqrt(self.dim_head))
-                if mask is not None:
-                    logits = logits.masked_fill(~mask[:, None, None, :], -1e9)
-                probs = torch.softmax(logits, dim=-1).to(q.dtype)
-                out = torch.matmul(probs, v)
-            out = out.transpose(1, 2).reshape(B, T, self.heads * self.dim_head)
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            logits = logits * (1.0 / math.sqrt(self.dim_head))
+            if key_mask is not None:
+                logits = logits.masked_fill(~key_mask[:, None, None, :], -1e9)
+            probs = torch.softmax(logits, dim=-1).to(q.dtype)
+            out = torch.matmul(probs, v)
+        return out.transpose(1, 2).reshape(B, L, self.heads * self.dim_head)
+
+    def _output(self, out, mask, seed: int | None, batch0: int) -> torch.Tensor:
+        """``to_out``, then with ``seed`` dropout and the re-mask in one pass each way;
+        without, the re-mask alone."""
+        T = out.shape[1]
         out = _row_parallel(self.to_out, out, self.tp)
-        if seed is not None:  # dropout and the re-mask in one pass each way
+        if seed is not None:
             return hash_dropout(out, seed, self.dropout, row0=batch0 * T, rows=mask)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
+
+
+class JointAttention(Attention):
+    """SD3's joint attention (MMDiT): audio ``x`` and text ``c`` ``[B, T, dim]``, each with
+    its own q/k/v projections, attend as one sequence ``[c; x]`` of ``2T``.
+
+    RoPE turns each stream over its own positions 0 .. T − 1. Every text key is
+    admitted (upstream masks none), so the joint key mask is still a per-row prefix,
+    ``kv_lens = T + len``, and the lanes kernels take it unchanged. The output is split
+    back: the audio part through ``to_out``, dropout and the pad-row re-mask
+    (:meth:`Attention._output`), the text part through ``to_out_c`` alone. With
+    ``context_pre_only`` (the last block) the text gives keys and values only: there is
+    no ``to_q_c`` and no ``to_out_c``, and the text rows of the joint query are zeros,
+    since the lanes kernels take one length for queries and keys (their output is
+    dropped). Span ``mmdit.joint`` (``utils/trace.py``) covers the concatenation of the
+    streams and the split of the output. Tensor parallelism is not built for it.
+    """
+
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, dropout: float = 0.0,
+                 quant: str | None = None, use_flash: bool = True,
+                 attn_impl: str | None = None, context_pre_only: bool = False) -> None:
+        super().__init__(dim, heads, dim_head, dropout, quant, use_flash, attn_impl)
+        inner = heads * dim_head
+        self.context_pre_only = context_pre_only
+        if not context_pre_only:
+            self.to_q_c = make_dense(dim, inner, quant)
+        self.to_k_c = make_dense(dim, inner, quant)
+        self.to_v_c = make_dense(dim, inner, quant)
+        if not context_pre_only:
+            self.to_out_c = make_dense(inner, dim, quant)
+
+    def shard(self, tp: TensorParallel) -> None:
+        raise NotImplementedError("JointAttention has no tensor-parallel split")
+
+    def forward(self, x, c, kv_lens, mask=None, key_mask=None, seed=None, batch0=0):
+        """``(audio output, text output)``; the text output is None with
+        ``context_pre_only``. ``kv_lens`` and ``key_mask`` are the joint keys (``T + len``;
+        ``[B, 2T]``), ``mask`` the audio's ``[B, T]`` prefix (None: no padding)."""
+        T = x.shape[1]
+        qx, kx, vx = self.to_q(x), self.to_k(x), self.to_v(x)
+        qc = None if self.context_pre_only else self.to_q_c(c)
+        kc, vc = self.to_k_c(c), self.to_v_c(c)
+        with trace.span("mmdit.joint"):
+            q = F.pad(qx, (0, 0, T, 0)) if qc is None else torch.cat([qc, qx], dim=1)
+            k, v = torch.cat([kc, kx], dim=1), torch.cat([vc, vx], dim=1)
+        out = self._attend(q, k, v, kv_lens, key_mask, T, x.dtype)
+        with trace.span("mmdit.joint"):
+            out_c, out_x = out[:, :T], out[:, T:]
+        y_c = None if self.context_pre_only else self.to_out_c(out_c)
+        return self._output(out_x, mask, seed, batch0), y_c
 
 
 class FeedForward(nn.Module):

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/text_embed.py``: ids shift by +1
 so 0 is the filler (the collator pads with -1), the sequence is cropped or
 padded to the mel length, ``drop_text`` replaces every id with the filler
 (the CFG unconditional branch), and padding positions are re-zeroed after
-every block.
+every block. With no blocks the lookup is all, unless ``positions`` asks for the
+sinusoidal positions, the padding then zeroed (the MMDiT's text stream).
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ from oron_tts_tpu_torch.models.layers import ConvNeXtV2Block, text_position_tabl
 
 class TextEmbedding(nn.Module):
     def __init__(
-        self, vocab_size: int, text_dim: int, conv_layers: int = 0, conv_mult: int = 2
+        self, vocab_size: int, text_dim: int, conv_layers: int = 0, conv_mult: int = 2,
+        positions: bool = False,
     ) -> None:
         super().__init__()
         self.text_dim, self.conv_layers = text_dim, conv_layers
+        self.positions = positions or conv_layers > 0
         self.embed = nn.Embedding(vocab_size + 1, text_dim)
         for i in range(conv_layers):
             self.add_module(f"block{i}", ConvNeXtV2Block(text_dim, text_dim * conv_mult))
@@ -43,7 +46,7 @@ class TextEmbedding(nn.Module):
         if drop_text:
             shifted = torch.zeros_like(shifted)
         emb = self.embed(shifted)
-        if self.conv_layers > 0:
+        if self.positions:
             emb = emb + self._positions(seq_len, emb)[None]
             emb = emb.masked_fill(~keep, 0.0)
             for i in range(self.conv_layers):

@@ -9,9 +9,11 @@ errs high.
 The estimate is the port's own layout (``train/trainer.py``): f32 master
 weights, the EMA (f32), AdamW's first moment (bf16 by default) and second
 (f32), the working copy the backbone computes in (bf16 on the card) and the
-f32 gradients, plus activations linear in the padded frames. The parameter
-count is the caller's, as each backbone states it (``models/f5tts.py``
-``config_param_count``). The activation constants and the margin were
+f32 gradients, plus activations linear in the padded frames and in the
+block-streams a step holds (a block each for the DiT and the UNetT, two for the
+MMDiT). The parameter count and the block-streams are the caller's, as each
+backbone states them (``models/f5tts.py`` ``config_param_count``,
+``config_activation_depth``). The activation constants and the margin were
 fitted on an NVIDIA H100 80GB HBM3 (700 W) from
 ``torch.cuda.max_memory_allocated`` of Base bf16 "lanes" steps with and
 without rematerialisation (``chip_smoke.py``, ``memory`` phase, which prints
@@ -24,7 +26,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
-# Activation bytes a padded frame holds, per model dim and block, in a
+# Activation bytes a padded frame holds, per model dim and block-stream, in a
 # bf16 step without rematerialisation (every block's saved tensors), and with
 # it (each block's checkpointed inputs; one block's full set is added back
 # for its recompute in the backward). Base peaks rose 8.27 GB for every 8,192
@@ -101,13 +103,15 @@ def worst_case_padded_frames(
 
 def auto_gradient_checkpointing(
     config: dict[str, Any], frames: int, n_params: int, device_bytes: int | None = None,
-    bf16_compute: bool | None = None,
+    bf16_compute: bool | None = None, act_depth: int | None = None,
 ) -> bool:
     """True = rematerialise; False = the step without it fits ``device_bytes``.
 
     ``n_params`` is the backbone's parameter count; ``device_bytes`` defaults to
     the card's memory (:func:`device_memory_bytes`); ``bf16_compute`` to the
-    config's ``mixed_precision``.
+    config's ``mixed_precision``; ``act_depth``, the block-streams whose activations
+    the step holds, to ``model.depth`` (two a block for an MMDiT: ``models/f5tts.py``
+    ``config_activation_depth``).
     """
     m = config.get("model", {}) or {}
     if device_bytes is None:
@@ -115,7 +119,7 @@ def auto_gradient_checkpointing(
     if bf16_compute is None:
         bf16_compute = config.get("mixed_precision", "bfloat16") == "bfloat16"
     need = estimate_train_bytes(
-        n_params, frames, m.get("dim", 1024), m.get("depth", 22),
+        n_params, frames, m.get("dim", 1024), act_depth or m.get("depth", 22),
         mu_bf16=config.get("adam_mu_dtype", "bfloat16") == "bfloat16",
         bf16_compute=bf16_compute, remat=False,
     )
